@@ -10,3 +10,6 @@ assert "xla_force_host_platform_device_count=512" not in \
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (the port's CUDA "
+        "kernels); skips elsewhere")
