@@ -9,9 +9,10 @@ PyTorch built for CUDA::
 Phases, in order (any failure ends the run with a non-zero exit code):
 
 1. Set-up: build the CUDA kernels from ``src/repro_torch/csrc`` into
-   ``build/kernels`` and print the card's name and power limit.
+   ``build/kernels`` (one ``nvcc`` per source, all started together) and
+   print the card's name and power limit.
 2. Kernels against their plain PyTorch versions, in bf16 at the serving
-   path's shapes: max |difference| against the stated tolerance, and each
+   paths' shapes: max |difference| against the stated tolerance, and each
    kernel's time (CUDA events, median of 20 launches, L2 flushed before
    each) beside its roofline bound, its plain version's time and, where
    one exists, the time of the one PyTorch call that computes the same
@@ -20,12 +21,23 @@ Phases, in order (any failure ends the run with a non-zero exit code):
 3. Serve llama3.2-3b at full width (28 layers, bf16, random weights from a
    seed) with ``ftl_mode='fused'`` on the ``h100`` planning target: 8
    requests, 4 slots, paged KV.  The launch counters are set to 0 just
-   before this run and read just after; every kernel must have launched
-   and must show in the profiler's device-kernel list.  A second,
-   unprofiled run gives the serving times.
-4. The served path against the plain path: one 256-token prompt prefilled
-   with ``ftl_mode='fused'`` and ``'off'``.
-5. One JSON line per the kernels, then the result line.
+   before this run and read just after; every kernel of the path must
+   have launched and must show in the profiler's device-kernel list.  A
+   second, unprofiled run gives the serving times.
+4. llama3.2-3b's served path against the plain path: one 256-token prompt
+   prefilled with ``ftl_mode='fused'`` and ``'off'``.
+5. Serve recurrentgemma-9b at full width (38 layers, bf16, random weights
+   from a seed) the same way: 8 requests of 128-3072 tokens, 4 slots,
+   dense per-slot cache, ``max_seq`` 4096.  Its path runs all four
+   kernels: the RG-LRU scan in every recurrent layer's prefill, flash
+   attention at head_dim 256 in every local layer's prefill, the fused
+   MLP in both phases, and the GEMM in ``execute_block_plan``.
+6. recurrentgemma-9b's served path against the plain path (a 2,500-token
+   prefill, fused against ``'off'``) and the engine against the model:
+   the engine's first 8 greedy tokens for a 2,500-token prompt (bucket
+   4096, past the 2048 window) equal the model's own ``prefill`` +
+   ``decode_step`` loop on the unpadded prompt.
+7. One JSON line for the kernels, then the result line.
 
 It exits non-zero, printing no result, when no CUDA device is visible,
 and when it stands alone without the rest of the repository.
@@ -48,15 +60,22 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# dense bf16 tensor-core FLOP/s, at the 700 W power limit
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# dense bf16 tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores,
+# at the 700 W power limit
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# repro.models.model.count_params of recurrentgemma-9b
+RG_PARAMS = 10_444_984_320
 
 # kernel vs plain version, elementwise: |k - p| <= ATOL + RTOL * |p| (the
 # JAX kernel tests' bf16 tolerance: both round fp32 sums to bf16, in
 # different orders)
 ATOL = RTOL = 2e-2
+
+LLAMA, RG = "llama3.2-3b", "recurrentgemma-9b"
 
 N_TIMED = 20
 
@@ -102,8 +121,9 @@ class Timer:
         return statistics.median(out)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BPS, flops / BF16_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS
+             ) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BPS, flops / peak
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -112,24 +132,26 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def compare(out: torch.Tensor, want: torch.Tensor, label: str) -> float:
+    """Max |out - want|, checked elementwise against ATOL + RTOL * |want|."""
     check(out.shape == want.shape and out.dtype == want.dtype,
           f"{label}: {tuple(out.shape)}/{out.dtype} vs "
           f"{tuple(want.shape)}/{want.dtype}")
     o, w = out.float(), want.float()
     check(bool(torch.isfinite(o).all()), f"{label}: non-finite output")
     err = (o - w).abs()
-    ok = bool((err <= ATOL + RTOL * w.abs()).all())
+    share = float((err / (ATOL + RTOL * w.abs())).max())
+    ok = share <= 1.0
     max_err = float(err.max())
     print(f"  {label}: max|kernel - plain| {max_err} (tolerance "
-          f"{ATOL} + {RTOL}*|plain|, max|plain| {float(w.abs().max())}) "
-          f"{'ok' if ok else 'FAIL'}")
+          f"{ATOL} + {RTOL}*|plain|, mean|plain| {float(w.abs().mean())}, "
+          f"max|plain| {float(w.abs().max())}; largest share of the "
+          f"tolerance used {share}) {'ok' if ok else 'FAIL'}")
     check(ok, f"{label} disagrees with its plain version")
     return max_err
 
 
 def kernel_cases(dev, timer):
-    from repro_torch.core import hw
-    from repro_torch.kernels import flash_attention, fused_mlp, gemm, ref
+    from repro_torch.kernels import flash_attention, gemm, ref
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -137,15 +159,21 @@ def kernel_cases(dev, timer):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             torch.bfloat16)
 
-    results = {"gemm": [], "flash_attention": [], "fused_mlp": []}
+    results = {"gemm": [], "flash_attention": [], "fused_mlp": [],
+               "rg_lru_scan": []}
 
-    for m, k, n in ((1024, 3072, 3072), (1024, 3072, 1024)):
+    # execute_block_plan's projections: llama's at m=1024, and
+    # recurrentgemma-9b's (wq/wo 4096 wide, MQA wk/wv 256 wide) at m=4096
+    for path, (m, k, n) in ((LLAMA, (1024, 3072, 3072)),
+                            (LLAMA, (1024, 3072, 1024)),
+                            (RG, (4096, 4096, 4096)),
+                            (RG, (4096, 4096, 256))):
         x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
         label = f"gemm ({m}x{k})@({k}x{n})"
         err = compare(gemm.gemm(x, w), ref.gemm(x, w), label)
         b, why = bound_ms(2 * (m * k + k * n + m * n), 2 * m * n * k)
         results["gemm"].append(dict(
-            shape=[m, k, n], max_abs_err=err,
+            path=path, shape=[m, k, n], max_abs_err=err,
             ms=timer.ms(lambda: gemm.gemm(x, w)),
             plain_ms=timer.ms(lambda: ref.gemm(x, w)),
             library_ms=timer.ms(lambda: torch.matmul(x, w)),
@@ -162,7 +190,7 @@ def kernel_cases(dev, timer):
         b, why = bound_ms(2 * (2 * q.numel() + 2 * kk.numel()),
                           4 * b_ * hq * dh * pairs)
         results["flash_attention"].append(dict(
-            shape=[b_, hq, hk, t, dh], max_abs_err=err,
+            path=LLAMA, shape=[b_, hq, hk, t, dh], max_abs_err=err,
             ms=timer.ms(lambda: flash_attention.flash_attention(
                 q, kk, v, causal=True)),
             plain_ms=timer.ms(lambda: ref.attention(q, kk, v, causal=True)),
@@ -170,40 +198,40 @@ def kernel_cases(dev, timer):
                 q, kk, v, is_causal=True, enable_gqa=True)),
             bound_ms=b, bound_by=why))
 
-    k_, f_, n_ = 3072, 8192, 3072
-    w1, wg = randn(k_, f_, scale=k_ ** -0.5), randn(k_, f_, scale=k_ ** -0.5)
-    w2 = randn(f_, n_, scale=f_ ** -0.5)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    for m in (1024, 256, 4):
-        x = randn(m, k_)
-        label = f"fused_mlp M={m} {k_}->{f_}->{n_} silu gated"
-        err = compare(fused_mlp.fused_mlp(x, w1, w2, wg, act="silu"),
-                      ref.mlp(x, w1, w2, wg, act="silu"), label)
-        b, why = bound_ms(2 * (m * k_ + 2 * k_ * f_ + f_ * n_ + m * n_),
-                          2 * m * k_ * f_ * 2 + 2 * m * f_ * n_)
-        # the planned F slice against its neighbours: each one's time
-        # beside the bytes of its fp32 partials in device memory and the
-        # bytes h would cost there (bf16, written and read once)
-        tgt = hw.default_target()
-        _, bf = fused_mlp.plan_blocks(m, k_, f_, n_, tgt, n_sm, True)
-        sweep = {}
-        for alt in (bf // 4, bf // 2, bf, 2 * bf):
-            if alt < fused_mlp.F_ALIGN or \
-                    alt not in fused_mlp.feasible_block_f(f_, tgt):
-                continue
-            sweep[str(alt)] = timer.ms(lambda: fused_mlp.fused_mlp(
-                x, w1, w2, wg, act="silu", block_f=alt))
-            print(f"  fused_mlp M={m} block_f={alt}"
-                  f"{' (planned)' if alt == bf else ''}: {sweep[str(alt)]} "
-                  f"ms, partials {fused_mlp.partial_bytes(m, n_, f_, alt)} B "
-                  f"in device memory (h would be {2 * 2 * m * f_} B)")
-        results["fused_mlp"].append(dict(
-            shape=[m, k_, f_, n_], max_abs_err=err, block_f=bf,
-            ms=timer.ms(lambda: fused_mlp.fused_mlp(x, w1, w2, wg,
-                                                     act="silu")),
-            plain_ms=timer.ms(lambda: ref.mlp(x, w1, w2, wg, act="silu")),
-            library_ms=None, bound_ms=b, bound_by=why,
-            block_f_ms=sweep))
+    # recurrentgemma-9b's local attention: MQA 16/1, head_dim 256, window
+    # 2048.  q and k at 1.5 give scores of std 2.25, so that a row's
+    # output is not the near-zero mean of ~2048 values (|o| ~ 0.04 at
+    # unit scale) and one key more or less at the window's edge shows far
+    # beyond the tolerance
+    b_, hq, hk, dh, win = 1, 16, 1, 256, 2048
+    for t in (4096, 1024):
+        q, kk, v = (randn(b_, hq, t, dh, scale=1.5),
+                    randn(b_, hk, t, dh, scale=1.5), randn(b_, hk, t, dh))
+        kw = dict(causal=True, window=win)
+        label = (f"flash_attention B={b_} Hq={hq} Hk={hk} T={t} D={dh} "
+                 f"causal window={win}")
+        err = compare(flash_attention.flash_attention(q, kk, v, **kw),
+                      ref.attention(q, kk, v, **kw), label)
+        qi = torch.arange(t, device=dev)
+        # unmasked (query, key) pairs: each query sees min(q + 1, window)
+        pairs = int(torch.clamp(qi + 1, max=win).sum())
+        b, why = bound_ms(2 * (2 * q.numel() + 2 * kk.numel()),
+                          4 * b_ * hq * dh * pairs)
+        mask = (qi[None, :] <= qi[:, None]) & (qi[None, :] > qi[:, None] - win)
+        results["flash_attention"].append(dict(
+            path=RG, shape=[b_, hq, hk, t, dh], window=win, max_abs_err=err,
+            ms=timer.ms(lambda: flash_attention.flash_attention(
+                q, kk, v, **kw)),
+            plain_ms=timer.ms(lambda: ref.attention(q, kk, v, **kw)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                q, kk, v, attn_mask=mask, enable_gqa=True)),
+            bound_ms=b, bound_by=why))
+
+    results["fused_mlp"] += fused_mlp_cases(
+        dev, timer, randn, 3072, 8192, 3072, "silu", (1024, 256, 4), LLAMA)
+    results["fused_mlp"] += fused_mlp_cases(
+        dev, timer, randn, 4096, 12288, 4096, "gelu", (4096, 1024, 4), RG)
+    results["rg_lru_scan"] = rg_lru_cases(dev, timer, randn)
 
     for name, cases in results.items():
         for c in cases:
@@ -215,60 +243,154 @@ def kernel_cases(dev, timer):
     return results
 
 
+def fused_mlp_cases(dev, timer, randn, k_, f_, n_, act, ms, path):
+    """The gated fused MLP at widths K -> F -> N against its plain version
+    at each M of ``ms``; the planned F slice timed beside its
+    neighbours."""
+    from repro_torch.core import hw
+    from repro_torch.kernels import fused_mlp, ref
+
+    out = []
+    w1, wg = randn(k_, f_, scale=k_ ** -0.5), randn(k_, f_, scale=k_ ** -0.5)
+    w2 = randn(f_, n_, scale=f_ ** -0.5)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in ms:
+        x = randn(m, k_)
+        label = f"fused_mlp M={m} {k_}->{f_}->{n_} {act} gated"
+        err = compare(fused_mlp.fused_mlp(x, w1, w2, wg, act=act),
+                      ref.mlp(x, w1, w2, wg, act=act), label)
+        b, why = bound_ms(2 * (m * k_ + 2 * k_ * f_ + f_ * n_ + m * n_),
+                          2 * m * k_ * f_ * 2 + 2 * m * f_ * n_)
+        # the planned F slice against its neighbours: each one's time
+        # beside its fp32 partial buffer, the bytes the partials move in
+        # device memory (written and read once) and what h would move there
+        # (bf16, written and read once)
+        tgt = hw.default_target()
+        _, bf = fused_mlp.plan_blocks(m, k_, f_, n_, tgt, n_sm, True)
+        sweep = {}
+        for alt in (bf // 4, bf // 2, bf, 2 * bf):
+            if alt < fused_mlp.F_ALIGN or \
+                    alt not in fused_mlp.feasible_block_f(f_, tgt):
+                continue
+            sweep[str(alt)] = timer.ms(lambda: fused_mlp.fused_mlp(
+                x, w1, w2, wg, act=act, block_f=alt))
+            moved = fused_mlp.partial_bytes(m, n_, f_, alt)
+            print(f"  fused_mlp M={m} block_f={alt}"
+                  f"{' (planned)' if alt == bf else ''}: {sweep[str(alt)]} "
+                  f"ms, partial buffer {moved // 2} B, partials move "
+                  f"{moved} B in device memory (h would move "
+                  f"{2 * 2 * m * f_} B)")
+        out.append(dict(
+            path=path, shape=[m, k_, f_, n_], max_abs_err=err, block_f=bf,
+            ms=timer.ms(lambda: fused_mlp.fused_mlp(x, w1, w2, wg,
+                                                     act=act)),
+            plain_ms=timer.ms(lambda: ref.mlp(x, w1, w2, wg, act=act)),
+            library_ms=None, bound_ms=b, bound_by=why,
+            block_f_ms=sweep))
+    return out
+
+
+def rg_lru_cases(dev, timer, randn):
+    """The RG-LRU scan against its plain version: recurrentgemma-9b's
+    prefill shape (B=1, T=W=4096), four slots, and a ragged shape, each
+    with and without h0."""
+    from repro_torch.kernels import ref, rg_lru
+
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(99)
+    for b, t, w in ((1, 4096, 4096), (4, 1024, 4096), (2, 1000, 4000)):
+        x = randn(b, t, w, scale=0.5)
+        a = (0.79 + 0.2 * torch.rand((b, t, w), generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        for h0 in (None, torch.randn((b, w), generator=gen, device=dev)):
+            label = (f"rg_lru_scan B={b} T={t} W={w} "
+                     f"{'h0' if h0 is not None else 'no h0'}")
+            h, h_t = rg_lru.rg_lru_scan(x, a, h0)
+            want, want_t = ref.rg_lru_scan(x, a, h0)
+            err = max(compare(h, want, label + " h"),
+                      compare(h_t, want_t, label + " h_T (fp32)"))
+            # x, a read and h written in bf16, h_T written (h0 read) in fp32
+            nbytes = 6 * b * t * w + 4 * b * w * (2 if h0 is not None else 1)
+            bd, why = bound_ms(nbytes, 2 * b * t * w, FP32_FLOPS)
+            out.append(dict(
+                path=RG, shape=[b, t, w], h0=h0 is not None, max_abs_err=err,
+                ms=timer.ms(lambda: rg_lru.rg_lru_scan(x, a, h0)),
+                # a Python loop over T: three launches a step
+                plain_ms=timer.ms(lambda: ref.rg_lru_scan(x, a, h0), n=3),
+                library_ms=None, bound_ms=bd, bound_by=why))
+    return out
+
+
 # ---------------------------------------------------------------------------
-# phase 3: serve llama3.2-3b at full width
+# phases 3 and 5: serve a model at full width
 # ---------------------------------------------------------------------------
 
 KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "flash_attention": r"(^|::)flash_kernel\b",
-             "fused_mlp": r"(^|::)fused_mlp_kernel\b"}
+             "fused_mlp": r"(^|::)fused_mlp_kernel\b",
+             "rg_lru_scan": r"(^|::)rg_lru_kernel\b"}
+WANT_EXECUTORS = {"gemm": "cuda_gemm", "attention": "cuda_flash_attention",
+                  "mlp": "cuda_fused_mlp"}
 
 
-def requests(cfg, seed: int = 0):
+def requests(cfg, lens_range, seed: int = 0):
     from repro_torch.launch.serve import Request
 
     rng = np.random.default_rng(seed)
-    lens = rng.integers(128, 961, size=8)
+    lens = rng.integers(lens_range[0], lens_range[1] + 1, size=8)
     return [Request(i, rng.integers(2, cfg.vocab_size, size=int(n))
                     .astype(np.int32), 32) for i, n in enumerate(lens)]
 
 
-def serve_phase(dev, modules):
+def load_model(arch: str, dev):
     from repro_torch.configs import get_config
-    from repro_torch.core import hw
-    from repro_torch.launch.serve import ServeEngine
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config("llama3.2-3b"), ftl_mode="fused")
+    cfg = dataclasses.replace(get_config(arch), ftl_mode="fused")
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in M.tree_leaves(params))
-    print(f"  llama3.2-3b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in M.tree_leaves(params))
+    print(f"  {arch}: {cfg.n_layers} layers {M.period_kinds(cfg)}, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_act}), vocab "
           f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters "
-          f"({2 * n_params / 1e9} GB) initialised in "
+          f"({n_bytes / 1e9} GB) initialised in "
           f"{time.perf_counter() - t0} s")
+    return cfg, params, n_params
 
-    eng = ServeEngine(cfg, params, batch_slots=4, max_seq=1024,
+
+def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range):
+    """Serve 8 requests (4 slots, 32 new tokens each) twice: under the
+    profiler with every launch counter of ``modules`` set to 0 just before
+    and read just after, then unprofiled for the serving times."""
+    from repro_torch.core import hw
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import model as M
+
+    eng = ServeEngine(cfg, params, batch_slots=4, max_seq=max_seq,
                       block_size=16, target=hw.H100, eos_id=-1, device=dev)
-    pool = sum(t.numel() * t.element_size()
-               for t in M.tree_leaves(eng.kv.pool))
-    print(f"  engine: 4 slots, max_seq 1024, paged KV pool "
-          f"{pool / 1e9} GB, buckets {list(eng.buckets)}")
+    kv = eng.kv.pool if eng.paged else eng.cache
+    kv_bytes = sum(t.numel() * t.element_size() for t in M.tree_leaves(kv))
+    print(f"  engine: 4 slots, max_seq {max_seq}, "
+          f"{'paged KV pool' if eng.paged else 'dense per-slot cache'} "
+          f"{kv_bytes / 1e9} GB, buckets {list(eng.buckets)}")
     rep = eng.plan_report()
     for phase in ("prefill", "decode"):
         e = rep[phase]
         print(f"  plan {phase} @ m={e['m']} on {rep['target']}: schedule "
               f"{e['schedule']}, cuts {e['cuts']}, executors "
               f"{e['executors']}")
-    want = {"gemm": "cuda_gemm", "attention": "cuda_flash_attention",
-            "mlp": "cuda_fused_mlp"}
-    check(rep["prefill"]["executors"] == want,
-          f"prefill executors {rep['prefill']['executors']} != {want}")
+    check(rep["prefill"]["executors"] == WANT_EXECUTORS,
+          f"prefill executors {rep['prefill']['executors']} != "
+          f"{WANT_EXECUTORS}")
+    t0 = time.perf_counter()
     eng.warmup_compile()
+    print(f"  warm-up (every bucket's prefill, one decode step) "
+          f"{time.perf_counter() - t0} s")
 
     # --- the main path: counters from 0, under the profiler -------------
     for mod in modules.values():
@@ -280,7 +402,7 @@ def serve_phase(dev, modules):
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         blk = eng.execute_block_plan()
-        done = eng.run(requests(cfg))
+        done = eng.run(requests(cfg, lens_range))
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.perf_counter() - t0)
     launches = {n: mod.launches for n, mod in modules.items()}
@@ -288,10 +410,13 @@ def serve_phase(dev, modules):
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
     check(blk is not None and blk["finite"]
-          and blk["executors"] == want, f"block plan execution: {blk}")
+          and blk["executors"] == WANT_EXECUTORS,
+          f"block plan execution: {blk}")
     check(len(done) == 8 and all(len(r.out) == 32 for r in done),
           "every request must return 32 tokens: "
           f"{[(r.rid, len(r.out)) for r in done]}")
+    print(f"  prompt lengths {sorted(len(r.prompt) for r in done)}, buckets "
+          f"{sorted(r.bucket for r in done)}")
 
     kern = {}
     for ev in prof.events():
@@ -300,8 +425,8 @@ def serve_phase(dev, modules):
             k[0] += 1
             k[1] += ev.time_range.elapsed_us() / 1e3
     check(bool(kern), "the profiler recorded no device kernel")
-    for name, rx in KERNEL_RE.items():
-        hits = [n for n in kern if re.search(rx, n)]
+    for name in modules:
+        hits = [n for n in kern if re.search(KERNEL_RE[name], n)]
         check(bool(hits), f"{name} kernel missing from the profiler's "
               f"device-kernel list")
         print(f"  profiler: {name}: {sum(kern[h][0] for h in hits)} "
@@ -316,12 +441,13 @@ def serve_phase(dev, modules):
           f"launched in the profiled run (one execute_block_plan call, "
           f"{eng.stats['prefills'] - s0['prefills']} prefills, "
           f"{eng.stats['decode_steps'] - s0['decode_steps']} decode steps)")
+    del prof
 
     # --- serving times, unprofiled ---------------------------------------
     blk = eng.execute_block_plan()
     s0 = dict(eng.stats)
     t0 = time.perf_counter()
-    done = eng.run(requests(cfg, seed=1))
+    done = eng.run(requests(cfg, lens_range, seed=1))
     wall = time.perf_counter() - t0
     check(len(done) == 8 and all(len(r.out) == 32 for r in done),
           "timed run: every request must return 32 tokens")
@@ -329,7 +455,7 @@ def serve_phase(dev, modules):
     steps = eng.stats["decode_steps"] - s0["decode_steps"]
     step_ms = 1e3 * (eng.stats["decode_s"] - s0["decode_s"]) / steps
     ttft = statistics.median(r.ttft_s for r in done)
-    print(f"  block plan executed @ m=1024: {blk['ms']} ms, executors "
+    print(f"  block plan executed @ m={max_seq}: {blk['ms']} ms, executors "
           f"{blk['executors']}")
     print(f"  served 8 requests, {tokens} tokens in {wall} s: "
           f"{tokens / wall} tokens/s; time to first token p50 "
@@ -344,20 +470,20 @@ def serve_phase(dev, modules):
     check(eng.stats["replans"] == 0 and pc["misses_after_warmup"] == 0,
           "steady state replanned")
     check(eng.stats["nonfinite_logits"] == 0, "non-finite logits")
-    return cfg, params, launches
+    return launches
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the served path against the plain path
+# phases 4 and 6: the served path against the plain path
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def served_vs_plain(cfg, params, dev):
+def served_vs_plain(cfg, params, dev, n_tokens: int):
     from repro_torch.models import model as M
 
     rng = np.random.default_rng(7)
-    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(1, 256)),
-                           device=dev)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size,
+                                        size=(1, n_tokens)), device=dev)
     fused, _ = M.prefill(cfg, params, {"tokens": toks})
     plain, _ = M.prefill(dataclasses.replace(cfg, ftl_mode="off"), params,
                          {"tokens": toks})
@@ -367,18 +493,54 @@ def served_vs_plain(cfg, params, dev):
     d = float((f - p).abs().max())
     sigma = float(p.std())
     tf, tp = int(f.argmax()), int(p.argmax())
-    # tolerance: a quarter of the logits' spread -- 28 layers of bf16
+    # tolerance: a quarter of the logits' spread -- every layer's bf16
     # products rounded in different places (the fused kernel rounds h once
     # from fp32, the plain path after every product)
     tol = 0.25 * sigma
     # the two paths pick one token, or two whose plain logits differ by
     # less than the measured difference (a tie within rounding)
     tie = float(p[tp] - p[tf]) <= 2 * d
-    print(f"  prefill 256 tokens: top-1 fused {tf}, plain {tp} "
+    print(f"  prefill {n_tokens} tokens: top-1 fused {tf}, plain {tp} "
           f"({'agree' if tf == tp else 'differ'}); max|dlogit| {d} "
           f"(tolerance {tol} = 0.25 x std of the plain logits {sigma})")
     check(d <= tol, "fused and plain prefill logits differ beyond tolerance")
     check(tf == tp or tie, "fused and plain prefill pick different tokens")
+
+
+@torch.no_grad()
+def engine_vs_model(cfg, params, dev, n_prompt: int, n_new: int = 8):
+    """The engine's greedy tokens for one prompt (padded to its bucket)
+    against the model's own prefill + decode_step loop on the unpadded
+    prompt."""
+    from repro_torch.core import hw
+    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(2, cfg.vocab_size, size=n_prompt).astype(np.int32)
+    eng = ServeEngine(cfg, params, batch_slots=1, max_seq=4096,
+                      target=hw.H100, eos_id=-1, device=dev)
+    check(n_prompt not in eng.buckets, f"{n_prompt} is a bucket length")
+    got = eng.run([Request(0, prompt, n_new)])[0].out
+
+    tokens = torch.as_tensor(prompt, device=dev)[None].long()
+    logits, cache = M.prefill(cfg, params, {"tokens": tokens}, max_seq=4096)
+    want, gaps = [], []
+    for i in range(n_new):
+        top2 = torch.topk(logits[0, -1].float(), 2)
+        want.append(int(top2.indices[0]))
+        gaps.append(float(top2.values[0] - top2.values[1]))
+        if i + 1 < n_new:
+            logits, cache = M.decode_step(
+                cfg, params, torch.tensor([[want[-1]]], device=dev),
+                cache, torch.tensor(n_prompt + i, device=dev))
+    bucket = M.bucket_m(n_prompt, eng.buckets)
+    print(f"  {n_prompt}-token prompt (bucket {bucket}, window "
+          f"{cfg.local_window}): engine {got}, model loop {want} "
+          f"({'equal' if got == want else 'DIFFER'}); the loop's top-2 "
+          f"logit gaps {gaps}")
+    check(got == want, "the engine's greedy tokens differ from the model's "
+          "own prefill + decode loop on the unpadded prompt")
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +549,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build, flash_attention, fused_mlp, gemm
+    from repro_torch.kernels import (_build, flash_attention, fused_mlp,
+                                     gemm, rg_lru)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -416,19 +579,34 @@ def main() -> int:
               f"{fused_mlp.blocks_per_sm(bf)}, the CUDA runtime's "
               f"{_build.lib().rt_fused_mlp_blocks_per_sm(bf, 1)}")
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "Used" in line or "spill" in line and " 0 bytes spill" not in line:
+        if line.startswith("==") or "Compiling entry" in line \
+                or "Used" in line or "spill" in line:
             print("  ptxas:" + line.split("ptxas info    :")[-1])
 
     print("== kernels against their plain versions (bf16)")
     results = kernel_cases(dev, Timer(dev))
 
-    print("== serve llama3.2-3b, full width, ftl_mode=fused")
-    modules = {"gemm": gemm, "flash_attention": flash_attention,
-               "fused_mlp": fused_mlp}
-    cfg, params, launches = serve_phase(dev, modules)
-
-    print("== served path against the plain path")
-    served_vs_plain(cfg, params, dev)
+    kernels = {"gemm": gemm, "flash_attention": flash_attention,
+               "fused_mlp": fused_mlp, "rg_lru_scan": rg_lru}
+    paths = {LLAMA: (("gemm", "flash_attention", "fused_mlp"),
+                     dict(max_seq=1024, lens_range=(128, 960)), 256),
+             RG: (tuple(kernels),
+                  dict(max_seq=4096, lens_range=(128, 3072)), 2500)}
+    launches = {}
+    for arch, (names, serve_kw, n_plain) in paths.items():
+        print(f"== serve {arch}, full width, ftl_mode=fused")
+        cfg, params, n_params = load_model(arch, dev)
+        if arch == RG:
+            check(n_params == RG_PARAMS,
+                  f"{n_params} parameters, the reference counts {RG_PARAMS}")
+        launches[arch] = serve_phase(
+            dev, cfg, params, {n: kernels[n] for n in names}, **serve_kw)
+        print(f"== {arch}: served path against the plain path")
+        served_vs_plain(cfg, params, dev, n_plain)
+        if cfg.family == "hybrid":
+            engine_vs_model(cfg, params, dev, n_plain)
+        del params
+        torch.cuda.empty_cache()
     print(f"  total {time.perf_counter() - t_start} s")
 
     meta = {
@@ -438,14 +616,22 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:82"),
         "fused_mlp": ("src/repro_torch/csrc/fused_mlp.cu",
                       "src/repro/kernels/fused_mlp.py:75"),
+        "rg_lru_scan": ("src/repro_torch/csrc/rg_lru.cu",
+                        "src/repro/kernels/rg_lru.py:51"),
     }
+    # "launches" is the count on recurrentgemma-9b's path, which runs all
+    # four kernels, and the headline numbers are that path's first case;
+    # "launches_by_path" gives each path's own count, "cases" every shape
+    head = {name: next(c for c in cases if c["path"] == RG)
+            for name, cases in results.items()}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         **{k: results[name][0][k] for k in
+         "launches": launches[RG][name],
+         "launches_by_path": {arch: n[name] for arch, n in launches.items()
+                              if name in n},
+         **{k: head[name][k] for k in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")},
-         "shape": results[name][0]["shape"],
+             "library_ms", "shape")},
          "cases": results[name]}
         for name, (src, rep) in meta.items()]}
     print(json.dumps(line))

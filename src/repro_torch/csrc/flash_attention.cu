@@ -11,9 +11,12 @@
 // Bound on an H100: at prefill lengths (T <= 1024, Dh = 128) the work is
 // small and compute-light -- q, k, v and o are a few MB -- so launch and
 // latency dominate; at long T it is compute-bound (4 * Tq * Tk * Dh FLOP
-// per head, halved by the causal mask).  Design: one block of 4 warps per
+// per head, halved by the causal mask, cut to 4 * Tq * window * Dh by a
+// local window).  Design: one block of 4 warps per
 // (64-query tile, head, batch); each warp owns 16 query rows and keeps its
-// Q fragments, running max/sum and output accumulator in registers (the
+// Q fragments (at Dh <= 128; at Dh = 256 they are re-read from shared
+// memory per k step, for registers), running max/sum and output
+// accumulator in registers (the
 // mma.sync fragment layout lets the rescale address rows directly, and
 // P goes from the S accumulators straight into A fragments without a trip
 // through shared memory).  Key/value tiles of 64 rows stream through a
@@ -88,7 +91,12 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < DN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint32_t qa[D / 16][4];
+  // Q's A fragments stay in registers at D <= 128; at D = 256 they would
+  // take 64 registers a thread beside the 128 of the output accumulator
+  // and 32 of S, past the 255 a thread may hold, so they are re-read from
+  // the Q tile in shared memory at every k step instead.
+  constexpr bool QREG = D <= 128;
+  uint32_t qa[QREG ? D / 16 : 1][4];
 
   const int row_base = q0 + warp * 16;
   for (int j = j_lo; j < j_hi; ++j) {
@@ -100,10 +108,12 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rt::cp_async_commit();
     rt::cp_async_wait<1>();
     __syncthreads();
-    if (j == j_lo) {
+    if constexpr (QREG) {
+      if (j == j_lo) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        rt::load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
+        for (int kk = 0; kk < D / 16; ++kk)
+          rt::load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
+      }
     }
     const bf16* Kt = Ks + st * BKV * LD;
     const bf16* Vt = Vs + st * BKV * LD;
@@ -114,15 +124,25 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < KN; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    auto qk_step = [&](const uint32_t(&qf)[4], int kk) {
 #pragma unroll
       for (int n = 0; n < KN; n += 2) {
         uint32_t bb[4];
         rt::load_b_nk(bb, Kt, LD, n * 8, kk * 16, lane);
-        rt::mma16816(s[n], qa[kk], bb[0], bb[1]);
-        rt::mma16816(s[n + 1], qa[kk], bb[2], bb[3]);
+        rt::mma16816(s[n], qf, bb[0], bb[1]);
+        rt::mma16816(s[n + 1], qf, bb[2], bb[3]);
       }
+    };
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (QREG) {
+        qk_step(qa[kk], kk);
+      } else {
+        uint32_t qf[4];
+        rt::load_a(qf, Qs, LD, warp * 16, kk * 16, lane);
+        qk_step(qf, kk);
+      }
+    }
 
     // scale + mask, row max over the tile
     float mx[2] = {rt::kNeg, rt::kNeg};
@@ -235,6 +255,9 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
   auto* vv = static_cast<const bf16*>(v);
   auto* oo = static_cast<bf16*>(o);
   auto s = static_cast<cudaStream_t>(stream);
+  if (D == 256)
+    return launch<256>(qq, kk, vv, oo, B, Hq, Hk, Tq, Tk, causal, window,
+                       q_offset, s);
   if (D == 128)
     return launch<128>(qq, kk, vv, oo, B, Hq, Hk, Tq, Tk, causal, window,
                        q_offset, s);

@@ -10,12 +10,14 @@ to the input dtype before P·V.  Every prefill runs it
 the serving prefill lengths (T ≤ 1024, Dh = 128) one head's work is small,
 so latency and occupancy bound it; at long T it turns compute-bound.  The
 kernel (``csrc/flash_attention.cu``) gives each 64-query tile of a head
-one block of four warps; each warp keeps its 16 rows' Q fragments, running
-max / sum and output accumulator in registers, turns the S accumulators
-into P fragments without a trip through shared memory, and streams
-64-key tiles of K and V through a two-stage ``cp.async`` ring.  Key tiles
-the masks hide from the whole query tile are skipped; ragged Tq / Tk are
-zero-filled and masked.  The plain version is
+one block of four warps; each warp keeps its running max / sum and output
+accumulator in registers, and its 16 rows' Q fragments too at Dh ≤ 128
+(at Dh = 256 they come from the Q tile in shared memory at every k step:
+the output accumulator alone takes 128 registers a thread), turns the S
+accumulators into P fragments without a trip through shared memory, and
+streams 64-key tiles of K and V through a two-stage ``cp.async`` ring.
+Key tiles the causal or window mask hides from the whole query tile are
+skipped; ragged Tq / Tk are zero-filled and masked.  The plain version is
 :func:`repro_torch.kernels.ref.attention`.
 """
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from . import _build, ref
 
 BLOCK = (64, 64)                  # (block_q, block_k)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def smem_bytes(head_dim: int) -> int:

@@ -1,6 +1,6 @@
 """Public kernel API of the port: the dispatch.
 
-Every op here:
+Every op here but ``rg_lru`` (which has only the first):
   * with ``backend='auto'`` calls the kernel wrapper, which launches the
     CUDA kernel for a CUDA tensor and runs the plain version for a CPU
     tensor — the decision is the tensor's device, nothing else;
@@ -8,9 +8,9 @@ Every op here:
     (:mod:`repro_torch.kernels.ref`): the layer-per-layer baseline.
 
 Each kernel's block sizes come from its own shared-memory footprint
-against the planning target's fast level: fixed tiles for ``gemm`` and
-``flash_attention`` (the registry qualifies them on that footprint), a
-planned F slice and cluster for the fused MLP
+against the planning target's fast level: fixed tiles for ``gemm``,
+``flash_attention`` and ``rg_lru`` (the registry qualifies the first two
+on that footprint), a planned F slice for the fused MLP
 (:func:`repro_torch.kernels.fused_mlp.plan_blocks`, on ``target``).
 """
 from __future__ import annotations
@@ -23,6 +23,7 @@ from . import flash_attention as _flash
 from . import fused_mlp as _fused
 from . import gemm as _gemm
 from . import ref as _ref
+from . import rg_lru as _rg_lru
 
 Backend = Literal["auto", "ref"]
 
@@ -61,3 +62,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
                                   window=window, q_offset=q_offset)
+
+
+def rg_lru(x, a, h0=None):
+    """RG-LRU scan: (all h in ``x.dtype``, final h in fp32).  It has no
+    ``backend``: its plain version runs for CPU tensors only."""
+    return _rg_lru.rg_lru_scan(x, a, h0)

@@ -93,3 +93,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.nan_to_num(p, nan=0.0)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
     return o.reshape(b, hq, tq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma) — gated linear recurrence
+# ---------------------------------------------------------------------------
+
+def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
+                h0: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``h_t = a_t * h_{t-1} + x_t`` over time, per channel.
+
+    x, a (B, T, W); h0 (B, W) or None for zeros.  The carry is fp32; returns
+    (all h in ``x.dtype``, final h in fp32)."""
+    b, t, w = x.shape
+    h = (torch.zeros((b, w), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    xf, af = x.float(), a.float()
+    hs = torch.empty((b, t, w), dtype=torch.float32, device=x.device)
+    for i in range(t):
+        h = af[:, i] * h + xf[:, i]
+        hs[:, i] = h
+    return hs.to(x.dtype), h

@@ -5,7 +5,12 @@ The counterpart of the reference ``repro.launch.serve``:
 * **Paged KV cache** — pure-'attn' decoder-only configs back their cache
   with fixed-size pages allocated per slot (:mod:`.kv_cache`); pages are
   allocated as a slot's position grows and freed on eviction, so
-  admission control can queue requests under memory pressure.
+  admission control can queue requests under memory pressure.  Hybrid
+  configs keep a dense per-slot cache: recurrent state beside ring-buffered
+  local-attention KV.
+* **State at the prompt's end** — a prompt is padded on the right up to its
+  bucket, and the prefill takes the recurrent state and the local ring at
+  the prompt's last real token (``last_pos``), not at the bucket's end.
 * **Mixed sequence lengths** — each slot decodes at its own position
   (vector ``pos`` through ``model.decode_step``).
 * **Plan cache** — serving plans are keyed ``(cfg, bucketed m, dtype,
@@ -138,14 +143,26 @@ def _default_buckets(max_seq: int, block_size: int) -> tuple[int, ...]:
     return tuple(rungs)
 
 
-def _splice(full: torch.Tensor, one: torch.Tensor, slot: int, ax: int
-            ) -> None:
+def _splice(full: torch.Tensor, one: torch.Tensor, slot: int, ax: int,
+            *, ring: bool = False) -> None:
     """Write a batch-1 request cache into ``slot`` of the batch cache, in
-    place, zero-padding its seq dim up to the engine's ``max_seq``."""
+    place, zero-padding its seq dim up to the engine's ``max_seq``.
+
+    A local-window ring (``ring``) comes out of the prefill ``window``
+    rows long; with ``max_seq < window`` the slot holds ``max_seq`` of
+    them, and the rows past ``max_seq`` are the prefill's zero padding (a
+    prompt fills at most ``max_seq`` positions), so they are left out.
+    Any other leaf longer than its slot raises."""
     dst = full.select(ax, slot)
     src = one.select(ax, 0)
+    n = src.shape[ax]
+    if n > dst.shape[ax]:
+        if not ring:
+            raise ValueError(f"prefill cache of {n} rows does not fit the "
+                             f"slot's {dst.shape[ax]}")
+        n = dst.shape[ax]
     dst.zero_()
-    dst.narrow(ax, 0, src.shape[ax]).copy_(src)
+    dst.narrow(ax, 0, n).copy_(src.narrow(ax, 0, n))
 
 
 class ServeEngine:
@@ -321,12 +338,11 @@ class ServeEngine:
         the resolved executors and the wall-clock time in ``stats``."""
         if self.block_plan is None:
             return None
-        cfg = self.cfg
-        kinds, n_full, _ = M._layer_split(cfg)
-        if not n_full:
+        p, kind = self._first_block_params()
+        if p is None:
             return None
-        p = M.tree_map(lambda a: a[0], self.params["layers"]["pos0"])
-        window = cfg.local_window if kinds[0] == "local" else None
+        cfg = self.cfg
+        window = cfg.local_window if kind == "local" else None
         gen = torch.Generator(device=self.device).manual_seed(0)
         x = torch.randn((1, self.max_seq, cfg.d_model), generator=gen,
                         device=self.device).to(torch_dtype(cfg.dtype))
@@ -352,6 +368,34 @@ class ServeEngine:
         }
         self.stats["block_exec"] = entry
         return entry
+
+    def _first_block_params(self):
+        """(params, mixer kind) of the first plan-executable layer: the
+        first attention(+MLP) layer, else (hybrid stacks whose plan is
+        MLP-only) the first MLP-bearing one; (None, None) when no layer
+        can execute the plan."""
+        kinds, n_full, rem_kinds = M._layer_split(self.cfg)
+        if n_full:
+            pool = [(k, f"pos{i}") for i, k in enumerate(kinds)]
+
+            def get(key):
+                # slice only this position's subtree, not the whole stack
+                return M.tree_map(lambda a: a[0],
+                                  self.params["layers"][key])
+        elif rem_kinds:
+            pool = [(k, f"rem{i}") for i, k in enumerate(rem_kinds)]
+
+            def get(key):
+                return self.params["rem"][key]
+        else:
+            return None, None
+        for kind, key in pool:
+            if kind in ("attn", "local"):
+                return get(key), kind
+        if self.cfg.d_ff and not self.cfg.is_moe:
+            kind, key = pool[0]
+            return get(key), kind
+        return None, None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -391,11 +435,14 @@ class ServeEngine:
         if self.paged:
             self.kv.write_prefill(slot, cache1, bucket)
         else:
+            kinds, _, rem_kinds = M._layer_split(self.cfg)
             for top, sub in self.cache.items():
-                ax = 1 if top == "layers" else 0
-                for full, one in zip(M.tree_leaves(sub),
-                                     M.tree_leaves(cache1[top])):
-                    _splice(full, one, slot, ax)
+                ax, layer_kinds = ((1, kinds) if top == "layers"
+                                   else (0, rem_kinds))
+                for kind, (key, layer) in zip(layer_kinds, sub.items()):
+                    for full, one in zip(M.tree_leaves(layer),
+                                         M.tree_leaves(cache1[top][key])):
+                        _splice(full, one, slot, ax, ring=kind == "local")
 
         self.active[slot] = req
         self.pos[slot] = plen

@@ -148,25 +148,33 @@ def attention_layer(cfg, p: Params, x: torch.Tensor, *,
 def attention_prefill(cfg, p: Params, x: torch.Tensor, *,
                       positions: torch.Tensor, causal: bool = True,
                       window: int | None = None, use_rope: bool = True,
-                      pad_to: int | None = None
+                      pad_to: int | None = None, length: int | None = None
                       ) -> tuple[torch.Tensor, Params]:
     """Full-sequence attention that also returns the decode cache.
 
     Cache layout (B, S, Hk, Dh); for local windows a ring buffer of the
     last ``window`` positions keyed by ``pos % window``.  ``pad_to``
-    right-pads the cache's seq dim so decode steps can append in place."""
+    right-pads the cache's seq dim so decode steps can append in place.
+    ``length`` (≤ S) is the prompt's real length when ``x`` is padded on
+    the right: the ring holds the ``window`` positions before it (a full
+    cache keeps the padding's KV, which decode overwrites and masks)."""
     q, k, v = _qkv(cfg, p, x, positions, use_rope)
     out = _attend(p, q, k, v, causal=causal, window=window)
     s = k.shape[1]
-    if window is not None and s >= window:
-        order = torch.argsort(positions[-window:] % window)
-        cache = {"k": k[:, -window:][:, order], "v": v[:, -window:][:, order]}
+    n = s if length is None else length
+    if window is not None and n >= window:
+        last = torch.arange(n - window, n, device=k.device)
+        ring = last[torch.argsort(positions[last] % window)]
+        cache = {"k": k[:, ring], "v": v[:, ring]}
     else:
-        cache = {"k": k, "v": v}
+        cache = {"k": k[:, :n], "v": v[:, :n]} if window is not None \
+            else {"k": k, "v": v}
+        # a ring buffer must be exactly window-sized for decode
         target = window if window is not None else pad_to
-        if target is not None and target > s:
-            cache = {n: F.pad(t, (0, 0, 0, 0, 0, target - s))
-                     for n, t in cache.items()}
+        have = cache["k"].shape[1]
+        if target is not None and target > have:
+            cache = {nm: F.pad(t, (0, 0, 0, 0, 0, target - have))
+                     for nm, t in cache.items()}
     return out, cache
 
 

@@ -1,15 +1,17 @@
 """Model assembly of the port: the decoder-only families.
 
-  dense — embed → [attn + MLP] × L → norm → lm_head
+  dense  — embed → [attn + MLP] × L → norm → lm_head
+  hybrid — recurrentgemma: (rec, rec, local-attn) pattern + MLP each layer
 
 Layers are grouped into *pattern periods* as in the reference
 ``repro.models.model``: the params of each position-in-period are stacked
 across periods (leaves ``(n_periods, ...)``), and where the reference
 consumes the stack with ``lax.scan`` the port walks it with a Python loop
-over the same stacked tensors.  Layers that do not fill a whole period are
-applied after the loop.  Mixer kinds other than ``attn``/``local``
-(recurrent, cross-attention), MoE FFNs and encoder–decoder configs are not
-ported yet and raise.
+over the same stacked tensors.  Layers that do not fill a whole period
+(recurrentgemma: 38 = 12×3 + 2) are applied after the loop, from
+``params["rem"]`` / ``cache["rem"]``.  Mixer kinds other than ``attn``,
+``local`` and ``rec`` (mLSTM/sLSTM, cross-attention), MoE FFNs and
+encoder–decoder configs are not ported yet and raise.
 
 The serving plan machinery (``PREFILL_BUCKETS``, :func:`bucket_m`,
 :func:`serve_plan`) is the reference's, keyed additionally by the device
@@ -26,6 +28,7 @@ from repro_torch.core import hw
 from repro_torch.core.ftl import registry as ftl_registry
 from repro_torch.core.ftl.solver import InfeasibleError
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import recurrent
 from repro_torch.models.layers import (
     attention_decode,
     attention_layer,
@@ -43,15 +46,19 @@ from repro_torch.models.layers import (
 
 Params = dict[str, Any]
 
+# kinds whose mixer handles its own input norm (the recurrent block does)
+_SELF_NORMED = {"rec"}
+# kinds that keep a decode cache of KV type
 _KV_KINDS = {"attn", "local"}
 
 
 def _check_supported(cfg) -> None:
     if cfg.is_encoder_decoder or cfg.is_moe or \
-            set(period_kinds(cfg)) - _KV_KINDS:
+            set(period_kinds(cfg)) - _KV_KINDS - _SELF_NORMED:
         raise NotImplementedError(
             f"{cfg.name!r} ({cfg.family}) needs layers the port does not "
-            f"have yet: it serves decoder-only attention stacks")
+            f"have yet: it serves decoder-only attention and RG-LRU "
+            f"stacks")
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -75,12 +82,16 @@ def tree_leaves(tree) -> list:
 
 def _init_layer(cfg, gen: torch.Generator, kind: str, device: torch.device,
                 lead: tuple[int, ...] = ()) -> Params:
-    """One attention layer (+ MLP), stacked along ``lead``."""
-    if kind not in _KV_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    """One attention or recurrent layer (+ MLP), stacked along ``lead``."""
     dt = torch_dtype(cfg.dtype)
-    p: Params = {"ln1": init_norm(cfg.d_model, cfg.norm, dt, device, lead),
-                 "attn": init_attention(cfg, gen, dt, device, lead)}
+    if kind in _KV_KINDS:
+        p: Params = {"ln1": init_norm(cfg.d_model, cfg.norm, dt, device,
+                                      lead),
+                     "attn": init_attention(cfg, gen, dt, device, lead)}
+    elif kind in _SELF_NORMED:
+        p = {"mix": recurrent.init_rec_block(cfg, gen, dt, device, lead)}
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
     if cfg.d_ff:
         p["ln2"] = init_norm(cfg.d_model, cfg.norm, dt, device, lead)
         p["mlp"] = init_mlp(cfg, gen, dt, device, lead=lead)
@@ -99,17 +110,24 @@ def _apply_ffn(cfg, p: Params, x: torch.Tensor, plan=None) -> torch.Tensor:
     return mlp_layer(cfg, p["mlp"], norm(p["ln2"], x, cfg.norm), plan=plan)
 
 
+def _apply_mixer(cfg, p: Params, kind: str, x: torch.Tensor, *,
+                 positions: torch.Tensor) -> torch.Tensor:
+    if kind == "rec":
+        return recurrent.rec_block(cfg, p["mix"], x)
+    h = norm(p["ln1"], x, cfg.norm)
+    return attention_layer(cfg, p["attn"], h, positions=positions,
+                           window=_window(cfg, kind))
+
+
 def _apply_layer(cfg, p: Params, kind: str, x: torch.Tensor, *,
                  positions: torch.Tensor, plan=None) -> torch.Tensor:
     """Pre-norm residual layer (full sequence)."""
-    if plan is not None and "mlp" in p:
+    if plan is not None and kind in _KV_KINDS and "mlp" in p:
         # BlockPlan-driven: projections, attention core and MLP dispatch
         # through their bound executors (registry.run_block)
         return block_layer(cfg, p, x, positions=positions, plan=plan,
                            window=_window(cfg, kind))
-    h = norm(p["ln1"], x, cfg.norm)
-    x = x + attention_layer(cfg, p["attn"], h, positions=positions,
-                            window=_window(cfg, kind))
+    x = x + _apply_mixer(cfg, p, kind, x, positions=positions)
     return x + _apply_ffn(cfg, p, x)
 
 
@@ -301,11 +319,18 @@ def forward(cfg, params: Params, batch: dict[str, torch.Tensor]
 
 def _layer_prefill(cfg, p: Params, kind: str, x: torch.Tensor, *,
                    positions: torch.Tensor, max_seq: int | None = None,
-                   plan=None) -> tuple[torch.Tensor, Params]:
-    h = norm(p["ln1"], x, cfg.norm)
-    o, cache = attention_prefill(cfg, p["attn"], h, positions=positions,
-                                 causal=True, window=_window(cfg, kind),
-                                 pad_to=max_seq)
+                   plan=None, length: int | None = None
+                   ) -> tuple[torch.Tensor, Params]:
+    """Returns (x, cache); the cache holds the state after ``length``
+    tokens (None: all of them)."""
+    if kind == "rec":
+        o, cache = recurrent.rec_block(cfg, p["mix"], x, return_state=True,
+                                       length=length)
+    else:
+        h = norm(p["ln1"], x, cfg.norm)
+        o, cache = attention_prefill(cfg, p["attn"], h, positions=positions,
+                                     causal=True, window=_window(cfg, kind),
+                                     pad_to=max_seq, length=length)
     x = x + o
     return x + _apply_ffn(cfg, p, x, plan=plan), cache
 
@@ -313,29 +338,41 @@ def _layer_prefill(cfg, p: Params, kind: str, x: torch.Tensor, *,
 def _layer_decode(cfg, p: Params, kind: str, x: torch.Tensor,
                   cache: Params, pos: torch.Tensor, plan=None
                   ) -> tuple[torch.Tensor, Params]:
-    h = norm(p["ln1"], x, cfg.norm)
-    o, cache = attention_decode(cfg, p["attn"], h, cache, pos,
-                                window=_window(cfg, kind))
+    if kind == "rec":
+        o, cache = recurrent.rec_block_decode(cfg, p["mix"], x, cache)
+    else:
+        h = norm(p["ln1"], x, cfg.norm)
+        o, cache = attention_decode(cfg, p["attn"], h, cache, pos,
+                                    window=_window(cfg, kind))
     x = x + o
     return x + _apply_ffn(cfg, p, x, plan=plan), cache
+
+
+def _init_layer_cache(cfg, kind: str, batch: int, seq: int,
+                      device: torch.device, lead: tuple[int, ...] = ()
+                      ) -> Params:
+    if kind == "rec":
+        return recurrent.init_rec_state(cfg, batch, device, lead)
+    return init_kv_cache(cfg, batch, seq, torch_dtype(cfg.dtype), device,
+                         window=_window(cfg, kind), lead=lead)
 
 
 def init_cache(cfg, batch: int, seq: int, *,
                device: torch.device | str | None = None) -> Params:
     """Zero decode state for a ``seq``-long context, in init_params'
-    stack structure (stacked leaves ``(n_periods, batch, seq, Hk, Dh)``)."""
+    stack structure (stacked leaves ``(n_periods, batch, ...)``: KV
+    ``(…, seq, Hk, Dh)``, recurrent ``h`` ``(…, W)`` and ``conv``
+    ``(…, conv_width - 1, W)`` in fp32)."""
     _check_supported(cfg)
     device = resolve_device(device)
-    dt = torch_dtype(cfg.dtype)
     kinds, n_full, rem_kinds = _layer_split(cfg)
     cache: Params = {"layers": {
-        f"pos{i}": init_kv_cache(cfg, batch, seq, dt, device,
-                                 window=_window(cfg, k), lead=(n_full,))
+        f"pos{i}": _init_layer_cache(cfg, k, batch, seq, device,
+                                     lead=(n_full,))
         for i, k in enumerate(kinds)}}
     if rem_kinds:
         cache["rem"] = {
-            f"rem{i}": init_kv_cache(cfg, batch, seq, dt, device,
-                                     window=_window(cfg, k))
+            f"rem{i}": _init_layer_cache(cfg, k, batch, seq, device)
             for i, k in enumerate(rem_kinds)}
     return cache
 
@@ -350,10 +387,14 @@ def prefill(cfg, params: Params, batch: dict[str, torch.Tensor],
     ``max_seq`` right-pads the KV caches so decode steps append in place;
     ``plan`` threads a (bucketed) prefill BlockPlan into every layer's MLP
     dispatch; ``last_pos`` returns the logits at that token index instead
-    of the final one (bucketed prompts are right-padded)."""
+    of the final one (bucketed prompts are right-padded), and the
+    recurrent state and local-window ring are taken there too: the
+    tokens after it are padding.  (The reference takes them at the
+    bucket's end, pads included.)"""
     _check_supported(cfg)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    length = None if last_pos is None else int(last_pos) + 1
     kinds, _, rem_kinds = _layer_split(cfg)
     x = _embed(params, tokens)
     per_period: list[Params] = []
@@ -362,7 +403,7 @@ def prefill(cfg, params: Params, batch: dict[str, torch.Tensor],
         for i, kind in enumerate(kinds):
             x, caches[f"pos{i}"] = _layer_prefill(
                 cfg, pp[f"pos{i}"], kind, x, positions=positions,
-                max_seq=max_seq, plan=plan)
+                max_seq=max_seq, plan=plan, length=length)
         per_period.append(caches)
     cache: Params = {"layers": tree_map(lambda *ts: torch.stack(ts),
                                         *per_period)}
@@ -371,7 +412,8 @@ def prefill(cfg, params: Params, batch: dict[str, torch.Tensor],
         for i, kind in enumerate(rem_kinds):
             x, cache["rem"][f"rem{i}"] = _layer_prefill(
                 cfg, params["rem"][f"rem{i}"], kind, x,
-                positions=positions, max_seq=max_seq, plan=plan)
+                positions=positions, max_seq=max_seq, plan=plan,
+                length=length)
     x = norm(params["final_norm"], _last_tokens(x, last_pos), cfg.norm)
     return _unembed(cfg, params, x), cache
 

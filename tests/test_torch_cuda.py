@@ -10,7 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, fused_mlp, gemm, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    flash_attention, fused_mlp, gemm, ref, rg_lru)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +53,10 @@ def test_gemm(dev, m, k, n):
     (1, 4, 4, 33, 33, 64, False, None, 0),
     (1, 2, 1, 40, 40, 128, True, 5, 0),
     (1, 2, 2, 8, 8, 64, True, 2, 20),           # every row fully masked
+    (1, 16, 1, 300, 300, 256, True, 128, 0),    # MQA at head_dim 256
+    (1, 16, 1, 700, 700, 256, True, 200, 0),    # tiles below the window
+    (2, 4, 1, 50, 90, 256, True, 16, 40),
+    (1, 2, 2, 40, 40, 256, False, None, 0),
 ])
 def test_flash_attention(dev, b, hq, hk, tq, tk, dh, causal, window,
                          q_offset):
@@ -68,6 +73,7 @@ def test_flash_attention(dev, b, hq, hk, tq, tk, dh, causal, window,
     (3, 128, 256, 128, True, True, "gelu_exact"),
     (65, 64, 192, 72, True, False, "relu"),
     (256, 3072, 8192, 3072, True, False, "silu"),   # a prefill bucket
+    (4, 4096, 12288, 4096, True, False, "gelu"),    # recurrentgemma decode
 ])
 def test_fused_mlp(dev, m, k, f, n, gated, bias, act):
     x = _rand(dev, 5, m, k)
@@ -99,6 +105,44 @@ def test_fused_mlp_block_f(dev, m, f, block_f):
            ref.mlp(x, w1, w2, wg, b1, b2, act="silu"))
 
 
+@pytest.mark.parametrize("b,t,w,with_h0", [
+    (1, 1000, 4000, True),       # T not a chunk multiple
+    (2, 37, 13, False),          # W not a multiple of 8: element copies
+    (3, 64, 96, True),           # one whole chunk
+    (1, 1, 8, False),
+    (2, 300, 4100, False),       # a ragged last block of channels
+])
+def test_rg_lru_scan(dev, b, t, w, with_h0):
+    x = _rand(dev, 17, b, t, w, scale=0.5)
+    g = torch.Generator(device=dev).manual_seed(18)
+    a = (0.79 + 0.2 * torch.rand((b, t, w), generator=g, device=dev)).to(
+        torch.bfloat16)
+    h0 = torch.randn((b, w), generator=g, device=dev) if with_h0 else None
+    h0_copy = None if h0 is None else h0.clone()
+    before = rg_lru.launches
+    h, h_t = rg_lru.rg_lru_scan(x, a, h0)
+    assert rg_lru.launches == before + 1
+    want, want_t = ref.rg_lru_scan(x, a, h0)
+    _close(h, want)
+    assert h_t.dtype == torch.float32
+    torch.testing.assert_close(h_t, want_t, rtol=1e-4, atol=1e-4)
+    if h0 is not None:
+        assert torch.equal(h0, h0_copy)
+
+
+def test_rg_lru_scan_carries_state_through_padding(dev):
+    """Steps with a = 1 and x = 0 (a bucket's padding) leave h_T exactly
+    at the last real step's carry."""
+    b, t, n, w = 2, 200, 131, 256
+    x = _rand(dev, 19, b, t, w, scale=0.5)
+    a = torch.full((b, t, w), 0.9, device=dev, dtype=torch.bfloat16)
+    x[:, n:] = 0
+    a[:, n:] = 1
+    _, h_t = rg_lru.rg_lru_scan(x, a)
+    _, h_n = rg_lru.rg_lru_scan(x[:, :n].contiguous(), a[:, :n].contiguous())
+    assert torch.equal(h_t, h_n)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = _rand(dev, 0, 8, 16)
     with pytest.raises(TypeError):
@@ -115,3 +159,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     w1, w2 = _rand(dev, 4, 16, 128), _rand(dev, 5, 128, 16)
     with pytest.raises(ValueError):                 # slice not dividing F
         fused_mlp.fused_mlp(x, w1, w2, block_f=96)
+    xs = _rand(dev, 6, 1, 8, 16)
+    with pytest.raises(TypeError):
+        rg_lru.rg_lru_scan(xs.float(), xs.float())
+    with pytest.raises(ValueError):                 # h0 not (B, W) fp32
+        rg_lru.rg_lru_scan(xs, xs, xs[:, 0])
