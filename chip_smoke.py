@@ -17,7 +17,11 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    each) beside its roofline bound, its plain version's time and, where
    one exists, the time of the one PyTorch call that computes the same
    function.  The fused MLP's planned F slice is also timed beside its
-   neighbours, each with the bytes of its fp32 partials.
+   neighbours, each with the bytes of its fp32 partials.  ``gemm_act``
+   is held at granite-20b's up projection (M = 2048 and 128), at the
+   paper's ViT-B op and at a ragged shape; granite's whole MLP is timed
+   through the fused-MLP kernel and through the partial schedule, beside
+   the planner's modelled traffic for each.
 3. Serve llama3.2-3b at full width (28 layers, bf16, random weights from a
    seed) with ``ftl_mode='fused'`` on the ``h100`` planning target: 8
    requests, 4 slots, paged KV.  The launch counters are set to 0 just
@@ -28,16 +32,25 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    prefilled with ``ftl_mode='fused'`` and ``'off'``.
 5. Serve recurrentgemma-9b at full width (38 layers, bf16, random weights
    from a seed) the same way: 8 requests of 128-3072 tokens, 4 slots,
-   dense per-slot cache, ``max_seq`` 4096.  Its path runs all four
-   kernels: the RG-LRU scan in every recurrent layer's prefill, flash
-   attention at head_dim 256 in every local layer's prefill, the fused
-   MLP in both phases, and the GEMM in ``execute_block_plan``.
+   dense per-slot cache, ``max_seq`` 4096.  Its path runs four kernels:
+   the RG-LRU scan in every recurrent layer's prefill, flash attention at
+   head_dim 256 in every local layer's prefill, the fused MLP in both
+   phases, and the GEMM in ``execute_block_plan``.
 6. recurrentgemma-9b's served path against the plain path (a 2,500-token
    prefill, fused against ``'off'``) and the engine against the model:
    the engine's first 8 greedy tokens for a 2,500-token prompt (bucket
    4096, past the 2048 window) equal the model's own ``prefill`` +
    ``decode_step`` loop on the unpadded prompt.
-7. One JSON line for the kernels, then the result line.
+7. Serve granite-20b at full width (52 layers, bf16, 40.6 GB of random
+   weights from a seed, loaded after recurrentgemma-9b's are freed) the
+   same way with ``ftl_mode='auto'``: 8 requests of 128-1920 tokens,
+   4 slots, paged KV, ``max_seq`` 2048.  The planner's ``partial`` MLP
+   schedule binds ``cuda_partial_mlp``, so every prefill runs
+   ``gemm_act`` (the up projection) and ``gemm`` (the down projection),
+   and flash attention at MQA 48/1.
+8. granite-20b's served path against the plain path: a 256-token
+   prefill, ``'auto'`` against ``'off'``.
+9. One JSON line for the kernels, then the result line.
 
 It exits non-zero, printing no result, when no CUDA device is visible,
 and when it stands alone without the rest of the repository.
@@ -67,15 +80,19 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
-# repro.models.model.count_params of recurrentgemma-9b
-RG_PARAMS = 10_444_984_320
+# repro.models.model.count_params of the served configs
+N_PARAMS = {"recurrentgemma-9b": 10_444_984_320,
+            "granite-20b": 20_318_651_392}
 
 # kernel vs plain version, elementwise: |k - p| <= ATOL + RTOL * |p| (the
 # JAX kernel tests' bf16 tolerance: both round fp32 sums to bf16, in
 # different orders)
 ATOL = RTOL = 2e-2
 
-LLAMA, RG = "llama3.2-3b", "recurrentgemma-9b"
+LLAMA, RG, GRANITE = "llama3.2-3b", "recurrentgemma-9b", "granite-20b"
+# the paper's own op (benchmarks/bench_paper_mlp.py): ViT-B's first MLP
+# half, 3072 tokens, 768 -> 3072, gelu + bias; on no serving path
+VIT_B = "vit-b (paper op)"
 
 N_TIMED = 20
 
@@ -151,7 +168,7 @@ def compare(out: torch.Tensor, want: torch.Tensor, label: str) -> float:
 
 
 def kernel_cases(dev, timer):
-    from repro_torch.kernels import flash_attention, gemm, ref
+    from repro_torch.kernels import flash_attention, gemm, gemm_act, ref
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -160,14 +177,20 @@ def kernel_cases(dev, timer):
             torch.bfloat16)
 
     results = {"gemm": [], "flash_attention": [], "fused_mlp": [],
-               "rg_lru_scan": []}
+               "rg_lru_scan": [], "gemm_act": []}
 
     # execute_block_plan's projections: llama's at m=1024, and
-    # recurrentgemma-9b's (wq/wo 4096 wide, MQA wk/wv 256 wide) at m=4096
+    # recurrentgemma-9b's (wq/wo 4096 wide, MQA wk/wv 256 wide) at m=4096;
+    # granite-20b's down projection inside the partial MLP (every prefill
+    # layer) and its projections (wq/wo 6144 wide, MQA wk/wv one tile
+    # 128 wide) at m=2048
     for path, (m, k, n) in ((LLAMA, (1024, 3072, 3072)),
                             (LLAMA, (1024, 3072, 1024)),
                             (RG, (4096, 4096, 4096)),
-                            (RG, (4096, 4096, 256))):
+                            (RG, (4096, 4096, 256)),
+                            (GRANITE, (2048, 24576, 6144)),
+                            (GRANITE, (2048, 6144, 6144)),
+                            (GRANITE, (2048, 6144, 128))):
         x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
         label = f"gemm ({m}x{k})@({k}x{n})"
         err = compare(gemm.gemm(x, w), ref.gemm(x, w), label)
@@ -179,8 +202,10 @@ def kernel_cases(dev, timer):
             library_ms=timer.ms(lambda: torch.matmul(x, w)),
             bound_ms=b, bound_by=why))
 
-    b_, hq, hk, dh = 1, 24, 8, 128
-    for t in (1024, 200):
+    # llama's GQA 24/8 and granite-20b's MQA 48/1, head_dim 128, causal
+    for path, (b_, hq, hk, t, dh) in ((LLAMA, (1, 24, 8, 1024, 128)),
+                                      (LLAMA, (1, 24, 8, 200, 128)),
+                                      (GRANITE, (1, 48, 1, 2048, 128))):
         q, kk, v = (randn(b_, hq, t, dh), randn(b_, hk, t, dh),
                     randn(b_, hk, t, dh))
         label = f"flash_attention B={b_} Hq={hq} Hk={hk} T={t} causal"
@@ -190,7 +215,7 @@ def kernel_cases(dev, timer):
         b, why = bound_ms(2 * (2 * q.numel() + 2 * kk.numel()),
                           4 * b_ * hq * dh * pairs)
         results["flash_attention"].append(dict(
-            path=LLAMA, shape=[b_, hq, hk, t, dh], max_abs_err=err,
+            path=path, shape=[b_, hq, hk, t, dh], max_abs_err=err,
             ms=timer.ms(lambda: flash_attention.flash_attention(
                 q, kk, v, causal=True)),
             plain_ms=timer.ms(lambda: ref.attention(q, kk, v, causal=True)),
@@ -232,6 +257,8 @@ def kernel_cases(dev, timer):
     results["fused_mlp"] += fused_mlp_cases(
         dev, timer, randn, 4096, 12288, 4096, "gelu", (4096, 1024, 4), RG)
     results["rg_lru_scan"] = rg_lru_cases(dev, timer, randn)
+    results["gemm_act"] = gemm_act_cases(dev, timer, randn)
+    partial_vs_fused(dev, timer, randn)
 
     for name, cases in results.items():
         for c in cases:
@@ -321,16 +348,103 @@ def rg_lru_cases(dev, timer, randn):
     return out
 
 
+def gemm_act_cases(dev, timer, randn):
+    """``act(x @ w + b)`` against its plain version: granite-20b's up
+    projection at a long and a short prefill bucket, the paper's ViT-B
+    op, and a ragged case (no dimension a multiple of 8, relu, no
+    bias).  The one PyTorch call that computes the same function is
+    cuBLASLt's bias + activation epilogue (``torch._addmm_activation``:
+    gelu in the tanh form, or relu)."""
+    from repro_torch.kernels import gemm_act, ref
+
+    out = []
+    for path, (m, k, n), act, bias in (
+            (GRANITE, (2048, 6144, 24576), "gelu", True),
+            (GRANITE, (128, 6144, 24576), "gelu", True),
+            (VIT_B, (3072, 768, 3072), "gelu", True),
+            ("ragged", (1001, 1003, 3005), "relu", False)):
+        x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+        b = randn(n, scale=0.5) if bias else None
+        label = (f"gemm_act ({m}x{k})@({k}x{n}) {act} "
+                 f"{'+ bias' if bias else 'no bias'}")
+        err = compare(gemm_act.gemm_act(x, w, b, act=act),
+                      ref.gemm_act(x, w, b, act=act), label)
+        nbytes = 2 * (m * k + k * n + m * n + (n if bias else 0))
+        bd, why = bound_ms(nbytes, 2 * m * n * k)
+        # relu(x @ w) as the same epilogue on a zero bias
+        lib_b = b if bias else torch.zeros(n, dtype=x.dtype, device=dev)
+        out.append(dict(
+            path=path, shape=[m, k, n], act=act, bias=bias, max_abs_err=err,
+            ms=timer.ms(lambda: gemm_act.gemm_act(x, w, b, act=act)),
+            plain_ms=timer.ms(lambda: ref.gemm_act(x, w, b, act=act)),
+            library_ms=timer.ms(lambda: torch._addmm_activation(
+                lib_b, x, w, use_gelu=act == "gelu")),
+            library_call="torch._addmm_activation", bound_ms=bd,
+            bound_by=why))
+    return out
+
+
+def partial_vs_fused(dev, timer, randn):
+    """granite-20b's whole MLP (6144 -> 24576 -> 6144, gelu, biases) at
+    M = 2048 and M = 128 through both kernel executors: the fused MLP at
+    its planned F slice, and the partial schedule (gemm_act, then gemm)
+    that the planner picks on the h100 target.  Measured only; printed
+    beside the planner's modelled traffic for each schedule and the fused
+    kernel's fp32 partial bytes."""
+    from repro_torch.core import hw
+    from repro_torch.core.ftl import graph, partition, registry
+    from repro_torch.kernels import fused_mlp, ref
+
+    k_, f_ = 6144, 24576
+    w1, w2 = randn(k_, f_, scale=k_ ** -0.5), randn(f_, k_, scale=f_ ** -0.5)
+    b1, b2 = randn(f_, scale=0.1), randn(k_, scale=0.1)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    fused = registry.get("cuda_fused_mlp").run
+    part = registry.get("cuda_partial_mlp").run
+    for m in (2048, 128):
+        x = randn(m, k_)
+        g = graph.mlp_graph(m=m, d_model=k_, d_ff=f_, gated=False,
+                            act="gelu")
+        chosen = partition.plan_chain(g, target=hw.H100)
+        whole = partition.plan_fixed(g, (), target=hw.H100)
+        _, bf = fused_mlp.plan_blocks(m, k_, f_, k_, hw.H100, n_sm, False)
+        want = ref.mlp(x, w1, w2, None, b1, b2, act="gelu")
+        for name, fn in (("fused", fused), ("partial", part)):
+            compare(fn(x, w1, w2, None, b1, b2, act="gelu", target=hw.H100),
+                    want, f"granite MLP M={m} through cuda_{name}_mlp")
+        t_f = timer.ms(lambda: fused(x, w1, w2, None, b1, b2, act="gelu",
+                                     target=hw.H100))
+        t_p = timer.ms(lambda: part(x, w1, w2, None, b1, b2, act="gelu"))
+        t_ref = timer.ms(lambda: ref.mlp(x, w1, w2, None, b1, b2,
+                                         act="gelu"))
+        print(f"  granite MLP M={m}: plain {t_ref} ms; "
+              f"cuda_fused_mlp (block_f={bf}) {t_f} "
+              f"ms, fp32 partials move {fused_mlp.partial_bytes(m, k_, f_, bf)}"
+              f" B; cuda_partial_mlp {t_p} ms, h moves {2 * 2 * m * f_} B; "
+              f"the planner on h100 picks {chosen.schedule} (cuts "
+              f"{list(chosen.cuts())}, modelled traffic "
+              f"{chosen.traffic_bytes} B, {chosen.modeled_runtime_s} s) over "
+              f"fused (modelled traffic {whole.traffic_bytes} B, "
+              f"{whole.modeled_runtime_s} s); on the card "
+              f"{'partial' if t_p < t_f else 'fused'} is faster")
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 5: serve a model at full width
+# phases 3, 5 and 7: serve a model at full width
 # ---------------------------------------------------------------------------
 
 KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "flash_attention": r"(^|::)flash_kernel\b",
              "fused_mlp": r"(^|::)fused_mlp_kernel\b",
-             "rg_lru_scan": r"(^|::)rg_lru_kernel\b"}
-WANT_EXECUTORS = {"gemm": "cuda_gemm", "attention": "cuda_flash_attention",
-                  "mlp": "cuda_fused_mlp"}
+             "rg_lru_scan": r"(^|::)rg_lru_kernel\b",
+             "gemm_act": r"(^|::)gemm_act_kernel\b"}
+# the prefill plan's executors on each path: the gated MLPs are served
+# with ftl_mode="fused", granite's ungated one with "auto", where the
+# planner's partial schedule binds the partial-MLP kernels
+_PREFILL = {"gemm": "cuda_gemm", "attention": "cuda_flash_attention"}
+WANT_EXECUTORS = {LLAMA: {**_PREFILL, "mlp": "cuda_fused_mlp"},
+                  RG: {**_PREFILL, "mlp": "cuda_fused_mlp"},
+                  GRANITE: {**_PREFILL, "mlp": "cuda_partial_mlp"}}
 
 
 def requests(cfg, lens_range, seed: int = 0):
@@ -342,11 +456,11 @@ def requests(cfg, lens_range, seed: int = 0):
                     .astype(np.int32), 32) for i, n in enumerate(lens)]
 
 
-def load_model(arch: str, dev):
+def load_model(arch: str, dev, mode: str):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(arch), ftl_mode="fused")
+    cfg = dataclasses.replace(get_config(arch), ftl_mode=mode)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
@@ -363,7 +477,8 @@ def load_model(arch: str, dev):
     return cfg, params, n_params
 
 
-def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range):
+def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
+                want: dict):
     """Serve 8 requests (4 slots, 32 new tokens each) twice: under the
     profiler with every launch counter of ``modules`` set to 0 just before
     and read just after, then unprofiled for the serving times."""
@@ -384,9 +499,8 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range):
         print(f"  plan {phase} @ m={e['m']} on {rep['target']}: schedule "
               f"{e['schedule']}, cuts {e['cuts']}, executors "
               f"{e['executors']}")
-    check(rep["prefill"]["executors"] == WANT_EXECUTORS,
-          f"prefill executors {rep['prefill']['executors']} != "
-          f"{WANT_EXECUTORS}")
+    check(rep["prefill"]["executors"] == want,
+          f"prefill executors {rep['prefill']['executors']} != {want}")
     t0 = time.perf_counter()
     eng.warmup_compile()
     print(f"  warm-up (every bucket's prefill, one decode step) "
@@ -409,8 +523,7 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range):
     print(f"  main path launches: {launches}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
-    check(blk is not None and blk["finite"]
-          and blk["executors"] == WANT_EXECUTORS,
+    check(blk is not None and blk["finite"] and blk["executors"] == want,
           f"block plan execution: {blk}")
     check(len(done) == 8 and all(len(r.out) == 32 for r in done),
           "every request must return 32 tokens: "
@@ -484,27 +597,29 @@ def served_vs_plain(cfg, params, dev, n_tokens: int):
     rng = np.random.default_rng(7)
     toks = torch.as_tensor(rng.integers(2, cfg.vocab_size,
                                         size=(1, n_tokens)), device=dev)
-    fused, _ = M.prefill(cfg, params, {"tokens": toks})
+    served, _ = M.prefill(cfg, params, {"tokens": toks})
     plain, _ = M.prefill(dataclasses.replace(cfg, ftl_mode="off"), params,
                          {"tokens": toks})
-    f, p = fused.float().flatten(), plain.float().flatten()
+    f, p = served.float().flatten(), plain.float().flatten()
     check(bool(torch.isfinite(f).all() and torch.isfinite(p).all()),
           "non-finite prefill logits")
     d = float((f - p).abs().max())
     sigma = float(p.std())
     tf, tp = int(f.argmax()), int(p.argmax())
     # tolerance: a quarter of the logits' spread -- every layer's bf16
-    # products rounded in different places (the fused kernel rounds h once
-    # from fp32, the plain path after every product)
+    # products rounded in different places (the kernels round h once from
+    # fp32, the plain path after every product)
     tol = 0.25 * sigma
     # the two paths pick one token, or two whose plain logits differ by
     # less than the measured difference (a tie within rounding)
     tie = float(p[tp] - p[tf]) <= 2 * d
-    print(f"  prefill {n_tokens} tokens: top-1 fused {tf}, plain {tp} "
+    print(f"  prefill {n_tokens} tokens: top-1 {cfg.ftl_mode} {tf}, plain {tp} "
           f"({'agree' if tf == tp else 'differ'}); max|dlogit| {d} "
           f"(tolerance {tol} = 0.25 x std of the plain logits {sigma})")
-    check(d <= tol, "fused and plain prefill logits differ beyond tolerance")
-    check(tf == tp or tie, "fused and plain prefill pick different tokens")
+    check(d <= tol, f"{cfg.ftl_mode} and plain prefill logits differ beyond "
+          f"tolerance")
+    check(tf == tp or tie, f"{cfg.ftl_mode} and plain prefill pick "
+          f"different tokens")
 
 
 @torch.no_grad()
@@ -550,7 +665,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     from repro_torch.kernels import (_build, flash_attention, fused_mlp,
-                                     gemm, rg_lru)
+                                     gemm, gemm_act, rg_lru)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serving_ftl_mode
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -587,21 +704,30 @@ def main() -> int:
     results = kernel_cases(dev, Timer(dev))
 
     kernels = {"gemm": gemm, "flash_attention": flash_attention,
-               "fused_mlp": fused_mlp, "rg_lru_scan": rg_lru}
+               "fused_mlp": fused_mlp, "rg_lru_scan": rg_lru,
+               "gemm_act": gemm_act}
+    # granite-20b last: its 40.6 GB of weights load after
+    # recurrentgemma-9b's are freed
     paths = {LLAMA: (("gemm", "flash_attention", "fused_mlp"),
                      dict(max_seq=1024, lens_range=(128, 960)), 256),
-             RG: (tuple(kernels),
-                  dict(max_seq=4096, lens_range=(128, 3072)), 2500)}
+             RG: (("gemm", "flash_attention", "fused_mlp", "rg_lru_scan"),
+                  dict(max_seq=4096, lens_range=(128, 3072)), 2500),
+             GRANITE: (("gemm", "flash_attention", "gemm_act"),
+                       dict(max_seq=2048, lens_range=(128, 1920)), 256)}
     launches = {}
     for arch, (names, serve_kw, n_plain) in paths.items():
-        print(f"== serve {arch}, full width, ftl_mode=fused")
-        cfg, params, n_params = load_model(arch, dev)
-        if arch == RG:
-            check(n_params == RG_PARAMS,
-                  f"{n_params} parameters, the reference counts {RG_PARAMS}")
+        mode = serving_ftl_mode(get_config(arch))
+        print(f"== serve {arch}, full width, ftl_mode={mode} (at "
+              f"{time.perf_counter() - t_start} s)")
+        cfg, params, n_params = load_model(arch, dev, mode)
+        if arch in N_PARAMS:
+            check(n_params == N_PARAMS[arch], f"{n_params} parameters, the "
+                  f"reference counts {N_PARAMS[arch]}")
         launches[arch] = serve_phase(
-            dev, cfg, params, {n: kernels[n] for n in names}, **serve_kw)
-        print(f"== {arch}: served path against the plain path")
+            dev, cfg, params, {n: kernels[n] for n in names},
+            want=WANT_EXECUTORS[arch], **serve_kw)
+        print(f"== {arch}: served path against the plain path (at "
+              f"{time.perf_counter() - t_start} s)")
         served_vs_plain(cfg, params, dev, n_plain)
         if cfg.family == "hybrid":
             engine_vs_model(cfg, params, dev, n_plain)
@@ -618,15 +744,21 @@ def main() -> int:
                       "src/repro/kernels/fused_mlp.py:75"),
         "rg_lru_scan": ("src/repro_torch/csrc/rg_lru.cu",
                         "src/repro/kernels/rg_lru.py:51"),
+        "gemm_act": ("src/repro_torch/csrc/gemm_act.cu",
+                     "src/repro/kernels/gemm_gelu.py:51"),
     }
-    # "launches" is the count on recurrentgemma-9b's path, which runs all
-    # four kernels, and the headline numbers are that path's first case;
-    # "launches_by_path" gives each path's own count, "cases" every shape
-    head = {name: next(c for c in cases if c["path"] == RG)
+    # each kernel's headline is the last served path that runs it:
+    # "launches" is that path's main-path count and the headline numbers
+    # its first case; "launches_by_path" gives every path's own count,
+    # "cases" every shape
+    head_path = {n: arch for arch, (names, _, _) in paths.items()
+                 for n in names}
+    head = {name: next(c for c in cases if c["path"] == head_path[name])
             for name, cases in results.items()}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[RG][name],
+         "launches": launches[head_path[name]][name],
+         "headline_path": head_path[name],
          "launches_by_path": {arch: n[name] for arch, n in launches.items()
                               if name in n},
          **{k: head[name][k] for k in

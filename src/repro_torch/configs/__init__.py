@@ -13,6 +13,7 @@ from .base import ModelConfig
 _ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "granite-20b": "granite_20b",
 }
 
 ARCHS: tuple[str, ...] = tuple(_ARCH_MODULES)

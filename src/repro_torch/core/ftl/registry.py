@@ -11,8 +11,9 @@ executor.  Consumers get two entry points:
 * :func:`mlp_executor` — resolve an MLP execution callable for a given
   ``ftl_mode``; ``'auto'`` is plan-driven.
 
-The port's executors: ``cuda_gemm``, ``cuda_flash_attention`` and
-``cuda_fused_mlp`` run the hand-written Hopper kernels and qualify on the
+The port's executors: ``cuda_gemm``, ``cuda_flash_attention``,
+``cuda_fused_mlp`` and ``cuda_partial_mlp`` (``gemm_act`` then ``gemm``)
+run the hand-written Hopper kernels and qualify on the
 ``'cuda'`` platform when the kernel's own shared-memory footprint fits
 the plan target's fast level (the reference's 4 MiB VMEM-class floor would
 rule out every Hopper kernel); the ``torch_*`` executors are the portable
@@ -182,6 +183,23 @@ def _run_cuda_fused_mlp(x, w1, w2, wg, b1, b2, *, act, target=None):
                          target=target)
 
 
+def _run_cuda_partial_mlp(x, w1, w2, wg, b1, b2, *, act, target=None):
+    """Partial schedule on the kernels: ``gemm_act`` for the up projection
+    (bias and activation in its epilogue), the hidden tensor written once
+    in ``x.dtype``, ``gemm`` for the down projection, ``b2`` added in
+    ``x.dtype``.  Ungated MLPs only, as in the reference."""
+    from repro_torch.kernels import ops
+    if wg is not None:
+        raise ValueError("the partial-MLP kernels take no gate")
+    *lead, m, k = x.shape
+    xf = x.reshape(-1, k).contiguous()
+    h = ops.gemm_act(xf, w1, b1, act=act)
+    y = ops.gemm(h, w2)
+    if b2 is not None:
+        y = y + b2
+    return y.reshape(*lead, m, w2.shape[1])
+
+
 @functools.lru_cache(maxsize=512)
 def _scan_tile(m: int, d_model: int, d_ff: int, dtype: str, gated: bool,
                act: str, target: hwlib.Target) -> int:
@@ -258,6 +276,13 @@ register(Executor(
     qualifies=lambda c: (c.platform == "cuda" and c.schedule == "fused"
                          and c.phase != "decode" and _mlp_kernel_fits(c)),
     run=_run_cuda_fused_mlp))
+# gemm_act runs gemm's tile loop (csrc/gemm_tile.cuh): one footprint
+register(Executor(
+    name="cuda_partial_mlp", kind="mlp", backend="cuda", priority=90,
+    qualifies=lambda c: (c.platform == "cuda" and c.schedule == "partial"
+                         and c.phase != "decode" and not c.gated
+                         and _gemm_kernel_fits(c)),
+    run=_run_cuda_partial_mlp))
 register(Executor(
     name="torch_scan_mlp", kind="mlp", backend="torch", priority=50,
     qualifies=lambda c: c.schedule == "fused",

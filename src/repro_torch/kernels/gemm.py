@@ -18,7 +18,8 @@ import torch
 
 from . import _build, ref
 
-# shared memory of one block (csrc/gemm.cu: As + Bs, two stages each)
+# shared memory of one block (csrc/gemm_tile.cuh: As + Bs, two stages
+# each)
 BLOCK = (128, 128, 32)            # (block_m, block_n, block_k)
 SMEM_BYTES = 2 * (128 * 40 + 32 * 136) * 2
 

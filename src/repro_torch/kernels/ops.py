@@ -1,6 +1,7 @@
 """Public kernel API of the port: the dispatch.
 
-Every op here but ``rg_lru`` (which has only the first):
+Every op here but ``gemm_act`` and ``rg_lru`` (which have only the
+first):
   * with ``backend='auto'`` calls the kernel wrapper, which launches the
     CUDA kernel for a CUDA tensor and runs the plain version for a CPU
     tensor — the decision is the tensor's device, nothing else;
@@ -9,8 +10,8 @@ Every op here but ``rg_lru`` (which has only the first):
 
 Each kernel's block sizes come from its own shared-memory footprint
 against the planning target's fast level: fixed tiles for ``gemm``,
-``flash_attention`` and ``rg_lru`` (the registry qualifies the first two
-on that footprint), a planned F slice for the fused MLP
+``gemm_act``, ``flash_attention`` and ``rg_lru`` (the registry qualifies
+the first three on that footprint), a planned F slice for the fused MLP
 (:func:`repro_torch.kernels.fused_mlp.plan_blocks`, on ``target``).
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.core import hw as hwlib
 from . import flash_attention as _flash
 from . import fused_mlp as _fused
 from . import gemm as _gemm
+from . import gemm_act as _gemm_act
 from . import ref as _ref
 from . import rg_lru as _rg_lru
 
@@ -38,6 +40,12 @@ def gemm(x, w, *, backend: Backend = "auto"):
     if backend == "ref":
         return _ref.gemm(x, w)
     return _gemm.gemm(x, w)
+
+
+def gemm_act(x, w, b=None, *, act: str = "gelu"):
+    """The paper's benchmark op: ``act(x @ w + b)``.  It has no
+    ``backend``: its plain version runs for CPU tensors only."""
+    return _gemm_act.gemm_act(x, w, b, act=act)
 
 
 def fused_mlp(x, w1, w2, wg=None, b1=None, b2=None, *, act: str = "gelu",

@@ -18,7 +18,9 @@ The counterpart of the reference ``repro.launch.serve``:
   ahead, so steady state replans exactly zero times.
 * **Split prefill/decode plans** — decode plans at ``m=1``; their bindings
   never qualify the kernels (decode-shape qualification).  Under
-  ``ftl_mode='fused'`` the MLP is the fused-MLP kernel in both regimes.
+  ``ftl_mode='fused'`` the MLP is the fused-MLP kernel in both regimes;
+  under ``'auto'`` (the CLI's mode for an ungated MLP,
+  :func:`serving_ftl_mode`) the plan's binding decides.
 
 On the card (default)::
 
@@ -586,6 +588,17 @@ def poisson_arrivals(n: int, rate_per_s: float, seed: int = 0
     return list(np.cumsum(gaps))
 
 
+def serving_ftl_mode(cfg) -> str:
+    """The ``ftl_mode`` a config is served with.
+
+    ``'auto'`` for an ungated MLP: the planner's ``partial`` schedule binds
+    ``cuda_partial_mlp`` (``gemm_act``, then ``gemm``) at every prefill
+    bucket on the card.  ``'fused'`` for a gated one: the partial kernels
+    take no gate, and under ``'auto'`` the planner would leave the gated
+    MLP to ``torch_partial_scan_mlp`` (ROADMAP, finding 2)."""
+    return "fused" if cfg.mlp_gated else "auto"
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -614,9 +627,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    # the MLP always runs the fused-MLP kernel: under "auto" the planner
-    # never binds it on the h100 target (ROADMAP, finding 2)
-    cfg = dataclasses.replace(cfg, ftl_mode="fused")
+    cfg = dataclasses.replace(cfg, ftl_mode=serving_ftl_mode(cfg))
     params = M.init_params(cfg, args.seed, device=device)
 
     rng = np.random.default_rng(args.seed)

@@ -1,8 +1,11 @@
 """The port's plan-driven block (``registry.run_block``) against the JAX
-package's, on ``llama3.2-3b.reduced()`` in fp32 with the same weights and
-inputs: equal within rtol=atol=2e-5 under ``ftl_mode`` off, auto and
-fused (the JAX side's fused MLP is its Pallas kernel in interpret mode),
-and causal or not."""
+package's, on ``llama3.2-3b.reduced()`` and ``granite-20b.reduced()`` in
+fp32 with the same weights and inputs: equal within rtol=atol=2e-5 under
+``ftl_mode`` off, auto and (llama) fused (the JAX side's fused MLP is its
+Pallas kernel in interpret mode), and causal or not.  granite's biases,
+norm scales and norm shifts are redrawn from numpy, so that each takes
+part; its port plan is also made for ``h100``, against the JAX plan on
+``tpu_v5e`` (the JAX package has no ``h100``)."""
 import dataclasses
 
 import numpy as np
@@ -28,25 +31,45 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 M_TOKENS = 32
+LLAMA, GRANITE = "llama3.2-3b", "granite-20b"
 
 
-def _cfgs(mode, gated=True):
-    over = dict(dtype="float32", remat=False, ftl_mode=mode,
-                mlp_gated=gated)
-    return (dataclasses.replace(jconfigs.get_config("llama3.2-3b").reduced(),
-                                **over),
-            dataclasses.replace(tconfigs.get_config("llama3.2-3b").reduced(),
-                                **over))
+def _cfgs(mode, gated=None, arch=LLAMA):
+    over = dict(dtype="float32", remat=False, ftl_mode=mode)
+    if gated is not None:
+        over["mlp_gated"] = gated
+    return (dataclasses.replace(jconfigs.get_config(arch).reduced(), **over),
+            dataclasses.replace(tconfigs.get_config(arch).reduced(), **over))
 
 
-def _layer(jcfg, seed=0):
+def _redraw(tree, rng):
+    """Every bias, norm scale and norm shift redrawn (the initializers
+    give zeros and ones, which would hide a bias the port drops)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _redraw(v, rng)
+        elif k in ("b", "bias"):
+            out[k] = (0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
+        elif k == "scale":
+            out[k] = (1 + 0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
+        else:
+            out[k] = v
+    return out
+
+
+def _layer(jcfg, seed=0, redraw=False):
     ks = jax.random.split(jax.random.PRNGKey(seed), 2)
     dt = jnp.float32
     jp = {"ln1": jlayers.init_norm(jcfg.d_model, jcfg.norm, dt),
           "attn": jlayers.init_attention(jcfg, ks[0]),
           "ln2": jlayers.init_norm(jcfg.d_model, jcfg.norm, dt),
           "mlp": jlayers.init_mlp(jcfg, ks[1])}
-    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    npp = jax.tree.map(np.asarray, jp)
+    if redraw:
+        npp = _redraw(npp, np.random.default_rng(seed))
+        jp = jax.tree.map(jnp.asarray, npp)
+    return jp, params_from_numpy(npp, "cpu")
 
 
 def _x(d):
@@ -54,18 +77,32 @@ def _x(d):
         (2, M_TOKENS, d)).astype(np.float32)
 
 
-@pytest.mark.parametrize("target", ["tpu_v5e", "cpu_cache"])
-@pytest.mark.parametrize("mode", ["off", "auto", "fused"])
-@pytest.mark.parametrize("causal", [True, False])
-def test_run_block_matches_reference(mode, causal, target):
-    jcfg, tcfg = _cfgs(mode)
-    jp, tp = _layer(jcfg)
+def _block_cases():
+    """llama under off/auto/fused on two targets (ids as before granite
+    joined), granite under off/auto on three."""
+    for arch, modes, targets in (
+            (LLAMA, ("off", "auto", "fused"), ("tpu_v5e", "cpu_cache")),
+            (GRANITE, ("off", "auto"), ("tpu_v5e", "cpu_cache", "h100"))):
+        for causal in (True, False):
+            for mode in modes:
+                for target in targets:
+                    pre = "" if arch == LLAMA else f"{arch}-"
+                    yield pytest.param(arch, mode, causal, target,
+                                       id=f"{pre}{causal}-{mode}-{target}")
+
+
+@pytest.mark.parametrize("arch,mode,causal,target", list(_block_cases()))
+def test_run_block_matches_reference(arch, mode, causal, target):
+    jcfg, tcfg = _cfgs(mode, arch=arch)
+    jp, tp = _layer(jcfg, redraw=arch == GRANITE)
     x = _x(jcfg.d_model)
+    jtarget = "tpu_v5e" if target == "h100" else target
     jplan = jregistry.plan_block(jcfg, m=M_TOKENS, dtype="float32",
-                                 target=jhw.get_target(target))
+                                 target=jhw.get_target(jtarget))
     tplan = tregistry.plan_block(tcfg, m=M_TOKENS, dtype="float32",
                                  target=thw.get_target(target), device="cpu")
-    assert tplan.chain.cuts() == jplan.chain.cuts()
+    if jtarget == target:
+        assert tplan.chain.cuts() == jplan.chain.cuts()
     jy = jregistry.run_block(jplan, jp, jnp.asarray(x),
                              positions=jnp.arange(M_TOKENS), causal=causal)
     ty = tregistry.run_block(tplan, tp, torch.from_numpy(x),

@@ -10,8 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.ftl import registry  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    flash_attention, fused_mlp, gemm, ref, rg_lru)
+    flash_attention, fused_mlp, gemm, gemm_act, ref, rg_lru)
 
 pytestmark = pytest.mark.cuda
 
@@ -47,6 +48,49 @@ def test_gemm(dev, m, k, n):
     assert gemm.launches == before + 1
 
 
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("act", ["gelu", "gelu_exact", "silu", "relu",
+                                 "identity"])
+@pytest.mark.parametrize("m,k,n", [(130, 3000, 129), (5, 33, 17),
+                                   (128, 6144, 24576), (200, 256, 512)])
+def test_gemm_act(dev, m, k, n, act, bias):
+    x, w = _rand(dev, 0, m, k), _rand(dev, 1, k, n, scale=k ** -0.5)
+    b = _rand(dev, 2, n, scale=0.5) if bias else None
+    before = gemm_act.launches
+    _close(gemm_act.gemm_act(x, w, b, act=act),
+           ref.gemm_act(x, w, b, act=act))
+    assert gemm_act.launches == before + 1
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_gemm_act_unaligned_operands(dev, act):
+    """Views that start one element into their storage take the
+    element-wise loads."""
+    m, k, n = 70, 64, 136
+    x = _rand(dev, 3, m * k + 1)[1:].view(m, k)
+    w = _rand(dev, 4, k * n + 1, scale=k ** -0.5)[1:].view(k, n)
+    b = _rand(dev, 5, n + 1, scale=0.5)[1:]
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    _close(gemm_act.gemm_act(x, w, b, act=act),
+           ref.gemm_act(x, w, b, act=act))
+
+
+@pytest.mark.parametrize("m,k,f,n", [(2048, 768, 3072, 768),
+                                     (70, 256, 520, 136), (4, 64, 128, 64)])
+def test_partial_mlp_executor(dev, m, k, f, n):
+    x = _rand(dev, 6, 2, m // 2 or 1, k)
+    w1, w2 = _rand(dev, 7, k, f, scale=k ** -0.5), _rand(dev, 8, f, n,
+                                                         scale=f ** -0.5)
+    b1, b2 = _rand(dev, 9, f, scale=0.1), _rand(dev, 10, n, scale=0.1)
+    before = (gemm_act.launches, gemm.launches)
+    y = registry.get("cuda_partial_mlp").run(x, w1, w2, None, b1, b2,
+                                             act="gelu")
+    assert (gemm_act.launches, gemm.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = ref.mlp(x.reshape(-1, k), w1, w2, None, b1, b2, act="gelu")
+    _close(y.reshape(-1, n), want)
+
+
 @pytest.mark.parametrize("b,hq,hk,tq,tk,dh,causal,window,q_offset", [
     (1, 24, 8, 200, 200, 128, True, None, 0),
     (2, 4, 2, 70, 100, 128, True, 16, 30),
@@ -57,6 +101,7 @@ def test_gemm(dev, m, k, n):
     (1, 16, 1, 700, 700, 256, True, 200, 0),    # tiles below the window
     (2, 4, 1, 50, 90, 256, True, 16, 40),
     (1, 2, 2, 40, 40, 256, False, None, 0),
+    (1, 48, 1, 300, 300, 128, True, None, 0),   # granite-20b's MQA 48/1
 ])
 def test_flash_attention(dev, b, hq, hk, tq, tk, dh, causal, window,
                          q_offset):
@@ -159,6 +204,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     w1, w2 = _rand(dev, 4, 16, 128), _rand(dev, 5, 128, 16)
     with pytest.raises(ValueError):                 # slice not dividing F
         fused_mlp.fused_mlp(x, w1, w2, block_f=96)
+    with pytest.raises(ValueError):                 # bias of K entries
+        gemm_act.gemm_act(x, x.T.contiguous(), x[0])
+    with pytest.raises(ValueError):
+        gemm_act.gemm_act(x, x.T.contiguous(), act="tanh")
     xs = _rand(dev, 6, 1, 8, 16)
     with pytest.raises(TypeError):
         rg_lru.rg_lru_scan(xs.float(), xs.float())
