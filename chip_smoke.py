@@ -21,7 +21,11 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    is held at granite-20b's up projection (M = 2048 and 128), at the
    paper's ViT-B op and at a ragged shape; granite's whole MLP is timed
    through the fused-MLP kernel and through the partial schedule, beside
-   the planner's modelled traffic for each.
+   the planner's modelled traffic for each.  The mLSTM scan is held, h and
+   its final fp32 state, at xlstm-1.3b's prefill (B = 1, H = 4, T = 2048,
+   Dh = 1024, with and without state), four slots at T = 512, a ragged
+   (2, 2, 1000, 128), and a right-padded scan whose state is taken below T
+   against the unpadded scan's.
 3. Serve llama3.2-3b at full width (28 layers, bf16, random weights from a
    seed) with ``ftl_mode='fused'`` on the ``h100`` planning target: 8
    requests, 4 slots, paged KV.  The launch counters are set to 0 just
@@ -50,7 +54,29 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    and flash attention at MQA 48/1.
 8. granite-20b's served path against the plain path: a 256-token
    prefill, ``'auto'`` against ``'off'``.
-9. One JSON line for the kernels, then the result line.
+9. Serve xlstm-1.3b at full width (48 layers = 6 x (7 mLSTM + 1 sLSTM),
+   bf16, 3.9 GB of random weights from a seed, loaded after granite-20b's
+   are freed) the same way: 8 requests of 128-1920 tokens, 4 slots, a dense
+   per-slot state of 705 MB a slot, ``max_seq`` 2048.  No block is
+   plannable; every mLSTM layer's prefill runs the mLSTM kernel with its
+   final state (42 launches a prefill).
+10. xlstm-1.3b's checks (with ``ftl_mode='off'`` a served-against-plain
+   prefill would run the same kernel on both sides): end to end on the
+   stack's first period (7 mLSTM + 1 sLSTM layers, the served weights),
+   ``prefill`` (the kernel with state) + 4 ``decode_step``s (the plain
+   recurrence) against the stateless ``forward`` (the kernel without);
+   every layer of the 48 on the forward's own inputs, the block with
+   state and 4 decode steps against the block without, and the state at a
+   length below T against the unpadded state; the engine's greedy tokens
+   for a 1,000-token prompt (bucket 1024) against the model's own loop on
+   the unpadded prompt and on the padded bucket; one ``forward`` on a
+   2 x 2048 batch, timed.  The end-to-end difference on all 48 layers and
+   the residual streams of two forwards of different length are printed,
+   not gated: the random-weight stack carries a difference 1.3-1.9 times
+   further each layer, in the JAX reference as in the port
+   (``tests/test_torch_xlstm_growth.py``), so GEMMs of other shapes part
+   by O(1) logits after 48 layers.
+11. One JSON line for the kernels, then the result line.
 
 It exits non-zero, printing no result, when no CUDA device is visible,
 and when it stands alone without the rest of the repository.
@@ -82,14 +108,20 @@ FP32_FLOPS = 67e12
 
 # repro.models.model.count_params of the served configs
 N_PARAMS = {"recurrentgemma-9b": 10_444_984_320,
-            "granite-20b": 20_318_651_392}
+            "granite-20b": 20_318_651_392,
+            "xlstm-1.3b": 1_944_285_520}
 
 # kernel vs plain version, elementwise: |k - p| <= ATOL + RTOL * |p| (the
 # JAX kernel tests' bf16 tolerance: both round fp32 sums to bf16, in
 # different orders)
 ATOL = RTOL = 2e-2
+# the mLSTM scan's fp32 state, kernel vs plain version: the same recurrence
+# over up to 2048 steps, its products fused and its sums taken in another
+# order
+STATE_ATOL = STATE_RTOL = 1e-3
 
-LLAMA, RG, GRANITE = "llama3.2-3b", "recurrentgemma-9b", "granite-20b"
+LLAMA, RG, GRANITE, XLSTM = ("llama3.2-3b", "recurrentgemma-9b",
+                             "granite-20b", "xlstm-1.3b")
 # the paper's own op (benchmarks/bench_paper_mlp.py): ViT-B's first MLP
 # half, 3072 tokens, 768 -> 3072, gelu + bias; on no serving path
 VIT_B = "vit-b (paper op)"
@@ -148,19 +180,20 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def compare(out: torch.Tensor, want: torch.Tensor, label: str) -> float:
-    """Max |out - want|, checked elementwise against ATOL + RTOL * |want|."""
+def compare(out: torch.Tensor, want: torch.Tensor, label: str, *,
+            atol: float = ATOL, rtol: float = RTOL) -> float:
+    """Max |out - want|, checked elementwise against atol + rtol * |want|."""
     check(out.shape == want.shape and out.dtype == want.dtype,
           f"{label}: {tuple(out.shape)}/{out.dtype} vs "
           f"{tuple(want.shape)}/{want.dtype}")
     o, w = out.float(), want.float()
     check(bool(torch.isfinite(o).all()), f"{label}: non-finite output")
     err = (o - w).abs()
-    share = float((err / (ATOL + RTOL * w.abs())).max())
+    share = float((err / (atol + rtol * w.abs())).max())
     ok = share <= 1.0
     max_err = float(err.max())
     print(f"  {label}: max|kernel - plain| {max_err} (tolerance "
-          f"{ATOL} + {RTOL}*|plain|, mean|plain| {float(w.abs().mean())}, "
+          f"{atol} + {rtol}*|plain|, mean|plain| {float(w.abs().mean())}, "
           f"max|plain| {float(w.abs().max())}; largest share of the "
           f"tolerance used {share}) {'ok' if ok else 'FAIL'}")
     check(ok, f"{label} disagrees with its plain version")
@@ -177,7 +210,7 @@ def kernel_cases(dev, timer):
             torch.bfloat16)
 
     results = {"gemm": [], "flash_attention": [], "fused_mlp": [],
-               "rg_lru_scan": [], "gemm_act": []}
+               "rg_lru_scan": [], "gemm_act": [], "mlstm_scan": []}
 
     # execute_block_plan's projections: llama's at m=1024, and
     # recurrentgemma-9b's (wq/wo 4096 wide, MQA wk/wv 256 wide) at m=4096;
@@ -259,6 +292,7 @@ def kernel_cases(dev, timer):
     results["rg_lru_scan"] = rg_lru_cases(dev, timer, randn)
     results["gemm_act"] = gemm_act_cases(dev, timer, randn)
     partial_vs_fused(dev, timer, randn)
+    results["mlstm_scan"] = mlstm_cases(dev, timer, randn)
 
     for name, cases in results.items():
         for c in cases:
@@ -429,22 +463,121 @@ def partial_vs_fused(dev, timer, randn):
               f"{'partial' if t_p < t_f else 'fused'} is faster")
 
 
+def mlstm_cases(dev, timer, randn):
+    """The mLSTM scan, h and its final fp32 state, against its plain
+    version: xlstm-1.3b's prefill at the largest bucket (B = 1, H = 4,
+    T = 2048, Dh = 1024) with and without state, four slots at T = 512, a
+    ragged case at the reduced config's head dim, and a scan padded on the
+    right whose state is taken at a length below T (gates -inf / +inf
+    past it, as ``mlstm_block(length=)`` masks them) against the unpadded
+    scan's.  The forget gate is shifted by 3, as the model shifts it.  No
+    single PyTorch call runs this recurrence, so there is no library
+    time."""
+    from repro_torch.kernels import mlstm, ref
+
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(77)
+
+    def gates(b, h, t):
+        return (torch.randn((b, h, t), generator=gen, device=dev),
+                torch.randn((b, h, t), generator=gen, device=dev) + 3.0)
+
+    def bound(b, h, t, dh, state):
+        # q, k, v read and h written in bf16, the gates read in fp32, the
+        # state written in fp32; per step and head 5 Dh^2 fp32 operations
+        # for C (update 3, C q~ 2) and 5 Dh for n
+        nbytes = 8 * b * h * t * dh + 8 * b * h * t
+        if state:
+            nbytes += 4 * b * h * (dh * dh + dh + 1)
+        return bound_ms(nbytes, 5 * b * h * t * (dh * dh + dh), FP32_FLOPS)
+
+    def state_err(got, want, label):
+        return max(compare(got[n], want[n], f"{label} {n} (fp32)",
+                           atol=STATE_ATOL, rtol=STATE_RTOL)
+                   for n in ("C", "n", "m"))
+
+    for b, h, t, dh, state in ((1, 4, 2048, 1024, True),
+                               (1, 4, 2048, 1024, False),
+                               (4, 4, 512, 1024, True),
+                               (2, 2, 1000, 128, True)):
+        q, k, v = randn(b, h, t, dh), randn(b, h, t, dh), randn(b, h, t, dh)
+        ig, fg = gates(b, h, t)
+        label = (f"mlstm_scan B={b} H={h} T={t} Dh={dh} "
+                 f"{'with' if state else 'no'} state")
+        got = mlstm.mlstm_scan(q, k, v, ig, fg, return_state=state)
+        want = ref.mlstm_scan(q, k, v, ig, fg, return_state=state)
+        case = dict(path=XLSTM if dh == 1024 else "ragged",
+                    shape=[b, h, t, dh], state=state)
+        if state:
+            case["max_abs_err"] = compare(got[0], want[0], label + " h")
+            case["state_max_abs_err"] = state_err(got[1], want[1], label)
+        else:
+            case["max_abs_err"] = compare(got, want, label + " h")
+        bd, why = bound(b, h, t, dh, state)
+        out.append(dict(
+            case, ms=timer.ms(lambda: mlstm.mlstm_scan(
+                q, k, v, ig, fg, return_state=state)),
+            # a Python loop over T: about 15 launches a step
+            plain_ms=timer.ms(lambda: ref.mlstm_scan(
+                q, k, v, ig, fg, return_state=state), n=3),
+            library_ms=None, bound_ms=bd, bound_by=why))
+
+    # padded: T = 600, the state taken at 437
+    b, h, t, n, dh = 1, 4, 600, 437, 1024
+    q, k, v = randn(b, h, t, dh), randn(b, h, t, dh), randn(b, h, t, dh)
+    ig, fg = gates(b, h, t)
+    pad = torch.arange(t, device=dev) >= n
+    igp = ig.masked_fill(pad, float("-inf"))
+    fgp = fg.masked_fill(pad, float("inf"))
+    label = f"mlstm_scan B={b} H={h} T={t} Dh={dh} padded past {n}"
+    got_h, got = mlstm.mlstm_scan(q, k, v, igp, fgp, return_state=True)
+    cut = [x[:, :, :n].contiguous() for x in (q, k, v, ig, fg)]
+    kern_h, kern = mlstm.mlstm_scan(*cut, return_state=True)
+    check(all(torch.equal(got[x], kern[x]) for x in ("C", "n", "m"))
+          and torch.equal(got_h[:, :, :n], kern_h),
+          f"{label}: the padded scan's state differs from the kernel's "
+          f"unpadded one")
+    check(bool(torch.isfinite(got_h.float()).all()),
+          f"{label}: non-finite h on the padded steps")
+    want_h, want = ref.mlstm_scan(*cut, return_state=True)
+    print(f"  {label}: state and h equal the kernel's unpadded scan's, "
+          f"bit for bit")
+    err = compare(got_h[:, :, :n], want_h, label + " h")
+    serr = state_err(got, want, label + " against the plain unpadded scan")
+    bd, why = bound(b, h, t, dh, True)
+    out.append(dict(
+        path=XLSTM, shape=[b, h, t, dh], state=True, padded_from=n,
+        max_abs_err=err, state_max_abs_err=serr,
+        ms=timer.ms(lambda: mlstm.mlstm_scan(q, k, v, igp, fgp,
+                                             return_state=True)),
+        plain_ms=timer.ms(lambda: ref.mlstm_scan(q, k, v, igp, fgp,
+                                                 return_state=True), n=3),
+        library_ms=None, bound_ms=bd, bound_by=why))
+    return out
+
+
 # ---------------------------------------------------------------------------
-# phases 3, 5 and 7: serve a model at full width
+# phases 3, 5, 7 and 9: serve a model at full width
 # ---------------------------------------------------------------------------
 
 KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "flash_attention": r"(^|::)flash_kernel\b",
              "fused_mlp": r"(^|::)fused_mlp_kernel\b",
              "rg_lru_scan": r"(^|::)rg_lru_kernel\b",
-             "gemm_act": r"(^|::)gemm_act_kernel\b"}
+             "gemm_act": r"(^|::)gemm_act_kernel\b",
+             "mlstm_scan": r"(^|::)mlstm_kernel\b"}
 # the prefill plan's executors on each path: the gated MLPs are served
 # with ftl_mode="fused", granite's ungated one with "auto", where the
 # planner's partial schedule binds the partial-MLP kernels
 _PREFILL = {"gemm": "cuda_gemm", "attention": "cuda_flash_attention"}
+# (xlstm-1.3b has no plannable block: no plan, no executors)
 WANT_EXECUTORS = {LLAMA: {**_PREFILL, "mlp": "cuda_fused_mlp"},
                   RG: {**_PREFILL, "mlp": "cuda_fused_mlp"},
-                  GRANITE: {**_PREFILL, "mlp": "cuda_partial_mlp"}}
+                  GRANITE: {**_PREFILL, "mlp": "cuda_partial_mlp"},
+                  XLSTM: None}
+# launches a prefill must make, where the path fixes the count: one mLSTM
+# scan in each of xlstm-1.3b's 42 mLSTM layers
+PER_PREFILL = {XLSTM: {"mlstm_scan": 42}}
 
 
 def requests(cfg, lens_range, seed: int = 0):
@@ -468,9 +601,11 @@ def load_model(arch: str, dev, mode: str):
     n_params = sum(t.numel() for t in M.tree_leaves(params))
     n_bytes = sum(t.numel() * t.element_size()
                   for t in M.tree_leaves(params))
+    width = (f"mLSTM head_dim {cfg.xlstm_expand * cfg.d_model // cfg.n_heads}"
+             if cfg.family == "ssm" else f"head_dim {cfg.resolved_head_dim}")
     print(f"  {arch}: {cfg.n_layers} layers {M.period_kinds(cfg)}, d_model "
-          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_act}), vocab "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, {width}, "
+          f"d_ff {cfg.d_ff} ({cfg.mlp_act}), vocab "
           f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters "
           f"({n_bytes / 1e9} GB) initialised in "
           f"{time.perf_counter() - t0} s")
@@ -478,10 +613,12 @@ def load_model(arch: str, dev, mode: str):
 
 
 def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
-                want: dict):
+                want: dict | None, per_prefill: dict | None = None):
     """Serve 8 requests (4 slots, 32 new tokens each) twice: under the
     profiler with every launch counter of ``modules`` set to 0 just before
-    and read just after, then unprofiled for the serving times."""
+    and read just after, then unprofiled for the serving times.
+    ``want``: the prefill plan's executors (None: no plannable block);
+    ``per_prefill``: launches each prefill must make, by kernel."""
     from repro_torch.core import hw
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.models import model as M
@@ -496,11 +633,14 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
     rep = eng.plan_report()
     for phase in ("prefill", "decode"):
         e = rep[phase]
+        if e is None:
+            print(f"  plan {phase}: no plannable block")
+            continue
         print(f"  plan {phase} @ m={e['m']} on {rep['target']}: schedule "
               f"{e['schedule']}, cuts {e['cuts']}, executors "
               f"{e['executors']}")
-    check(rep["prefill"]["executors"] == want,
-          f"prefill executors {rep['prefill']['executors']} != {want}")
+    got = rep["prefill"] and rep["prefill"]["executors"]
+    check(got == want, f"prefill executors {got} != {want}")
     t0 = time.perf_counter()
     eng.warmup_compile()
     print(f"  warm-up (every bucket's prefill, one decode step) "
@@ -520,23 +660,35 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.perf_counter() - t0)
     launches = {n: mod.launches for n, mod in modules.items()}
+    prefills = eng.stats["prefills"] - s0["prefills"]
     print(f"  main path launches: {launches}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
-    check(blk is not None and blk["finite"] and blk["executors"] == want,
-          f"block plan execution: {blk}")
+    for name, each in (per_prefill or {}).items():
+        check(launches[name] == each * prefills,
+              f"{name}: {launches[name]} launches in {prefills} prefills, "
+              f"not {each} a prefill")
+    if want is None:
+        check(blk is None, f"a block plan ran without a plannable block: "
+              f"{blk}")
+    else:
+        check(blk is not None and blk["finite"] and blk["executors"] == want,
+              f"block plan execution: {blk}")
     check(len(done) == 8 and all(len(r.out) == 32 for r in done),
           "every request must return 32 tokens: "
           f"{[(r.rid, len(r.out)) for r in done]}")
     print(f"  prompt lengths {sorted(len(r.prompt) for r in done)}, buckets "
           f"{sorted(r.bucket for r in done)}")
 
+    # the profiler's raw events: building its event tree over xlstm-1.3b's
+    # 1.7 million device kernels (and their host events) takes a quarter
+    # of an hour
     kern = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            k = kern.setdefault(ev.name, [0, 0.0])
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kern.setdefault(ev.name(), [0, 0.0])
             k[0] += 1
-            k[1] += ev.time_range.elapsed_us() / 1e3
+            k[1] += ev.duration_ns() / 1e6
     check(bool(kern), "the profiler recorded no device kernel")
     for name in modules:
         hits = [n for n in kern if re.search(KERNEL_RE[name], n)]
@@ -551,8 +703,8 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
     print(f"  profiler: device kernel time {busy} ms of {prof_wall_ms} ms "
           f"wall in the profiled run: device busy {busy / prof_wall_ms}")
     print(f"  profiler: {sum(v[0] for v in kern.values())} device kernels "
-          f"launched in the profiled run (one execute_block_plan call, "
-          f"{eng.stats['prefills'] - s0['prefills']} prefills, "
+          f"launched in the profiled run ({'one' if blk else 'no'} "
+          f"execute_block_plan call, {prefills} prefills, "
           f"{eng.stats['decode_steps'] - s0['decode_steps']} decode steps)")
     del prof
 
@@ -568,8 +720,9 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
     steps = eng.stats["decode_steps"] - s0["decode_steps"]
     step_ms = 1e3 * (eng.stats["decode_s"] - s0["decode_s"]) / steps
     ttft = statistics.median(r.ttft_s for r in done)
-    print(f"  block plan executed @ m={max_seq}: {blk['ms']} ms, executors "
-          f"{blk['executors']}")
+    if blk is not None:
+        print(f"  block plan executed @ m={max_seq}: {blk['ms']} ms, "
+              f"executors {blk['executors']}")
     print(f"  served 8 requests, {tokens} tokens in {wall} s: "
           f"{tokens / wall} tokens/s; time to first token p50 "
           f"{1e3 * ttft} ms; {steps} decode steps, {step_ms} ms each; "
@@ -587,7 +740,8 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 6: the served path against the plain path
+# phases 4, 6, 8 and 10: the served path against the plain path, the engine
+# against the model, xlstm-1.3b's forward against its decode
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
@@ -600,62 +754,227 @@ def served_vs_plain(cfg, params, dev, n_tokens: int):
     served, _ = M.prefill(cfg, params, {"tokens": toks})
     plain, _ = M.prefill(dataclasses.replace(cfg, ftl_mode="off"), params,
                          {"tokens": toks})
-    f, p = served.float().flatten(), plain.float().flatten()
-    check(bool(torch.isfinite(f).all() and torch.isfinite(p).all()),
-          "non-finite prefill logits")
-    d = float((f - p).abs().max())
-    sigma = float(p.std())
-    tf, tp = int(f.argmax()), int(p.argmax())
-    # tolerance: a quarter of the logits' spread -- every layer's bf16
-    # products rounded in different places (the kernels round h once from
-    # fp32, the plain path after every product)
-    tol = 0.25 * sigma
-    # the two paths pick one token, or two whose plain logits differ by
-    # less than the measured difference (a tie within rounding)
-    tie = float(p[tp] - p[tf]) <= 2 * d
-    print(f"  prefill {n_tokens} tokens: top-1 {cfg.ftl_mode} {tf}, plain {tp} "
-          f"({'agree' if tf == tp else 'differ'}); max|dlogit| {d} "
-          f"(tolerance {tol} = 0.25 x std of the plain logits {sigma})")
-    check(d <= tol, f"{cfg.ftl_mode} and plain prefill logits differ beyond "
-          f"tolerance")
-    check(tf == tp or tie, f"{cfg.ftl_mode} and plain prefill pick "
-          f"different tokens")
+    _logits_agree(served, plain, f"prefill {n_tokens} tokens, "
+                  f"{cfg.ftl_mode} against plain")
 
 
 @torch.no_grad()
-def engine_vs_model(cfg, params, dev, n_prompt: int, n_new: int = 8):
+def _model_greedy(cfg, params, dev, tokens: np.ndarray, n_new: int,
+                  max_seq: int, last_pos: int | None = None):
+    """The model's own greedy prefill + decode_step loop on one prompt:
+    (tokens, top-2 logit gaps)."""
+    from repro_torch.models import model as M
+
+    t = torch.as_tensor(tokens, device=dev)[None].long()
+    logits, cache = M.prefill(cfg, params, {"tokens": t}, max_seq=max_seq,
+                              last_pos=last_pos)
+    pos = len(tokens) if last_pos is None else last_pos + 1
+    out, gaps = [], []
+    for i in range(n_new):
+        top2 = torch.topk(logits[0, -1].float(), 2)
+        out.append(int(top2.indices[0]))
+        gaps.append(float(top2.values[0] - top2.values[1]))
+        if i + 1 < n_new:
+            logits, cache = M.decode_step(
+                cfg, params, torch.tensor([[out[-1]]], device=dev), cache,
+                torch.tensor(pos + i, device=dev))
+    return out, gaps
+
+
+@torch.no_grad()
+def engine_vs_model(cfg, params, dev, n_prompt: int, n_new: int = 8, *,
+                    max_seq: int = 4096, padded_loop: bool = False):
     """The engine's greedy tokens for one prompt (padded to its bucket)
     against the model's own prefill + decode_step loop on the unpadded
-    prompt."""
+    prompt.  ``padded_loop`` (xlstm-1.3b) also holds them against the
+    model's loop on the padded bucket with ``last_pos``, which runs the
+    engine's GEMM shapes: the random-weight stack amplifies a GEMM's
+    rounding difference about 1.3 times a layer (PERF.md), so that gate
+    holds the engine's slot plumbing apart from any rounding."""
     from repro_torch.core import hw
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import model as M
 
     rng = np.random.default_rng(11)
     prompt = rng.integers(2, cfg.vocab_size, size=n_prompt).astype(np.int32)
-    eng = ServeEngine(cfg, params, batch_slots=1, max_seq=4096,
+    eng = ServeEngine(cfg, params, batch_slots=1, max_seq=max_seq,
                       target=hw.H100, eos_id=-1, device=dev)
     check(n_prompt not in eng.buckets, f"{n_prompt} is a bucket length")
     got = eng.run([Request(0, prompt, n_new)])[0].out
-
-    tokens = torch.as_tensor(prompt, device=dev)[None].long()
-    logits, cache = M.prefill(cfg, params, {"tokens": tokens}, max_seq=4096)
-    want, gaps = [], []
-    for i in range(n_new):
-        top2 = torch.topk(logits[0, -1].float(), 2)
-        want.append(int(top2.indices[0]))
-        gaps.append(float(top2.values[0] - top2.values[1]))
-        if i + 1 < n_new:
-            logits, cache = M.decode_step(
-                cfg, params, torch.tensor([[want[-1]]], device=dev),
-                cache, torch.tensor(n_prompt + i, device=dev))
     bucket = M.bucket_m(n_prompt, eng.buckets)
+    want, gaps = _model_greedy(cfg, params, dev, prompt, n_new, max_seq)
     print(f"  {n_prompt}-token prompt (bucket {bucket}, window "
-          f"{cfg.local_window}): engine {got}, model loop {want} "
-          f"({'equal' if got == want else 'DIFFER'}); the loop's top-2 "
-          f"logit gaps {gaps}")
+          f"{cfg.local_window}): engine {got}, model loop on the unpadded "
+          f"prompt {want} ({'equal' if got == want else 'DIFFER'}); the "
+          f"loop's top-2 logit gaps {gaps}")
+    if padded_loop:
+        padded = np.zeros(bucket, np.int32)
+        padded[:n_prompt] = prompt
+        on_pad, _ = _model_greedy(cfg, params, dev, padded, n_new, max_seq,
+                                  last_pos=n_prompt - 1)
+        print(f"  model loop on the padded bucket, last_pos "
+              f"{n_prompt - 1}: {on_pad} "
+              f"({'equal' if got == on_pad else 'DIFFER'})")
+        check(got == on_pad, "the engine's greedy tokens differ from the "
+              "model's own loop on the padded prompt")
     check(got == want, "the engine's greedy tokens differ from the model's "
           "own prefill + decode loop on the unpadded prompt")
+
+
+def _logits_agree(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Max |got - want| within a quarter of ``want``'s spread (every
+    layer's bf16 products rounded in different places: the kernels round
+    once from fp32, the plain path after every product), and the same
+    top-1 token or two whose ``want`` logits differ by less than twice the
+    measured difference (a tie within rounding).  Returns the difference."""
+    g, w = got.float().flatten(), want.float().flatten()
+    check(bool(torch.isfinite(g).all() and torch.isfinite(w).all()),
+          f"{what}: non-finite logits")
+    d = float((g - w).abs().max())
+    tol = 0.25 * float(w.std())
+    tg, tw = int(g.argmax()), int(w.argmax())
+    tie = float(w[tw] - w[tg]) <= 2 * d
+    print(f"  {what}: top-1 {tg} against {tw} "
+          f"({'agree' if tg == tw else 'differ'}); max|dlogit| {d} "
+          f"(tolerance {tol} = 0.25 x std)")
+    check(d <= tol, f"{what}: logits differ beyond tolerance")
+    check(tg == tw or tie, f"{what}: different top-1 tokens")
+    return d
+
+
+def _prefill_decode_vs_forward(cfg, params, toks, s: int):
+    """``prefill`` of the first s tokens and one ``decode_step`` for each
+    token after them, against ``forward`` on all of them: the logits at
+    s - 1 ... end, as (served, forward) rows."""
+    from repro_torch.models import model as M
+
+    t = toks.shape[1]
+    full, _ = M.forward(cfg, params, {"tokens": toks})
+    logits, cache = M.prefill(cfg, params, {"tokens": toks[:, :s]},
+                              max_seq=t)
+    got = [logits[0, -1]]
+    for j in range(s, t):
+        logits, cache = M.decode_step(cfg, params, toks[:, j:j + 1], cache,
+                                      torch.tensor(j, device=toks.device))
+        got.append(logits[0, -1])
+    return torch.stack(got), full[0, s - 1:]
+
+
+@torch.no_grad()
+def forward_vs_decode(cfg, params, dev, s: int, n_dec: int = 4):
+    """xlstm-1.3b's three uses of its recurrences, held against each other:
+    the stateless ``forward`` (the mLSTM kernel without state), ``prefill``
+    (the kernel with its final state) and ``decode_step`` (the plain fp32
+    recurrence on that state).
+
+    1. ``prefill`` against ``forward`` on the same s tokens: the logits at
+       s - 1.  Both run the same GEMM shapes and the same kernel body, with
+       and without the state write, so this tells the kernel's two modes
+       apart only by that write and checks the prefill's plumbing.
+    2. Every layer on the forward's own inputs (teacher-forced): the block
+       without state on s + 4 tokens against the block with state on the
+       first s, then 4 decode steps on that state; and the state of the
+       block run on all s + 4 tokens with ``length=s`` (the 4 extra tokens
+       masked as a bucket's padding) against the state of the first s.
+    3. For the record, not gated: after each layer, the forward's residual
+       stream over s + 4 tokens against the one over s (only the GEMMs' M
+       differs), and ``prefill`` of s tokens + 4 ``decode_step``s against
+       ``forward`` on s + 4, end to end.  The random-weight stack carries a
+       difference about 1.2 times further each layer, in the JAX reference
+       as in the port on the same weights (``tests/test_torch_xlstm_growth
+       .py``), so one rounding step in an early layer parts the logits by
+       O(1) after 48 layers; 2 holds each layer without that.
+
+    Tolerances: logits and layer outputs within a quarter of the forward's
+    spread (bf16 products rounded in different places, as for a
+    served-against-plain prefill); states within STATE_ATOL +
+    STATE_RTOL |·|."""
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(13)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size,
+                                        size=(1, s + n_dec)), device=dev)
+    fwd, _ = M.forward(cfg, params, {"tokens": toks[:, :s]})
+    logits, _ = M.prefill(cfg, params, {"tokens": toks[:, :s]})
+    _logits_agree(logits[0, -1], fwd[0, -1],
+                  f"prefill of {s} tokens against forward on the same "
+                  f"tokens")
+
+    worst = {"mlstm": [0.0, 0.0], "slstm": [0.0, 0.0]}  # output, state
+    drift = []
+    for (kind, p, x, x_out), (_, _, _, x_short) in zip(
+            M.layer_stream(cfg, params, toks),
+            M.layer_stream(cfg, params, toks[:, :s])):
+        dx = (x_out[:, :s].float() - x_short.float()).abs().max()
+        drift.append(f"{kind[0]}:{float(dx):.3g}")
+        mix = M.MIXERS[kind]
+        y = mix.block(cfg, p["mix"], x)
+        y_pre, st = mix.block(cfg, p["mix"], x[:, :s], return_state=True)
+        _, st_len = mix.block(cfg, p["mix"], x, return_state=True, length=s)
+        for name in st:
+            w, g = st[name], st_len[name]
+            share = float(((g - w).abs() / (STATE_ATOL + STATE_RTOL
+                                            * w.abs())).max())
+            worst[kind][1] = max(worst[kind][1], share)
+        got = [y_pre[:, -1]]
+        for j in range(n_dec):
+            yj, st = mix.decode(cfg, p["mix"], x[:, s + j:s + j + 1], st)
+            got.append(yj[:, 0])
+        want = y[:, s - 1:s + n_dec].float()
+        d = float((torch.stack(got, 1).float() - want).abs().max())
+        worst[kind][0] = max(worst[kind][0], d / (0.25 * float(want.std())))
+    for kind, (out_share, st_share) in worst.items():
+        print(f"  every {kind} layer, teacher-forced: the block with state "
+              f"+ {n_dec} decode steps against the block without, largest "
+              f"share of the tolerance (0.25 x std of its outputs) used "
+              f"{out_share}; the state at length {s} of {s + n_dec} "
+              f"tokens against that of {s}, largest share of "
+              f"{STATE_ATOL} + {STATE_RTOL}|state| used {st_share}")
+        check(out_share <= 1.0, f"{kind}: decode steps differ from the "
+              f"stateless block beyond tolerance")
+        check(st_share <= 1.0, f"{kind}: the state at length differs from "
+              f"the unpadded state")
+
+    got, want = _prefill_decode_vs_forward(cfg, params, toks, s)
+    diffs = (got.float() - want.float()).abs().amax(-1).tolist()
+    agree = (got.argmax(-1) == want.argmax(-1)).tolist()
+    print(f"  for the record (not gated): after each layer, max|dx| between "
+          f"the forward's residual stream over {s + n_dec} tokens and the "
+          f"one over {s}, on the first {s}: {' '.join(drift)}")
+    print(f"  for the record (not gated): all {cfg.n_layers} layers, "
+          f"prefill of {s} + {n_dec} decode steps against forward on "
+          f"{s + n_dec} tokens: max|dlogit| {diffs} at positions "
+          f"{s - 1} ... {s + n_dec - 1} (std of the forward logits "
+          f"{float(want.float().std())}), same top-1 {agree}")
+
+
+@torch.no_grad()
+def forward_timed(cfg, params, dev, b: int = 2, s: int = 2048):
+    """One stateless ``forward`` on a (b, s) batch, timed on the host
+    around a device sync after one warm-up call: what a train step's
+    forward runs."""
+    from repro_torch.kernels import mlstm
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(17)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(b, s)),
+                           device=dev)
+    M.forward(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = mlstm.launches
+    t0 = time.perf_counter()
+    logits, _ = M.forward(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"forward on {b} x {s}: logits {tuple(logits.shape)}, not finite "
+          f"or of the wrong shape")
+    print(f"  forward on {b} x {s} tokens: {1e3 * dt} ms "
+          f"({b * s / dt} tokens/s), {mlstm.launches - before} mLSTM "
+          f"launches; its peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9} GB")
 
 
 # ---------------------------------------------------------------------------
@@ -665,7 +984,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     from repro_torch.kernels import (_build, flash_attention, fused_mlp,
-                                     gemm, gemm_act, rg_lru)
+                                     gemm, gemm_act, mlstm, rg_lru)
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serving_ftl_mode
 
@@ -705,15 +1024,17 @@ def main() -> int:
 
     kernels = {"gemm": gemm, "flash_attention": flash_attention,
                "fused_mlp": fused_mlp, "rg_lru_scan": rg_lru,
-               "gemm_act": gemm_act}
-    # granite-20b last: its 40.6 GB of weights load after
-    # recurrentgemma-9b's are freed
+               "gemm_act": gemm_act, "mlstm_scan": mlstm}
+    # each model's weights load after the one before is freed: granite-20b's
+    # 40.6 GB after recurrentgemma-9b's, xlstm-1.3b's 3.9 GB last
     paths = {LLAMA: (("gemm", "flash_attention", "fused_mlp"),
                      dict(max_seq=1024, lens_range=(128, 960)), 256),
              RG: (("gemm", "flash_attention", "fused_mlp", "rg_lru_scan"),
                   dict(max_seq=4096, lens_range=(128, 3072)), 2500),
              GRANITE: (("gemm", "flash_attention", "gemm_act"),
-                       dict(max_seq=2048, lens_range=(128, 1920)), 256)}
+                       dict(max_seq=2048, lens_range=(128, 1920)), 256),
+             XLSTM: (("mlstm_scan",),
+                     dict(max_seq=2048, lens_range=(128, 1920)), 1000)}
     launches = {}
     for arch, (names, serve_kw, n_plain) in paths.items():
         mode = serving_ftl_mode(get_config(arch))
@@ -725,10 +1046,19 @@ def main() -> int:
                   f"reference counts {N_PARAMS[arch]}")
         launches[arch] = serve_phase(
             dev, cfg, params, {n: kernels[n] for n in names},
-            want=WANT_EXECUTORS[arch], **serve_kw)
-        print(f"== {arch}: served path against the plain path (at "
-              f"{time.perf_counter() - t_start} s)")
-        served_vs_plain(cfg, params, dev, n_plain)
+            want=WANT_EXECUTORS[arch], per_prefill=PER_PREFILL.get(arch),
+            **serve_kw)
+        if cfg.family == "ssm":
+            print(f"== {arch}: forward against decode, engine against model "
+                  f"(at {time.perf_counter() - t_start} s)")
+            forward_vs_decode(cfg, params, dev, 256)
+            engine_vs_model(cfg, params, dev, n_plain,
+                            max_seq=serve_kw["max_seq"], padded_loop=True)
+            forward_timed(cfg, params, dev)
+        else:
+            print(f"== {arch}: served path against the plain path (at "
+                  f"{time.perf_counter() - t_start} s)")
+            served_vs_plain(cfg, params, dev, n_plain)
         if cfg.family == "hybrid":
             engine_vs_model(cfg, params, dev, n_plain)
         del params
@@ -746,6 +1076,8 @@ def main() -> int:
                         "src/repro/kernels/rg_lru.py:51"),
         "gemm_act": ("src/repro_torch/csrc/gemm_act.cu",
                      "src/repro/kernels/gemm_gelu.py:51"),
+        "mlstm_scan": ("src/repro_torch/csrc/mlstm.cu",
+                       "src/repro/kernels/mlstm.py:68"),
     }
     # each kernel's headline is the last served path that runs it:
     # "launches" is that path's main-path count and the headline numbers

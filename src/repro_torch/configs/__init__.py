@@ -14,6 +14,7 @@ _ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "granite-20b": "granite_20b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 ARCHS: tuple[str, ...] = tuple(_ARCH_MODULES)

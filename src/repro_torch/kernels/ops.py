@@ -1,7 +1,7 @@
 """Public kernel API of the port: the dispatch.
 
-Every op here but ``gemm_act`` and ``rg_lru`` (which have only the
-first):
+Every op here but ``gemm_act``, ``rg_lru`` and ``mlstm`` (which have only
+the first: no caller asks for their plain versions on the card):
   * with ``backend='auto'`` calls the kernel wrapper, which launches the
     CUDA kernel for a CUDA tensor and runs the plain version for a CPU
     tensor — the decision is the tensor's device, nothing else;
@@ -10,9 +10,10 @@ first):
 
 Each kernel's block sizes come from its own shared-memory footprint
 against the planning target's fast level: fixed tiles for ``gemm``,
-``gemm_act``, ``flash_attention`` and ``rg_lru`` (the registry qualifies
-the first three on that footprint), a planned F slice for the fused MLP
-(:func:`repro_torch.kernels.fused_mlp.plan_blocks`, on ``target``).
+``gemm_act``, ``flash_attention``, ``rg_lru`` and ``mlstm`` (the
+registry qualifies the first three on that footprint), a planned F slice
+for the fused MLP (:func:`repro_torch.kernels.fused_mlp.plan_blocks`, on
+``target``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from . import flash_attention as _flash
 from . import fused_mlp as _fused
 from . import gemm as _gemm
 from . import gemm_act as _gemm_act
+from . import mlstm as _mlstm
 from . import ref as _ref
 from . import rg_lru as _rg_lru
 
@@ -76,3 +78,14 @@ def rg_lru(x, a, h0=None):
     """RG-LRU scan: (all h in ``x.dtype``, final h in fp32).  It has no
     ``backend``: its plain version runs for CPU tensors only."""
     return _rg_lru.rg_lru_scan(x, a, h0)
+
+
+def mlstm(q, k, v, i_pre, f_pre, *, return_state: bool = False):
+    """Stabilized mLSTM scan: h in ``q.dtype`` and, with
+    ``return_state``, the final ``{"C", "n", "m"}`` in fp32.  The kernel
+    writes the state itself, so serving's prefill runs it too (the
+    reference sends ``return_state`` to its plain scan).  It has no
+    ``backend``: its plain version runs for CPU tensors only."""
+    return _mlstm.mlstm_scan(q.contiguous(), k.contiguous(), v.contiguous(),
+                             i_pre.contiguous(), f_pre.contiguous(),
+                             return_state=return_state)

@@ -115,3 +115,49 @@ def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
         h = af[:, i] * h + xf[:, i]
         hs[:, i] = h
     return hs.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM) — matrix-memory recurrence, stabilized
+# ---------------------------------------------------------------------------
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               i_pre: torch.Tensor, f_pre: torch.Tensor, *,
+               return_state: bool = False):
+    """Stabilized mLSTM recurrence (xLSTM eqs. 19-27), per (batch, head)
+    from ``C = 0, n = 0, m = 0``::
+
+        C_t = f'_t C_{t-1} + i'_t v_t k_tᵀ ;  n_t = f'_t n_{t-1} + i'_t k_t
+        h_t = C_t q̃_t / max(|n_tᵀ q̃_t|, exp(-m_t))
+
+    with the log-space stabilizer ``m``.  q, k, v (B, H, T, Dh); i_pre,
+    f_pre (B, H, T).  Returns h in ``q.dtype`` (rounded once) and, with
+    ``return_state``, ``{"C", "n", "m"}`` in fp32.  A Python loop over
+    time, batched over (B, H); every product is an elementwise fp32
+    product summed in fp32 (no matrix product, so no TF32)."""
+    b, h, t, dh = q.shape
+    scale = dh ** -0.5
+    dev = q.device
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ig, fg = i_pre.float(), f_pre.float()
+    C = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=dev)
+    n = torch.zeros((b, h, dh), dtype=torch.float32, device=dev)
+    m = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, t, dh), dtype=torch.float32, device=dev)
+    for s in range(t):
+        it, kt, vt = ig[..., s], kf[:, :, s], vf[:, :, s]
+        logf = F.logsigmoid(fg[..., s])
+        m_new = torch.maximum(logf + m, it)
+        i_ = torch.exp(it - m_new)
+        f_ = torch.exp(logf + m - m_new)
+        C = f_[..., None, None] * C + i_[..., None, None] * (
+            vt[..., :, None] * kt[..., None, :])
+        n = f_[..., None] * n + i_[..., None] * kt
+        qs = qf[:, :, s] * scale
+        num = (C * qs[..., None, :]).sum(-1)
+        den = torch.maximum((n * qs).sum(-1).abs(), torch.exp(-m_new))
+        out[:, :, s] = num / den[..., None]
+        m = m_new
+    if return_state:
+        return out.to(q.dtype), {"C": C, "n": n, "m": m}
+    return out.to(q.dtype)

@@ -7,10 +7,14 @@ The counterpart of the reference ``repro.launch.serve``:
   allocated as a slot's position grows and freed on eviction, so
   admission control can queue requests under memory pressure.  Hybrid
   configs keep a dense per-slot cache: recurrent state beside ring-buffered
-  local-attention KV.
+  local-attention KV; pure-SSM (xLSTM) configs a dense per-slot cache of
+  fp32 mLSTM and sLSTM state, whose size does not grow with the context.
 * **State at the prompt's end** — a prompt is padded on the right up to its
   bucket, and the prefill takes the recurrent state and the local ring at
   the prompt's last real token (``last_pos``), not at the bucket's end.
+* **No plannable block** — a pure-SSM stack has no attention and no MLP to
+  plan: its plans are None, the CLI says so, and ``execute_block_plan``
+  returns None.
 * **Mixed sequence lengths** — each slot decodes at its own position
   (vector ``pos`` through ``model.decode_step``).
 * **Plan cache** — serving plans are keyed ``(cfg, bucketed m, dtype,
@@ -337,7 +341,8 @@ class ServeEngine:
         Executes one transformer block of the engine's own parameters
         through ``registry.run_block`` on a (1, max_seq, d_model)
         activation, requalifying every binding on this device; records
-        the resolved executors and the wall-clock time in ``stats``."""
+        the resolved executors and the wall-clock time in ``stats``.
+        Returns None when the model has no plannable block."""
         if self.block_plan is None:
             return None
         p, kind = self._first_block_params()
@@ -375,7 +380,7 @@ class ServeEngine:
         """(params, mixer kind) of the first plan-executable layer: the
         first attention(+MLP) layer, else (hybrid stacks whose plan is
         MLP-only) the first MLP-bearing one; (None, None) when no layer
-        can execute the plan."""
+        can execute the plan (a pure-SSM stack: no attention, no MLP)."""
         kinds, n_full, rem_kinds = M._layer_split(self.cfg)
         if n_full:
             pool = [(k, f"pos{i}") for i, k in enumerate(kinds)]
@@ -595,7 +600,10 @@ def serving_ftl_mode(cfg) -> str:
     ``cuda_partial_mlp`` (``gemm_act``, then ``gemm``) at every prefill
     bucket on the card.  ``'fused'`` for a gated one: the partial kernels
     take no gate, and under ``'auto'`` the planner would leave the gated
-    MLP to ``torch_partial_scan_mlp`` (ROADMAP, finding 2)."""
+    MLP to ``torch_partial_scan_mlp`` (ROADMAP, finding 2).  ``'off'``
+    for a stack with no MLP (xLSTM): there is nothing to plan."""
+    if not cfg.d_ff:
+        return "off"
     return "fused" if cfg.mlp_gated else "auto"
 
 

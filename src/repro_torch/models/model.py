@@ -1,6 +1,8 @@
 """Model assembly of the port: the decoder-only families.
 
   dense  — embed → [attn + MLP] × L → norm → lm_head
+  ssm    — xLSTM: mLSTM blocks with every ``slstm_every``-th an sLSTM; no
+           separate MLP (the projections live inside the block)
   hybrid — recurrentgemma: (rec, rec, local-attn) pattern + MLP each layer
 
 Layers are grouped into *pattern periods* as in the reference
@@ -9,9 +11,11 @@ across periods (leaves ``(n_periods, ...)``), and where the reference
 consumes the stack with ``lax.scan`` the port walks it with a Python loop
 over the same stacked tensors.  Layers that do not fill a whole period
 (recurrentgemma: 38 = 12×3 + 2) are applied after the loop, from
-``params["rem"]`` / ``cache["rem"]``.  Mixer kinds other than ``attn``,
-``local`` and ``rec`` (mLSTM/sLSTM, cross-attention), MoE FFNs and
-encoder–decoder configs are not ported yet and raise.
+``params["rem"]`` / ``cache["rem"]``; a stack shorter than one period
+(``xlstm-1.3b.reduced()``: 4 layers, period 8) has zero whole periods
+and only those.  Cross-attention, MoE FFNs and encoder–decoder configs
+are not ported yet and raise.  A pure-SSM stack has no plannable block:
+its plans are None, as in the reference.
 
 The serving plan machinery (``PREFILL_BUCKETS``, :func:`bucket_m`,
 :func:`serve_plan`) is the reference's, keyed additionally by the device
@@ -20,7 +24,7 @@ platform the plan's executors are bound for.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -46,8 +50,27 @@ from repro_torch.models.layers import (
 
 Params = dict[str, Any]
 
-# kinds whose mixer handles its own input norm (the recurrent block does)
-_SELF_NORMED = {"rec"}
+
+class _Mixer(NamedTuple):
+    """A recurrent block's functions, all with one signature per role."""
+    init: Callable        # (cfg, gen, dtype, device, lead) -> params
+    block: Callable       # (cfg, p, x, *, return_state, length)
+    decode: Callable      # (cfg, p, x, state) -> (y, state), in place
+    init_state: Callable  # (cfg, batch, device, lead) -> state
+
+
+MIXERS = {
+    "mlstm": _Mixer(recurrent.init_mlstm_block, recurrent.mlstm_block,
+                    recurrent.mlstm_block_decode,
+                    recurrent.init_mlstm_state),
+    "slstm": _Mixer(recurrent.init_slstm_block, recurrent.slstm_block,
+                    recurrent.slstm_block_decode,
+                    recurrent.init_slstm_state),
+    "rec": _Mixer(recurrent.init_rec_block, recurrent.rec_block,
+                  recurrent.rec_block_decode, recurrent.init_rec_state),
+}
+# kinds whose mixer handles its own input norm (recurrent blocks do)
+_SELF_NORMED = set(MIXERS)
 # kinds that keep a decode cache of KV type
 _KV_KINDS = {"attn", "local"}
 
@@ -57,8 +80,8 @@ def _check_supported(cfg) -> None:
             set(period_kinds(cfg)) - _KV_KINDS - _SELF_NORMED:
         raise NotImplementedError(
             f"{cfg.name!r} ({cfg.family}) needs layers the port does not "
-            f"have yet: it serves decoder-only attention and RG-LRU "
-            f"stacks")
+            f"have yet: it serves decoder-only attention, RG-LRU and xLSTM "
+            f"(mLSTM/sLSTM) stacks")
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -89,7 +112,7 @@ def _init_layer(cfg, gen: torch.Generator, kind: str, device: torch.device,
                                       lead),
                      "attn": init_attention(cfg, gen, dt, device, lead)}
     elif kind in _SELF_NORMED:
-        p = {"mix": recurrent.init_rec_block(cfg, gen, dt, device, lead)}
+        p = {"mix": MIXERS[kind].init(cfg, gen, dt, device, lead)}
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     if cfg.d_ff:
@@ -112,8 +135,8 @@ def _apply_ffn(cfg, p: Params, x: torch.Tensor, plan=None) -> torch.Tensor:
 
 def _apply_mixer(cfg, p: Params, kind: str, x: torch.Tensor, *,
                  positions: torch.Tensor) -> torch.Tensor:
-    if kind == "rec":
-        return recurrent.rec_block(cfg, p["mix"], x)
+    if kind in _SELF_NORMED:
+        return MIXERS[kind].block(cfg, p["mix"], x)
     h = norm(p["ln1"], x, cfg.norm)
     return attention_layer(cfg, p["attn"], h, positions=positions,
                            window=_window(cfg, kind))
@@ -298,17 +321,27 @@ def _layers(cfg, params: Params):
         yield kind, params["rem"][f"rem{i}"]
 
 
+def layer_stream(cfg, params: Params, tokens: torch.Tensor, plan=None):
+    """The eval forward's residual stream, one layer at a time: yields
+    ``(kind, layer params, x_in, x_out)`` for every layer in order, from
+    the embedded ``tokens`` (B, S).  ``forward`` is the last ``x_out``
+    through the final norm and the unembedding."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed(params, tokens)
+    for kind, p in _layers(cfg, params):
+        y = _apply_layer(cfg, p, kind, x, positions=positions, plan=plan)
+        yield kind, p, x, y
+        x = y
+
+
 def forward(cfg, params: Params, batch: dict[str, torch.Tensor]
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Eval forward: ``batch['tokens']`` (B, S) → (logits, aux)."""
     _check_supported(cfg)
     tokens = batch["tokens"]
-    s = tokens.shape[1]
-    positions = torch.arange(s, device=tokens.device)
-    x = _embed(params, tokens)
-    plan = _block_plan(cfg, s, cfg.dtype, device=tokens.device)
-    for kind, p in _layers(cfg, params):
-        x = _apply_layer(cfg, p, kind, x, positions=positions, plan=plan)
+    plan = _block_plan(cfg, tokens.shape[1], cfg.dtype, device=tokens.device)
+    for _, _, _, x in layer_stream(cfg, params, tokens, plan):
+        pass
     x = norm(params["final_norm"], x, cfg.norm)
     return _unembed(cfg, params, x), torch.zeros((), device=x.device)
 
@@ -323,8 +356,8 @@ def _layer_prefill(cfg, p: Params, kind: str, x: torch.Tensor, *,
                    ) -> tuple[torch.Tensor, Params]:
     """Returns (x, cache); the cache holds the state after ``length``
     tokens (None: all of them)."""
-    if kind == "rec":
-        o, cache = recurrent.rec_block(cfg, p["mix"], x, return_state=True,
+    if kind in _SELF_NORMED:
+        o, cache = MIXERS[kind].block(cfg, p["mix"], x, return_state=True,
                                        length=length)
     else:
         h = norm(p["ln1"], x, cfg.norm)
@@ -338,8 +371,8 @@ def _layer_prefill(cfg, p: Params, kind: str, x: torch.Tensor, *,
 def _layer_decode(cfg, p: Params, kind: str, x: torch.Tensor,
                   cache: Params, pos: torch.Tensor, plan=None
                   ) -> tuple[torch.Tensor, Params]:
-    if kind == "rec":
-        o, cache = recurrent.rec_block_decode(cfg, p["mix"], x, cache)
+    if kind in _SELF_NORMED:
+        o, cache = MIXERS[kind].decode(cfg, p["mix"], x, cache)
     else:
         h = norm(p["ln1"], x, cfg.norm)
         o, cache = attention_decode(cfg, p["attn"], h, cache, pos,
@@ -351,8 +384,8 @@ def _layer_decode(cfg, p: Params, kind: str, x: torch.Tensor,
 def _init_layer_cache(cfg, kind: str, batch: int, seq: int,
                       device: torch.device, lead: tuple[int, ...] = ()
                       ) -> Params:
-    if kind == "rec":
-        return recurrent.init_rec_state(cfg, batch, device, lead)
+    if kind in _SELF_NORMED:
+        return MIXERS[kind].init_state(cfg, batch, device, lead)
     return init_kv_cache(cfg, batch, seq, torch_dtype(cfg.dtype), device,
                          window=_window(cfg, kind), lead=lead)
 
@@ -361,8 +394,10 @@ def init_cache(cfg, batch: int, seq: int, *,
                device: torch.device | str | None = None) -> Params:
     """Zero decode state for a ``seq``-long context, in init_params'
     stack structure (stacked leaves ``(n_periods, batch, ...)``: KV
-    ``(…, seq, Hk, Dh)``, recurrent ``h`` ``(…, W)`` and ``conv``
-    ``(…, conv_width - 1, W)`` in fp32)."""
+    ``(…, seq, Hk, Dh)``; in fp32 the RG-LRU's ``h`` ``(…, W)`` and
+    ``conv`` ``(…, conv_width - 1, W)``, the mLSTM's ``C`` ``(…, H, Dh,
+    Dh)``, ``n`` ``(…, H, Dh)`` and ``m`` ``(…, H)``, the sLSTM's ``h``,
+    ``c``, ``n``, ``m`` ``(…, D)``)."""
     _check_supported(cfg)
     device = resolve_device(device)
     kinds, n_full, rem_kinds = _layer_split(cfg)
@@ -405,8 +440,13 @@ def prefill(cfg, params: Params, batch: dict[str, torch.Tensor],
                 cfg, pp[f"pos{i}"], kind, x, positions=positions,
                 max_seq=max_seq, plan=plan, length=length)
         per_period.append(caches)
-    cache: Params = {"layers": tree_map(lambda *ts: torch.stack(ts),
-                                        *per_period)}
+    if per_period:
+        stacked = tree_map(lambda *ts: torch.stack(ts), *per_period)
+    else:       # no whole period: the stack's leaves are (0, ...) long
+        stacked = {f"pos{i}": _init_layer_cache(
+            cfg, kind, tokens.shape[0], max_seq or tokens.shape[1],
+            tokens.device, lead=(0,)) for i, kind in enumerate(kinds)}
+    cache: Params = {"layers": stacked}
     if rem_kinds:
         cache["rem"] = {}
         for i, kind in enumerate(rem_kinds):

@@ -1,17 +1,22 @@
-"""The RG-LRU recurrent block (Griffin / RecurrentGemma) of the port.
+"""Recurrent temporal-mixing blocks of the port: mLSTM + sLSTM (xLSTM)
+and the RG-LRU recurrent block (Griffin / RecurrentGemma).
 
-The counterpart of the RG-LRU half of the reference
-``repro.models.recurrent``, with its casts kept exactly: prefill runs the
-scan (the RG-LRU kernel for CUDA tensors) on ``u`` and ``a`` cast to the
-input dtype; decode is a single fp32 step on constant-size state (``h``
-and the causal conv's last ``conv_width - 1`` inputs, both kept in fp32).
-The mLSTM and sLSTM blocks of ``xlstm-1.3b`` are not ported yet.
+The counterpart of the reference ``repro.models.recurrent``, with its
+casts kept exactly.  Sequence paths run the scans (the mLSTM and RG-LRU
+kernels for CUDA tensors, their plain versions for CPU tensors); the
+sLSTM scan and every decode step are plain PyTorch, as they are plain JAX
+in the reference: single-step updates on constant-size state, kept in
+fp32 (mLSTM ``C``/``n``/``m``, sLSTM ``h``/``c``/``n``/``m``, RG-LRU
+``h`` and the causal conv's last ``conv_width - 1`` inputs).  Decode
+steps update the state in place, where the reference returns new arrays.
 
-Serving pads prompts on the right up to a bucket; ``rec_block(...,
-length=)`` takes the state at the prompt's real end: the padded steps
-scan with ``a = 1`` and ``u = 0`` (exact in bf16), so they carry ``h``
-through unchanged, and the conv state is the inputs that end at
-``length - 1``.
+Serving pads prompts on the right up to a bucket; every block's
+``length=`` takes the state at the prompt's real end.  The RG-LRU's
+padded steps scan with ``a = 1`` and ``u = 0`` (exact in bf16) and its
+conv state is the inputs that end at ``length - 1``; the mLSTM's padded
+steps get gates ``i = -inf`` and ``f = +inf``, so ``i' = 0``, ``f' = 1``
+and ``m`` is unchanged: the carry passes through exactly; the sLSTM keeps
+the state of step ``length - 1``.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from .layers import init_linear, init_norm, linear, norm
 Params = dict[str, Any]
 
 _LRU_C = 8.0
+_GATES = ("z", "i", "f", "o")
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -39,6 +45,239 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + e^x) with no linear cut-over."""
     return torch.logaddexp(x, torch.zeros_like(x))
 
+
+def _linear_f32(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``linear`` on fp32 ``x``: the weights promoted to fp32, as JAX
+    promotes a bf16 weight against an fp32 input."""
+    y = x @ p["w"].float()
+    if "b" in p:
+        y = y + p["b"].float()
+    return y
+
+
+# ===========================================================================
+# mLSTM (xLSTM) block
+# ===========================================================================
+
+def init_mlstm_block(cfg, gen: torch.Generator, dtype: torch.dtype,
+                     device: torch.device, lead: tuple[int, ...] = ()
+                     ) -> Params:
+    d = cfg.d_model
+    e = cfg.xlstm_expand * d
+    h = cfg.n_heads
+    dh = e // h
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    f32 = dict(dtype=torch.float32, device=device, lead=lead)
+
+    # q/k/v are block-diagonal per head (xLSTM eq. 24's head-wise
+    # projections): (H, dh, dh) instead of dense (e, e)
+    def blockdiag():
+        w = torch.randn((*lead, h, dh, dh), generator=gen, device=device,
+                        dtype=torch.float32)
+        return {"w": w.mul_(dh ** -0.5).to(dtype)}
+
+    return {
+        "norm": init_norm(d, cfg.norm, dtype, device, lead),
+        "up": init_linear(gen, d, 2 * e, bias=False, **kw),
+        "wq": blockdiag(),
+        "wk": blockdiag(),
+        "wv": blockdiag(),
+        "wi": init_linear(gen, e, h, bias=True, **f32),
+        "wf": init_linear(gen, e, h, bias=True, **f32),
+        "head_norm": init_norm(e, "rmsnorm", dtype, device, lead),
+        "down": init_linear(gen, e, d, bias=False,
+                            scale=e ** -0.5 / math.sqrt(2 * cfg.n_layers),
+                            **kw),
+    }
+
+
+def _mlstm_qkvif(cfg, p: Params, xin: torch.Tensor):
+    b, s, e = xin.shape
+    h = cfg.n_heads
+    xh = xin.reshape(b, s, h, e // h)
+    q = torch.einsum("bshd,hde->bhse", xh, p["wq"]["w"])
+    k = torch.einsum("bshd,hde->bhse", xh, p["wk"]["w"])
+    v = torch.einsum("bshd,hde->bhse", xh, p["wv"]["w"])
+    i_pre = linear(p["wi"], xin.float()).transpose(1, 2)
+    f_pre = linear(p["wf"], xin.float()).transpose(1, 2) + 3.0
+    return q, k, v, i_pre, f_pre
+
+
+def _mlstm_out(cfg, p: Params, hcell: torch.Tensor, z: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """Head norm, the output gate ``silu(z)`` and the down projection of
+    the cell output ``hcell`` (B, S, E)."""
+    hcell = norm(p["head_norm"], hcell, "rmsnorm")
+    out = hcell * F.silu(z.float()).to(x.dtype)
+    return linear(p["down"], out)
+
+
+def mlstm_block(cfg, p: Params, x: torch.Tensor, *,
+                return_state: bool = False, length: int | None = None):
+    """x: (B, S, D) -> (B, S, D); residual added by caller.  ``length``
+    (≤ S) is the prompt's real length when the sequence is padded on the
+    right: the padded steps' gates carry the state through unchanged, so
+    the returned state is the one after ``length`` tokens."""
+    if cfg.mlstm_chunk and not return_state:
+        raise NotImplementedError(
+            "mlstm_chunk > 0 selects the reference's time-chunked "
+            "rematerialised scan, which saves state for training's backward "
+            "pass; the port has no training yet: set mlstm_chunk=0")
+    xn = norm(p["norm"], x, cfg.norm)
+    up = linear(p["up"], xn)
+    xin, z = up.chunk(2, dim=-1)                        # (B, S, E) each
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(cfg, p, xin)
+    b, s = x.shape[0], x.shape[1]
+    if length is not None and length < s:
+        pad = torch.arange(s, device=x.device) >= length
+        i_pre = i_pre.masked_fill(pad, float("-inf"))
+        f_pre = f_pre.masked_fill(pad, float("inf"))
+    state = None
+    if return_state:
+        hcell, state = ops.mlstm(q, k, v, i_pre, f_pre, return_state=True)
+    else:
+        hcell = ops.mlstm(q, k, v, i_pre, f_pre)
+    hcell = hcell.transpose(1, 2).reshape(b, s, -1)
+    y = _mlstm_out(cfg, p, hcell, z, x)
+    return (y, state) if return_state else y
+
+
+def init_mlstm_state(cfg, batch: int, device: torch.device,
+                     lead: tuple[int, ...] = ()) -> Params:
+    e = cfg.xlstm_expand * cfg.d_model
+    h = cfg.n_heads
+    dh = e // h
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((*lead, batch, h, dh, dh), **f32),
+        "n": torch.zeros((*lead, batch, h, dh), **f32),
+        "m": torch.zeros((*lead, batch, h), **f32),
+    }
+
+
+def mlstm_block_decode(cfg, p: Params, x: torch.Tensor, state: Params
+                       ) -> tuple[torch.Tensor, Params]:
+    """One-token step (x (B, 1, D)) on constant-size state, updated in
+    place; the returned state is the same tensors."""
+    xn = norm(p["norm"], x, cfg.norm)
+    up = linear(p["up"], xn)
+    xin, z = up.chunk(2, dim=-1)
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(cfg, p, xin)
+    qt = q[:, :, 0].float()                             # (B, H, Dh)
+    kt = k[:, :, 0].float()
+    vt = v[:, :, 0].float()
+    it = i_pre[:, :, 0]
+    ft = f_pre[:, :, 0]
+    scale = qt.shape[-1] ** -0.5
+
+    m = state["m"]
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + m, it)
+    i_ = torch.exp(it - m_new)[..., None]
+    f_ = torch.exp(logf + m - m_new)[..., None]
+    C = state["C"].mul_(f_[..., None]).add_(
+        i_[..., None] * (vt[..., :, None] * kt[..., None, :]))
+    nvec = state["n"].mul_(f_).add_(i_ * kt)
+    m.copy_(m_new)
+    qs = qt * scale
+    num = (C * qs[..., None, :]).sum(-1)
+    den = torch.maximum((nvec * qs).sum(-1).abs(), torch.exp(-m_new))
+    hcell = (num / den[..., None]).reshape(x.shape[0], 1, -1).to(x.dtype)
+    return _mlstm_out(cfg, p, hcell, z, x), state
+
+
+# ===========================================================================
+# sLSTM block (scalar memory, per-head recurrent weights)
+# ===========================================================================
+
+def init_slstm_block(cfg, gen: torch.Generator, dtype: torch.dtype,
+                     device: torch.device, lead: tuple[int, ...] = ()
+                     ) -> Params:
+    d = cfg.d_model
+    h = cfg.n_heads
+    dh = d // h
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    p: Params = {"norm": init_norm(d, cfg.norm, dtype, device, lead)}
+    for g in _GATES:
+        p[f"w{g}"] = init_linear(gen, d, d, bias=True, **kw)
+        # block-diagonal recurrent weights: (H, dh, dh), kept in fp32
+        p[f"r{g}"] = torch.randn((*lead, h, dh, dh), generator=gen,
+                                 device=device, dtype=torch.float32
+                                 ).mul_(dh ** -0.5)
+    p["down"] = init_linear(gen, d, d, bias=False,
+                            scale=d ** -0.5 / math.sqrt(2 * cfg.n_layers),
+                            **kw)
+    return p
+
+
+def init_slstm_state(cfg, batch: int, device: torch.device,
+                     lead: tuple[int, ...] = ()) -> Params:
+    return {g: torch.zeros((*lead, batch, cfg.d_model), dtype=torch.float32,
+                           device=device) for g in ("h", "c", "n", "m")}
+
+
+def _slstm_step(cfg, p: Params, state: Params, xt: Params) -> Params:
+    """One sLSTM step; ``xt`` the gates' input pre-activations (B, D)
+    (already W x + b).  Returns new fp32 state tensors."""
+    h_prev = state["h"]
+    b, d = h_prev.shape
+    hh = h_prev.reshape(b, cfg.n_heads, -1)
+
+    def rec(g):
+        return torch.einsum("bhi,hij->bhj", hh, p[f"r{g}"]).reshape(b, d)
+
+    zt = torch.tanh(xt["z"] + rec("z"))
+    it = xt["i"] + rec("i")
+    ft = xt["f"] + rec("f")
+    ot = torch.sigmoid(xt["o"] + rec("o"))
+
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + state["m"], it)
+    i_ = torch.exp(it - m_new)
+    f_ = torch.exp(logf + state["m"] - m_new)
+    c = f_ * state["c"] + i_ * zt
+    n = f_ * state["n"] + i_
+    h = ot * c / torch.clamp(n, min=1.0)
+    return {"h": h, "c": c, "n": n, "m": m_new}
+
+
+def slstm_block(cfg, p: Params, x: torch.Tensor, *,
+                return_state: bool = False, length: int | None = None):
+    """Full-sequence sLSTM block (a Python loop over time).  With
+    ``length`` (≤ S) the returned state is the one after ``length``
+    tokens; the steps past it are the bucket's padding."""
+    xn = norm(p["norm"], x, cfg.norm).float()
+    pre = {g: _linear_f32(p[f"w{g}"], xn) for g in _GATES}
+    b, s, _ = x.shape
+    length = s if length is None else length
+    state = kept = init_slstm_state(cfg, b, x.device)
+    hs = []
+    for t in range(s):
+        state = _slstm_step(cfg, p, state, {g: v[:, t] for g, v in
+                                            pre.items()})
+        hs.append(state["h"])
+        if t == length - 1:
+            kept = state
+    out = torch.stack(hs, dim=1).to(x.dtype)
+    y = linear(p["down"], out)
+    return (y, kept) if return_state else y
+
+
+def slstm_block_decode(cfg, p: Params, x: torch.Tensor, state: Params
+                       ) -> tuple[torch.Tensor, Params]:
+    """One-token step; the state is updated in place."""
+    xn = norm(p["norm"], x, cfg.norm).float()[:, 0]
+    pre = {g: _linear_f32(p[f"w{g}"], xn) for g in _GATES}
+    new = _slstm_step(cfg, p, state, pre)
+    for g, t in new.items():
+        state[g].copy_(t)
+    out = linear(p["down"], state["h"][:, None].to(x.dtype))
+    return out, state
+
+
+# ===========================================================================
+# RG-LRU recurrent block (Griffin / RecurrentGemma)
+# ===========================================================================
 
 def init_rec_block(cfg, gen: torch.Generator, dtype: torch.dtype,
                    device: torch.device, lead: tuple[int, ...] = ()

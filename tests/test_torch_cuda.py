@@ -4,7 +4,9 @@ Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip
 elsewhere.  Run them on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Tolerance in
 bf16, elementwise: |kernel - plain| <= 2e-2 + 2e-2 |plain| (both round fp32
-sums to bf16, in different orders).
+sums to bf16, in different orders).  The mLSTM scan's fp32 state: |kernel -
+plain| <= 1e-3 + 1e-3 |plain| (the same recurrence, its products fused and
+its sums taken in another order).
 """
 import pytest
 
@@ -12,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.ftl import registry  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    flash_attention, fused_mlp, gemm, gemm_act, ref, rg_lru)
+    flash_attention, fused_mlp, gemm, gemm_act, mlstm, ops, ref, rg_lru)
 
 pytestmark = pytest.mark.cuda
 
@@ -188,6 +190,73 @@ def test_rg_lru_scan_carries_state_through_padding(dev):
     assert torch.equal(h_t, h_n)
 
 
+def _mlstm_inputs(dev, seed, b, h, t, dh):
+    """bf16 q, k, v and fp32 gates, the forget gate shifted by 3 as the
+    model shifts it."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (_rand(dev, seed + i, b, h, t, dh) for i in range(3))
+    i_pre = torch.randn((b, h, t), generator=g, device=dev)
+    f_pre = torch.randn((b, h, t), generator=g, device=dev) + 3.0
+    return q, k, v, i_pre, f_pre
+
+
+def _state_close(got, want):
+    for name in ("C", "n", "m"):
+        assert got[name].dtype == torch.float32
+        torch.testing.assert_close(got[name], want[name], rtol=1e-3,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,h,t,dh", [
+    (1, 4, 300, 1024),           # xlstm-1.3b's head dim, a ragged chunk
+    (2, 2, 1000, 128),           # the reduced config's head dim
+    (1, 1, 7, 32),               # one partial chunk, a padded tile
+    (3, 2, 64, 96),              # a head dim that is no power of two
+    (1, 2, 129, 160),
+    (2, 1, 40, 512),
+])
+def test_mlstm_scan(dev, b, h, t, dh, with_state):
+    args = _mlstm_inputs(dev, 21, b, h, t, dh)
+    before = mlstm.launches
+    got = mlstm.mlstm_scan(*args, return_state=with_state)
+    assert mlstm.launches == before + 1
+    want = ref.mlstm_scan(*args, return_state=with_state)
+    if with_state:
+        _close(got[0], want[0])
+        _state_close(got[1], want[1])
+    else:
+        _close(got, want)
+
+
+def test_mlstm_scan_carries_state_through_padding(dev):
+    """Steps with i = -inf, f = +inf (a bucket's padding) leave the state
+    exactly at the last real step's, and the real steps' h unchanged."""
+    b, h, t, n, dh = 2, 2, 200, 131, 256
+    q, k, v, i_pre, f_pre = _mlstm_inputs(dev, 23, b, h, t, dh)
+    i_pad, f_pad = i_pre.clone(), f_pre.clone()
+    i_pad[..., n:] = float("-inf")
+    f_pad[..., n:] = float("inf")
+    out, st = mlstm.mlstm_scan(q, k, v, i_pad, f_pad, return_state=True)
+    cut = [x[:, :, :n].contiguous() for x in (q, k, v, i_pre, f_pre)]
+    out_n, st_n = mlstm.mlstm_scan(*cut, return_state=True)
+    for name in ("C", "n", "m"):
+        assert torch.equal(st[name], st_n[name])
+    assert torch.equal(out[:, :, :n], out_n)
+    assert bool(torch.isfinite(out.float()).all())
+    _state_close(st, ref.mlstm_scan(*cut, return_state=True)[1])
+
+
+def test_ops_mlstm_launches_with_and_without_state(dev):
+    args = _mlstm_inputs(dev, 25, 1, 2, 33, 128)
+    before = mlstm.launches
+    ops.mlstm(*args)
+    ops.mlstm(*args, return_state=True)
+    assert mlstm.launches == before + 2
+    ref.mlstm_scan(*args, return_state=True)
+    assert mlstm.launches == before + 2
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = _rand(dev, 0, 8, 16)
     with pytest.raises(TypeError):
@@ -213,3 +282,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         rg_lru.rg_lru_scan(xs.float(), xs.float())
     with pytest.raises(ValueError):                 # h0 not (B, W) fp32
         rg_lru.rg_lru_scan(xs, xs, xs[:, 0])
+    q = _rand(dev, 7, 1, 2, 8, 64)
+    gate = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(TypeError):                  # bf16 gates
+        mlstm.mlstm_scan(q, q, q, gate.bfloat16(), gate.bfloat16())
+    with pytest.raises(ValueError):                 # head dim 48
+        q48 = _rand(dev, 8, 1, 2, 8, 48)
+        mlstm.mlstm_scan(q48, q48, q48, gate, gate)
+    with pytest.raises(ValueError):                 # gates of another T
+        mlstm.mlstm_scan(q, q, q, gate[..., :4], gate[..., :4])
+    with pytest.raises(ValueError):                 # not contiguous
+        mlstm.mlstm_scan(q.transpose(1, 2), q, q, gate, gate)

@@ -177,11 +177,16 @@ def test_local_window_prefill_and_decode_match_reference():
 
 
 def test_unported_families_raise():
-    cfg = tconfigs.ModelConfig(name="ssm", family="ssm", n_layers=2,
-                               d_model=32, n_heads=2, n_kv_heads=2, d_ff=0,
-                               vocab_size=16, dtype="float32")
-    with pytest.raises(NotImplementedError):
-        TM.init_params(cfg, 0, device="cpu")
+    """MoE FFNs and encoder–decoder configs are not ported (the ssm family
+    this test used is, since the xLSTM slice)."""
+    base = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+                vocab_size=16, dtype="float32")
+    for cfg in (tconfigs.ModelConfig(name="moe", family="moe", d_ff=0,
+                                     n_experts=4, moe_d_ff=16, **base),
+                tconfigs.ModelConfig(name="audio", family="audio", d_ff=64,
+                                     is_encoder_decoder=True, **base)):
+        with pytest.raises(NotImplementedError):
+            TM.init_params(cfg, 0, device="cpu")
 
 
 def test_bucket_m_ladder():
