@@ -17,7 +17,11 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    each) beside its roofline bound, its plain version's time and, where
    one exists, the time of the one PyTorch call that computes the same
    function.  The fused MLP's planned F slice is also timed beside its
-   neighbours, each with the bytes of its fp32 partials.  ``gemm_act``
+   neighbours, each with the bytes of its fp32 partials.  Each ``gemm``
+   and ``gemm_act`` case prints the tile loop its schedule runs (``tma``,
+   ``tma+splitk=N`` or ``mma.sync``) and, on the TMA route, its time at
+   the other tile width.  ``gemm`` is held at the served projections and
+   at granite-20b's down projection at M = 2048 and 128; ``gemm_act``
    is held at granite-20b's up projection (M = 2048 and 128), at the
    paper's ViT-B op and at a ragged shape; granite's whole MLP is timed
    through the fused-MLP kernel and through the partial schedule, beside
@@ -215,22 +219,26 @@ def kernel_cases(dev, timer):
     # execute_block_plan's projections: llama's at m=1024, and
     # recurrentgemma-9b's (wq/wo 4096 wide, MQA wk/wv 256 wide) at m=4096;
     # granite-20b's down projection inside the partial MLP (every prefill
-    # layer) and its projections (wq/wo 6144 wide, MQA wk/wv one tile
-    # 128 wide) at m=2048
+    # layer) at its longest and shortest prefill bucket, and its
+    # projections (wq/wo 6144 wide, MQA wk/wv one tile 128 wide) at m=2048
     for path, (m, k, n) in ((LLAMA, (1024, 3072, 3072)),
                             (LLAMA, (1024, 3072, 1024)),
                             (RG, (4096, 4096, 4096)),
                             (RG, (4096, 4096, 256)),
                             (GRANITE, (2048, 24576, 6144)),
+                            (GRANITE, (128, 24576, 6144)),
                             (GRANITE, (2048, 6144, 6144)),
                             (GRANITE, (2048, 6144, 128))):
         x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
         label = f"gemm ({m}x{k})@({k}x{n})"
+        sched = tile_loop(label, x, w)
         err = compare(gemm.gemm(x, w), ref.gemm(x, w), label)
         b, why = bound_ms(2 * (m * k + k * n + m * n), 2 * m * n * k)
         results["gemm"].append(dict(
-            path=path, shape=[m, k, n], max_abs_err=err,
+            path=path, shape=[m, k, n], max_abs_err=err, **sched,
             ms=timer.ms(lambda: gemm.gemm(x, w)),
+            other_width_ms=other_width_ms(
+                timer, x, w, lambda s: gemm.run_schedule(x, w, s)),
             plain_ms=timer.ms(lambda: ref.gemm(x, w)),
             library_ms=timer.ms(lambda: torch.matmul(x, w)),
             bound_ms=b, bound_by=why))
@@ -302,6 +310,37 @@ def kernel_cases(dev, timer):
                   f"{c['bound_ms']} ms ({c['bound_by']}), plain "
                   f"{c['plain_ms']} ms{lib}")
     return results
+
+
+def tile_loop(label, x, w) -> dict:
+    """The GEMM tile loop's schedule for ``x @ w`` (kernels/gemm.py:plan),
+    printed on the case's own line: ``tma``, ``tma+splitk=N`` or
+    ``mma.sync``, the tile width and the grid."""
+    from repro_torch.kernels import gemm
+
+    s = gemm.plan(x, w)
+    print(f"  {label}: tile loop {s.label}, 128 x {s.block_n} tiles, "
+          f"grid {s.grid}, workspace {s.workspace_bytes} B")
+    return dict(tile_loop=s.label, block_n=s.block_n, split_k=s.split_k,
+                grid=s.grid)
+
+
+def other_width_ms(timer, x, w, run) -> float | None:
+    """The TMA route's time at the tile width its schedule did not pick
+    (with that width's own split), for the record; None on mma.sync."""
+    from repro_torch.kernels import gemm
+
+    s = gemm.plan(x, w)
+    if s.route != "tma":
+        return None
+    m, k = x.shape
+    n = w.shape[1]
+    other = gemm.schedule(m, n, k, sms=gemm.sm_count(x.device.index),
+                          block_n={128: 256, 256: 128}[s.block_n])
+    t = timer.ms(lambda: run(other))
+    print(f"    at the other tile width, {other.label} 128 x "
+          f"{other.block_n}: {t} ms")
+    return t
 
 
 def fused_mlp_cases(dev, timer, randn, k_, f_, n_, act, ms, path):
@@ -401,6 +440,7 @@ def gemm_act_cases(dev, timer, randn):
         b = randn(n, scale=0.5) if bias else None
         label = (f"gemm_act ({m}x{k})@({k}x{n}) {act} "
                  f"{'+ bias' if bias else 'no bias'}")
+        sched = tile_loop(label, x, w)
         err = compare(gemm_act.gemm_act(x, w, b, act=act),
                       ref.gemm_act(x, w, b, act=act), label)
         nbytes = 2 * (m * k + k * n + m * n + (n if bias else 0))
@@ -409,7 +449,11 @@ def gemm_act_cases(dev, timer, randn):
         lib_b = b if bias else torch.zeros(n, dtype=x.dtype, device=dev)
         out.append(dict(
             path=path, shape=[m, k, n], act=act, bias=bias, max_abs_err=err,
+            **sched,
             ms=timer.ms(lambda: gemm_act.gemm_act(x, w, b, act=act)),
+            other_width_ms=other_width_ms(
+                timer, x, w,
+                lambda s: gemm_act.run_schedule(x, w, b, act, s)),
             plain_ms=timer.ms(lambda: ref.gemm_act(x, w, b, act=act)),
             library_ms=timer.ms(lambda: torch._addmm_activation(
                 lib_b, x, w, use_gelu=act == "gelu")),
@@ -1014,6 +1058,11 @@ def main() -> int:
               f"fused_mlp blocks per SM at block_f={bf}: the planner's "
               f"{fused_mlp.blocks_per_sm(bf)}, the CUDA runtime's "
               f"{_build.lib().rt_fused_mlp_blocks_per_sm(bf, 1)}")
+    # the registry binds the GEMM kernels from gemm.SMEM_BYTES; it must be
+    # the footprint the CUDA launcher asks for
+    check(_build.lib().rt_gemm_smem_bytes() == gemm.SMEM_BYTES,
+          f"gemm footprint: Python {gemm.SMEM_BYTES}, CUDA "
+          f"{_build.lib().rt_gemm_smem_bytes()}")
     for line in (lib.parent / "build.log").read_text().splitlines():
         if line.startswith("==") or "Compiling entry" in line \
                 or "Used" in line or "spill" in line:
@@ -1095,7 +1144,7 @@ def main() -> int:
                               if name in n},
          **{k: head[name][k] for k in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape")},
+             "library_ms", "shape", "tile_loop") if k in head[name]},
          "cases": results[name]}
         for name, (src, rep) in meta.items()]}
     print(json.dumps(line))

@@ -125,21 +125,39 @@ __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile,
 }
 
 // Activations, matching repro.kernels.ref.act_fn: 0 gelu (tanh form),
-// 1 gelu_exact, 2 silu, 3 relu, 4 identity.
+// 1 gelu_exact, 2 silu, 3 relu, 4 identity.  ``act_k<Kind>`` is one of
+// them, for an epilogue that dispatches on the kind once, outside its
+// unrolled loop.
+template <int Kind>
+__device__ __forceinline__ float act_k(float x) {
+  if constexpr (Kind == 0) {
+    // 0.5 x (1 + tanh(u)) = x sigmoid(2u), u = sqrt(2 / pi) (x + 0.044715
+    // x^3): one exponential and one reciprocal instead of tanhf
+    const float k2 = 1.5957691216057308f;  // 2 sqrt(2 / pi)
+    return __fdividef(x, 1.f + __expf(-k2 * (x + 0.044715f * x * x * x)));
+  } else if constexpr (Kind == 1) {
+    return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+  } else if constexpr (Kind == 2) {
+    return x / (1.f + __expf(-x));
+  } else if constexpr (Kind == 3) {
+    return x > 0.f ? x : 0.f;
+  } else {
+    return x;
+  }
+}
+
 __device__ __forceinline__ float act(float x, int kind) {
   switch (kind) {
-    case 0: {
-      const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-    }
+    case 0:
+      return act_k<0>(x);
     case 1:
-      return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+      return act_k<1>(x);
     case 2:
-      return x / (1.f + __expf(-x));
+      return act_k<2>(x);
     case 3:
-      return x > 0.f ? x : 0.f;
+      return act_k<3>(x);
     default:
-      return x;
+      return act_k<4>(x);
   }
 }
 

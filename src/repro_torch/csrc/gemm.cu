@@ -1,16 +1,20 @@
 // y = x @ w with an fp32 accumulator, cast to bf16 on the flush.
 //
-// Replaces the TPU kernel repro/kernels/gemm.py:gemm.  At the QKV/O
-// projections of llama3.2-3b at M = 1024 (K = 3072, N = 3072 or 1024) the
-// work is compute-bound on an H100 (~2 * M * N * K FLOP against ~25 MB of
-// operands).  Design (gemm_tile.cuh): one 128 x 128 output tile per block
-// of 8 warps, each warp a 64 x 32 sub-tile of mma.sync m16n8k16
-// accumulators; K is walked in steps of 32 with a two-stage cp.async
-// pipeline so the next step's tiles load while this step's multiply runs.
-// Any M, N and K: the ragged edges load as zeros and the epilogue stores
-// only in-range elements.  The TPU's (block_m, block_n, block_k) grid with
-// a VMEM accumulator carried across the k grid axis becomes the k loop
-// inside one block; Hopper's wgmma/TMA path is later work.
+// Replaces the TPU kernel repro/kernels/gemm.py:gemm.  On the serving path
+// it is granite-20b's MLP down projection (the partial schedule, every
+// prefill layer: M = the bucket, 24576 -> 6144) and the QKV/O projections
+// of run_block.  At M = 2048 the down projection is compute-bound on an
+// H100 (6.2e11 FLOP against 428 MB of operands); at a 128-row bucket it
+// is bound by the 302 MB weight panel, and granite's MQA wk/wv (N = 128)
+// gives 16 output tiles for 132 SMs.  Design (gemm_tile.cuh): operands TMA
+// can take run the persistent, warp-specialised TMA + wgmma loop on
+// 128 x 128 or 128 x 256 tiles, split along K where the tiles are too few
+// to fill the SMs (fp32 partials summed in a fixed order by a second
+// launch); anything else runs the mma.sync loop.  kernels/gemm.py:schedule
+// picks the route, the tile width, the split and the grid.  The TPU's
+// (block_m, block_n, block_k) grid with a VMEM accumulator carried across
+// the k grid axis becomes the k loop inside one block (or inside one
+// split's range, summed by the reduction).
 #include "gemm_tile.cuh"
 
 namespace {
@@ -18,23 +22,35 @@ namespace {
 using rt::bf16;
 namespace gt = rt::gemm_tile;
 
-__global__ void __launch_bounds__(gt::THREADS)
-gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-            bf16* __restrict__ y, int M, int N, int K, int vec) {
-  __shared__ gt::Smem sm;
-  const int m0 = blockIdx.y * gt::BM, n0 = blockIdx.x * gt::BN;
-  gt::Acc acc;
-  gt::mainloop(acc, sm, x, w, M, N, K, vec, m0, n0);
-  gt::store(acc, y, M, N, m0, n0, [](float v, int) { return v; });
+// the epilogue: the fp32 sum as it is (no bias, no activation)
+struct Plain {
+  template <class F>
+  __device__ __forceinline__ static void with(const gt::Params&, F f) {
+    f([](float v) { return v; });
+  }
+};
+
+template <class Loop>
+__global__ void __launch_bounds__(Loop::kThreads, Loop::kMinBlocks)
+    gemm_kernel(const __grid_constant__ gt::Params p) {
+  Loop::template run<Plain>(p);
 }
 
 }  // namespace
 
-extern "C" int rt_gemm(const void* x, const void* w, void* y, int M, int N,
-                       int K, int vec, void* stream) {
-  const dim3 grid((N + gt::BN - 1) / gt::BN, (M + gt::BM - 1) / gt::BM);
-  gemm_kernel<<<grid, gt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<bf16*>(y), M, N, K, vec);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int rt_gemm(const void* x, const void* w, void* y, void* ws,
+                       int M, int N, int K, int tma, int bn, int split,
+                       int grid, void* stream) {
+  gt::Params p{};
+  p.x = static_cast<const bf16*>(x);
+  p.w = static_cast<const bf16*>(w);
+  p.y = static_cast<bf16*>(y);
+  p.ws = static_cast<float*>(ws);
+  p.M = M, p.N = N, p.K = K, p.split = split;
+  return gt::launch({&gemm_kernel<gt::TmaLoop<128>>,
+                     &gemm_kernel<gt::TmaLoop<256>>,
+                     &gemm_kernel<gt::SyncLoop>, &gemm_kernel<gt::Reduce>},
+                    p, tma, bn, grid, static_cast<cudaStream_t>(stream));
 }
+
+extern "C" int rt_gemm_smem_bytes() { return gt::SMEM_BYTES; }

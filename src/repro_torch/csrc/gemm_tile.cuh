@@ -1,131 +1,628 @@
-// The tile loop shared by the GEMM kernels (gemm.cu, gemm_act.cu).
+// The tile loops shared by the GEMM kernels (gemm.cu, gemm_act.cu).
 //
-// One 128 x 128 output tile per block of 8 warps, each warp a 64 x 32
-// sub-tile of mma.sync m16n8k16 accumulators (bf16 in, fp32 accumulate);
-// K is walked in steps of 32 through a two-stage cp.async ring so the
-// next step's tiles load while this step's multiply runs.  Any M, N and
-// K: the ragged edges load as zeros, and ``store`` writes only in-range
-// elements.  A kernel is ``mainloop`` followed by ``store`` with its own
-// epilogue, so each kernel keeps its own device symbol.
+// A kernel is ``gemm_kernel<Loop>`` (or ``gemm_act_kernel<Loop>``): one of
+// the loops below, handed the kernel's own epilogue.  Every loop stores
+// bf16(act(sum + b[c])), all in fp32 up to that one rounding, b optional
+// (gemm has none); ``Epi::with(p, f)`` calls f once with the activation
+// functor ``act(v)``, picked once, outside the unrolled store, so that the
+// store holds one activation's code and not a switch over all of them per
+// element.  The TMA loop reads a thread's bias a column pair at a time,
+// all pairs before the store, once for the two rows it holds at each.
+// Which loop runs, and with which tile width, split and grid, is decided
+// on the host from shape and alignment alone (kernels/gemm.py:schedule)
+// and handed to ``launch`` below.
+//
+// TmaLoop<BN>, for K and N multiples of 8 and 16-byte-aligned operands
+// (what a TMA tensor map takes).  A persistent, warp-specialised loop:
+// min(units, SMs) blocks of three warpgroups walk 128 x BN output tiles
+// (BN = 128 or 256), grouped along M (GROUP_M tiles) so that blocks that
+// run together share w's panels in L2.  Warpgroup 0 is the producer: one
+// thread issues TMA loads of x (128 x 64, K-major) and w (64 x BN as
+// BN / 64 boxes of 64 x 64, N-major) into a ring of 192 KB of shared
+// memory with the 128-byte swizzle (6 stages at BN = 128, 4 at 256), each
+// stage with a "full" mbarrier (TMA bytes landed) and an "empty" one (its
+// consumers done).  Warpgroups 1 and 2 are the consumers, 64 rows of the
+// tile each, on wgmma m64nBNk16 (bf16 in, fp32 accumulators in registers,
+// w read through the descriptor's transpose bit, so the weights keep the
+// reference's (K, N) layout); setmaxnreg moves registers from the
+// producer (40) to them (232).  One k step's products stay in flight
+// while the next step's are issued; a stage is released when its
+// products are done.  The producer runs ahead into the next tile's
+// loads while the consumers store this one.  TMA zero-fills rows and
+// columns past M, N and K, so ragged edges need no masking until the
+// store.
+// Split-K (p.split > 1): a unit is a tile and one of ``split`` contiguous
+// ranges of its k steps; each unit writes its fp32 partial sums to
+// ws[split, M, N], and Reduce sums them in a fixed order and applies the
+// epilogue to the whole sum: deterministic, no atomics.
+//
+// SyncLoop, for everything else (K or N not a multiple of 8, or an
+// operand not 16-byte aligned): one 128 x 128 tile per block of 8 warps,
+// each warp a 64 x 32 sub-tile of mma.sync m16n8k16 accumulators, K in
+// steps of 32 through two shared-memory stages, operands loaded element by
+// element with the ragged edges zero-filled.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and the driver's enums (no libcuda link)
 
 #include "common.cuh"
 
 namespace rt::gemm_tile {
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int THREADS = 256;          // 8 warps: 2 along M x 4 along N
-constexpr int WM = 64, WN = 32;       // warp tile
-constexpr int MI = WM / 16, NI = WN / 8;
-constexpr int LDA = BK + 8, LDB = BN + 8;
+constexpr int BM = 128, BK = 64;  // TMA route: tile rows, k step
+constexpr int GROUP_M = 8;        // tiles along M walked before N moves
+constexpr int RING_BYTES = 192 * 1024;
+constexpr int BAR_BYTES = 256;    // the full and empty mbarriers
+// dynamic shared memory of the TMA route: the ring, its barriers, and the
+// slack to align the ring to the 128-byte swizzle's 1024-byte pattern
+constexpr int SMEM_BYTES = RING_BYTES + BAR_BYTES + 1024;
 
-struct Smem {
-  __align__(16) bf16 As[2][BM * LDA];
-  __align__(16) bf16 Bs[2][BK * LDB];
+// Everything a loop reads: the TMA descriptors (TMA route), the raw
+// pointers, and the shape; ``bias`` and ``act`` are read only by
+// gemm_act's epilogue, ``ws`` only with split > 1.
+struct Params {
+  CUtensorMap a, b;  // x (M x K) and w (K x N), bf16, 128-byte swizzle
+  const bf16* x;
+  const bf16* w;
+  const bf16* bias;
+  bf16* y;
+  float* ws;
+  int M, N, K, act, split;
 };
 
-using Acc = float[MI][NI][4];
+__host__ __device__ constexpr int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
 
-// acc = x[m0:m0+BM, :] @ w[:, n0:n0+BN] in fp32.  ``vec``: K and N are
-// multiples of 8 and both operands 16-byte aligned (rt::load_chunk).
-__device__ __forceinline__ void mainloop(Acc& acc, Smem& sm,
-                                         const bf16* __restrict__ x,
-                                         const bf16* __restrict__ w, int M,
-                                         int N, int K, int vec, int m0,
-                                         int n0) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / 4, wn = warp % 4;
+// b[c] (0 without a bias), through the read-only path: its loads need not
+// wait for the stores to y before them
+__device__ __forceinline__ float bias_at(const Params& p, int c) {
+  return p.bias ? __bfloat162float(__ldg(p.bias + c)) : 0.f;
+}
 
-  auto load = [&](int kt, int st) {
-    const int k0 = kt * BK;
-    // A tile: BM rows x BK cols = 512 chunks of 8
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-      const int gr = m0 + r, gc = k0 + cc;
-      const int valid = gr < M ? K - gc : 0;
-      load_chunk(&sm.As[st][r * LDA + cc], x + (size_t)gr * K + gc, valid,
-                 vec, x);
-    }
-    // B tile: BK rows x BN cols = 512 chunks of 8
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-      const int gr = k0 + r, gc = n0 + cc;
-      const int valid = gr < K ? N - gc : 0;
-      load_chunk(&sm.Bs[st][r * LDB + cc], w + (size_t)gr * N + gc, valid,
-                 vec, w);
-    }
-  };
+// (b[c], b[c + 1]) for an even c < N - 1 (zeros without a bias): one
+// 4-byte load where b is 4-byte aligned
+__device__ __forceinline__ __nv_bfloat162 bias_pair(const Params& p, int c) {
+  if (!p.bias) return __floats2bfloat162_rn(0.f, 0.f);
+  if ((reinterpret_cast<uintptr_t>(p.bias) & 3) == 0)
+    return __ldg(reinterpret_cast<const __nv_bfloat162*>(p.bias + c));
+  return __halves2bfloat162(__ldg(p.bias + c), __ldg(p.bias + c + 1));
+}
 
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+// ---------------------------------------------------------------------------
+// PTX for the TMA route: mbarriers, TMA, wgmma, setmaxnreg
+// ---------------------------------------------------------------------------
 
-  const int ktiles = (K + BK - 1) / BK;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) load(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* a_t = sm.As[kt & 1];
-    const bf16* b_t = sm.Bs[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        load_a(a[i], a_t, LDA, wm * WM + i * 16, ks, lane);
-#pragma unroll
-      for (int j = 0; j < NI; j += 2) {
-        uint32_t b[4];
-        load_b_kn(b, b_t, LDB, ks, wn * WN + j * 8, lane);
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          mma16816(acc[i][j], a[i], b[0], b[1]);
-          mma16816(acc[i][j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-// y[r, c] = bf16(epi(acc element, c)) for the block's in-range elements;
-// ``epi(v, c)`` maps the fp32 sum at column c to the fp32 value stored.
-template <class Epilogue>
-__device__ __forceinline__ void store(const Acc& acc, bf16* __restrict__ y,
-                                      int M, int N, int m0, int n0,
-                                      Epilogue epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / 4, wn = warp % 4;
-  const int g = lane >> 2, t = lane & 3;
+// One box of a 2-D tensor map (coordinates innermost first) into shared
+// memory, completing ``bar``'s transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define RT_ACC8(d, i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x BN, fp32) += A (64 x 16, K-major) @ B (16 x BN, N-major: the
+// transpose bit), both read from shared memory through descriptors.
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
+                                      uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : RT_ACC8(d, 0), RT_ACC8(d, 8), RT_ACC8(d, 16), RT_ACC8(d, 24),
+        RT_ACC8(d, 32), RT_ACC8(d, 40), RT_ACC8(d, 48), RT_ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : RT_ACC8(d, 0), RT_ACC8(d, 8), RT_ACC8(d, 16), RT_ACC8(d, 24),
+        RT_ACC8(d, 32), RT_ACC8(d, 40), RT_ACC8(d, 48), RT_ACC8(d, 56),
+        RT_ACC8(d, 64), RT_ACC8(d, 72), RT_ACC8(d, 80), RT_ACC8(d, 88),
+        RT_ACC8(d, 96), RT_ACC8(d, 104), RT_ACC8(d, 112), RT_ACC8(d, 120)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef RT_ACC8
+
+// ---------------------------------------------------------------------------
+// TMA + wgmma, persistent, warp-specialised, optionally split along K
+// ---------------------------------------------------------------------------
+
+// One unit of work: an output tile and the k steps [kb, ke) it sums.
+struct Unit {
+  int m0, n0, s, kb, ke;
+};
+
+// Unit u of tiles_m * tiles_n * split: the split index outermost, then
+// tiles in groups of GROUP_M rows, M fastest inside a group, so that the
+// blocks running together read few of w's column panels.  The k steps
+// are cut evenly: range s is [s * kt / split, (s + 1) * kt / split).
+template <int BN>
+__device__ __forceinline__ Unit unit_of(int u, int tiles_m, int tiles_n,
+                                        int split, int kt) {
+  const int tiles = tiles_m * tiles_n;
+  const int s = u / tiles, t = u % tiles;
+  const int per_group = GROUP_M * tiles_n;
+  const int first_m = t / per_group * GROUP_M;
+  const int rows = min(tiles_m - first_m, GROUP_M);
+  const int in = t % per_group;
+  return {(first_m + in % rows) * BM, in / rows * BN, s, s * kt / split,
+          (s + 1) * kt / split};
+}
+
+template <int BN>
+struct TmaLoop {
+  static constexpr int kThreads = 384;  // producer + two consumer groups
+  static constexpr int kMinBlocks = 1;
+  static constexpr int A_BYTES = BM * BK * 2;  // 16 KB
+  static constexpr int B_BYTES = BK * BN * 2;  // BN / 64 boxes of 8 KB
+  static constexpr int BOX_BYTES = BK * 64 * 2;
+  static constexpr int STAGES = RING_BYTES / (A_BYTES + B_BYTES);
+  static_assert(STAGES * (A_BYTES + B_BYTES) == RING_BYTES, "ring");
+  static_assert(2 * STAGES * 8 <= BAR_BYTES, "barriers");
+
+  template <class Epi>
+  __device__ static void run(const Params& p) {
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem =
+        smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    uint8_t* As = smem;
+    uint8_t* Bs = smem + STAGES * A_BYTES;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING_BYTES);
+    uint64_t* empty = full + STAGES;
+
+    const int tiles_m = cdiv(p.M, BM), tiles_n = cdiv(p.N, BN);
+    const int units = tiles_m * tiles_n * p.split;
+    const int kt = cdiv(p.K, BK);
+
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&full[s], 1);   // the producer's expect_tx
+        mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128;
+    if (wg == 0) {
+      // ---- producer: one thread keeps the ring full ------------------
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+      if (threadIdx.x == 0) {
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int u = blockIdx.x; u < units; u += gridDim.x) {
+          const Unit t = unit_of<BN>(u, tiles_m, tiles_n, p.split, kt);
+          for (int k = t.kb; k < t.ke; ++k) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], A_BYTES + B_BYTES);
+            tma_load(As + stage * A_BYTES, &p.a, k * BK, t.m0, &full[stage]);
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm * WM + i * 16 + g + h * 8;
-        const int c = n0 + wn * WN + j * 8 + 2 * t;
-        if (r >= M) continue;
-        bf16* dst = y + (size_t)r * N + c;
-        if (c + 1 < N && (N & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
-              epi(acc[i][j][2 * h], c), epi(acc[i][j][2 * h + 1], c + 1));
-        } else {
-          if (c < N) dst[0] = __float2bfloat16(epi(acc[i][j][2 * h], c));
-          if (c + 1 < N)
-            dst[1] = __float2bfloat16(epi(acc[i][j][2 * h + 1], c + 1));
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load(Bs + stage * B_BYTES + j * BOX_BYTES, &p.b,
+                       t.n0 + 64 * j, k * BK, &full[stage]);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
         }
       }
+    } else {
+      // ---- consumers: rows [64 (wg - 1), 64 wg) of each tile ----------
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+      const int cw = wg - 1, warp = threadIdx.x / 32 % 4,
+                lane = threadIdx.x % 32;
+      const bool signal = threadIdx.x % 128 == 0;
+      int stage = 0;
+      uint32_t phase = 0;
+      float acc[BN / 2];
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit t = unit_of<BN>(u, tiles_m, tiles_n, p.split, kt);
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+        int prev = -1;
+        for (int k = t.kb; k < t.ke; ++k) {
+          mbar_wait(&full[stage], phase);
+          wgmma_fence();
+          // x: rows 128 bytes apart, 8-row swizzle atoms 1024 apart; a
+          // k16 slice is 32 bytes further along the row.  w: 64-column
+          // boxes BOX_BYTES apart (leading offset), 8-row atoms 1024
+          // apart (stride offset); a k16 slice is 16 rows further.
+          const uint8_t* a = As + stage * A_BYTES + cw * 64 * 128;
+          const uint8_t* b = Bs + stage * B_BYTES;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma<BN>(acc, desc(a + kk * 32, 16, 1024),
+                      desc(b + kk * 16 * 128, BOX_BYTES, 1024));
+          wgmma_commit();
+          wgmma_wait<1>();  // the step before is done: free its stage
+          if (prev >= 0 && signal) mbar_arrive(&empty[prev]);
+          prev = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        if (prev >= 0 && signal) mbar_arrive(&empty[prev]);
+
+        // accumulator layout: warp w of the group holds rows 16w + g and
+        // 16w + g + 8 (g = lane / 4); acc[4j + 2h + e] is column
+        // 8j + 2 (lane % 4) + e of row 16w + g + 8h
+        const int r0 = t.m0 + cw * 64 + warp * 16 + (lane >> 2);
+        const int c0 = t.n0 + 2 * (lane & 3);
+        if (p.split > 1) {
+          float* ws = p.ws + static_cast<size_t>(t.s) * p.M * p.N;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int c = c0 + 8 * j;
+            if (c >= p.N) continue;  // N is even: c + 1 < N as well
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = r0 + 8 * h;
+              if (r >= p.M) continue;
+              *reinterpret_cast<float2*>(ws + static_cast<size_t>(r) * p.N +
+                                         c) =
+                  make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+            }
+          }
+        } else {
+          // the bias of every column pair first, all loads in flight at
+          // once (a column past N reads column N - 2 and is not stored)
+          __nv_bfloat162 bias[BN / 8];
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+            bias[j] = bias_pair(p, min(c0 + 8 * j, p.N - 2));
+          Epi::with(p, [&](auto act) {
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+              const int c = c0 + 8 * j;
+              if (c >= p.N) continue;
+              const float2 b = __bfloat1622float2(bias[j]);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = r0 + 8 * h;
+                if (r >= p.M) continue;
+                *reinterpret_cast<__nv_bfloat162*>(
+                    p.y + static_cast<size_t>(r) * p.N + c) =
+                    __floats2bfloat162_rn(act(acc[4 * j + 2 * h] + b.x),
+                                          act(acc[4 * j + 2 * h + 1] + b.y));
+              }
+            }
+          });
+        }
+      }
+    }
+  }
+};
+
+// y = bf16(act(sum over s of ws[s] + b)), four columns a thread, the
+// partials summed in the order of s.
+struct Reduce {
+  static constexpr int kThreads = 256, kMinBlocks = 1;
+
+  template <class Epi>
+  __device__ static void run(const Params& p) {
+    const size_t mn = static_cast<size_t>(p.M) * p.N;
+    const size_t e =
+        (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+    if (e >= mn) return;
+    float4 v = *reinterpret_cast<const float4*>(p.ws + e);
+    for (int s = 1; s < p.split; ++s) {
+      const float4 w = *reinterpret_cast<const float4*>(p.ws + s * mn + e);
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    const int c = static_cast<int>(e % p.N);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.y + e);
+    const float2 b0 = __bfloat1622float2(bias_pair(p, c)),
+                 b1 = __bfloat1622float2(bias_pair(p, c + 2));
+    Epi::with(p, [&](auto act) {
+      dst[0] = __floats2bfloat162_rn(act(v.x + b0.x), act(v.y + b0.y));
+      dst[1] = __floats2bfloat162_rn(act(v.z + b1.x), act(v.w + b1.y));
+    });
+  }
+};
+
+// ---------------------------------------------------------------------------
+// mma.sync, for operands TMA cannot take
+// ---------------------------------------------------------------------------
+
+struct SyncLoop {
+  static constexpr int kThreads = 256;  // 8 warps: 2 along M x 4 along N
+  static constexpr int kMinBlocks = 2;  // at most 128 registers
+  static constexpr int SBN = 128, SBK = 32;
+  static constexpr int WM = 64, WN = 32;  // warp tile
+  static constexpr int MI = WM / 16, NI = WN / 8;
+  static constexpr int LDA = SBK + 8, LDB = SBN + 8;
+
+  struct Smem {
+    __align__(16) bf16 As[2][BM * LDA];
+    __align__(16) bf16 Bs[2][SBK * LDB];
+  };
+
+  template <class Epi>
+  __device__ static void run(const Params& p) {
+    __shared__ Smem sm;
+    const int tiles_n = cdiv(p.N, SBN);
+    const int m0 = blockIdx.x / tiles_n * BM, n0 = blockIdx.x % tiles_n * SBN;
+    const int M = p.M, N = p.N, K = p.K;
+    const bf16* __restrict__ x = p.x;
+    const bf16* __restrict__ w = p.w;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wm = warp / 4, wn = warp % 4;
+
+    auto load = [&](int kt, int st) {
+      const int k0 = kt * SBK;
+      // A tile: BM rows x SBK cols = 512 chunks of 8
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = tid + i * kThreads;
+        const int r = c / (SBK / 8), cc = (c % (SBK / 8)) * 8;
+        const int gr = m0 + r, gc = k0 + cc;
+        const int valid = gr < M ? K - gc : 0;
+        load_chunk(&sm.As[st][r * LDA + cc], x + (size_t)gr * K + gc, valid,
+                   false, x);
+      }
+      // B tile: SBK rows x SBN cols = 512 chunks of 8
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = tid + i * kThreads;
+        const int r = c / (SBN / 8), cc = (c % (SBN / 8)) * 8;
+        const int gr = k0 + r, gc = n0 + cc;
+        const int valid = gr < K ? N - gc : 0;
+        load_chunk(&sm.Bs[st][r * LDB + cc], w + (size_t)gr * N + gc, valid,
+                   false, w);
+      }
+    };
+
+    float acc[MI][NI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    const int ktiles = cdiv(K, SBK);
+    load(0, 0);
+    for (int kt = 0; kt < ktiles; ++kt) {
+      if (kt + 1 < ktiles) load(kt + 1, (kt + 1) & 1);
+      __syncthreads();
+      const bf16* a_t = sm.As[kt & 1];
+      const bf16* b_t = sm.Bs[kt & 1];
+#pragma unroll
+      for (int ks = 0; ks < SBK; ks += 16) {
+        uint32_t a[MI][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+          load_a(a[i], a_t, LDA, wm * WM + i * 16, ks, lane);
+#pragma unroll
+        for (int j = 0; j < NI; j += 2) {
+          uint32_t b[4];
+          load_b_kn(b, b_t, LDB, ks, wn * WN + j * 8, lane);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            mma16816(acc[i][j], a[i], b[0], b[1]);
+            mma16816(acc[i][j + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // y[r, c] = bf16(act(acc element + b[c])) for the in-range elements
+    const int g = lane >> 2, t = lane & 3;
+    Epi::with(p, [&](auto act) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = m0 + wm * WM + i * 16 + g + h * 8;
+            const int c = n0 + wn * WN + j * 8 + 2 * t;
+            if (r >= M) continue;
+            bf16* dst = p.y + (size_t)r * N + c;
+            const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+            if (c + 1 < N && (N & 1) == 0) {
+              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+                  act(v0 + bias_at(p, c)), act(v1 + bias_at(p, c + 1)));
+            } else {
+              if (c < N) dst[0] = __float2bfloat16(act(v0 + bias_at(p, c)));
+              if (c + 1 < N)
+                dst[1] = __float2bfloat16(act(v1 + bias_at(p, c + 1)));
+            }
+          }
+    });
+  }
+};
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps and the launch
+// ---------------------------------------------------------------------------
+
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                            void*, const cuuint64_t*, const cuuint64_t*,
+                            const cuuint32_t*, const cuuint32_t*,
+                            CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library needs no link against libcuda.
+inline Encode encode_fn() {
+  static Encode fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found =
+        cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<Encode>(ptr);
+  }
+  return fn;
+}
+
+// A row-major (rows x cols) bf16 matrix read in boxes of box_rows x 64,
+// 128-byte swizzled; what lies past its edges reads as zeros.
+inline CUresult make_map(Encode enc, CUtensorMap* map, const void* base,
+                         int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// One kernel's instantiations, one for each loop.
+using KernelFn = void (*)(Params);
+struct Kernels {
+  KernelFn tma128, tma256, sync, reduce;
+};
+
+// Launch on ``stream`` what kernels/gemm.py:schedule chose: ``tma`` (the
+// TMA route, else mma.sync), the tile width ``bn``, ``p.split`` and the
+// grid.  Returns the first cudaError_t; a tensor map the driver refuses
+// returns 1000 + its CUresult.
+inline int launch(const Kernels& k, Params p, int tma, int bn, int grid,
+                  cudaStream_t stream) {
+  void* args[] = {&p};
+  if (!tma) {
+    return static_cast<int>(cudaLaunchKernel(
+        reinterpret_cast<const void*>(k.sync), dim3(grid),
+        dim3(SyncLoop::kThreads), args, 0, stream));
+  }
+  const Encode enc = encode_fn();
+  if (!enc) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUresult cr = make_map(enc, &p.a, p.x, p.M, p.K, BM);
+  if (cr == CUDA_SUCCESS) cr = make_map(enc, &p.b, p.w, p.K, p.N, BK);
+  if (cr != CUDA_SUCCESS) return 1000 + static_cast<int>(cr);
+  const void* fn = reinterpret_cast<const void*>(bn == 256 ? k.tma256
+                                                           : k.tma128);
+  cudaError_t rc = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (rc == cudaSuccess)
+    rc = cudaLaunchKernel(fn, dim3(grid), dim3(384), args, SMEM_BYTES,
+                          stream);
+  if (rc != cudaSuccess || p.split == 1) return static_cast<int>(rc);
+  const size_t quads = static_cast<size_t>(p.M) * p.N / 4;
+  return static_cast<int>(cudaLaunchKernel(
+      reinterpret_cast<const void*>(k.reduce),
+      dim3(static_cast<unsigned>((quads + Reduce::kThreads - 1) /
+                                 Reduce::kThreads)),
+      dim3(Reduce::kThreads), args, 0, stream));
 }
 
 }  // namespace rt::gemm_tile

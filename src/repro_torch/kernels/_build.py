@@ -29,8 +29,10 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every exported launcher: (argtypes, restype)
 SIGNATURES = {
-    "rt_gemm": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
-    "rt_gemm_act": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "rt_gemm": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+    "rt_gemm_act": (
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+    "rt_gemm_smem_bytes": ((), _I),
     "rt_flash_attention": (
         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     "rt_fused_mlp": (

@@ -2,18 +2,22 @@
 kernel: the paper's benchmark op.
 
 Source note.  Replaces the TPU kernel ``repro/kernels/gemm_gelu.py:
-gemm_act``: the pre-activation lives only in an fp32 accumulator tile, and
-the bias and the activation are applied in fp32 in the epilogue before the
-one rounding to ``x.dtype``.  On the serving path it is the up projection
-of the partial-schedule MLP (``core/ftl/registry.py:_run_cuda_partial_mlp``),
-which the planner picks for granite-20b's ungated gelu MLP on the ``h100``
-target.  At granite's widths (6144 -> 24576) the work is compute-bound at
-M = 2048 (6.2e11 FLOP against 428 MB) and bound by the 302 MB weight panel
-at M = 128.  The kernel (``csrc/gemm_act.cu``) is the GEMM kernel's tile
-loop (``csrc/gemm_tile.cuh``: 128 x 128 output tiles on ``mma.sync``
-m16n8k16, K in steps of 32 through a two-stage ``cp.async`` ring, ragged
-edges zero-filled and stored masked) with its own epilogue.  The plain
-version is :func:`repro_torch.kernels.ref.gemm_act`.
+gemm_act``: the pre-activation lives only in fp32 (accumulator registers,
+or split-K partials), and the bias and the activation are applied in fp32
+to the whole sum before the one rounding to ``x.dtype``.  On the serving
+path it is the up projection of the partial-schedule MLP
+(``core/ftl/registry.py:_run_cuda_partial_mlp``), which the planner picks
+for granite-20b's ungated gelu MLP on the ``h100`` target.  At granite's
+widths (6144 -> 24576) the work is compute-bound at M = 2048 (6.2e11 FLOP
+against 428 MB) and bound by the 302 MB weight panel at M = 128.  The
+kernel (``csrc/gemm_act.cu``) runs the GEMM kernel's loops
+(``csrc/gemm_tile.cuh``) with its own epilogue, on the route, tile width,
+split and grid that :func:`repro_torch.kernels.gemm.schedule` picks from
+shape and alignment: TMA + ``wgmma`` for operands a TMA tensor map takes,
+split along K where the tiles are too few to fill the SMs (the epilogue
+then runs in the reduction, after the sum: gelu of a sum is not the sum
+of gelus), ``mma.sync`` for the rest.  The plain version is
+:func:`repro_torch.kernels.ref.gemm_act`.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 from . import _build, ref
 from . import gemm as _gemm
 
-# shared memory of one block: the GEMM kernel's tile loop
+# shared memory of one block: the GEMM kernel's tile loops
 SMEM_BYTES = _gemm.SMEM_BYTES
 
 # kernel launches since the last reset (``chip_smoke.py`` reads it)
@@ -57,17 +61,30 @@ def gemm_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                          f"{w.shape[1]} columns")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("gemm_act kernel takes contiguous operands")
+    if x.shape[0] == 0 or w.shape[1] == 0:
+        return torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
+                           device=x.device)
+    y = run_schedule(x, w, b, act, _gemm.plan(x, w))
+    launches += 1
+    return y
+
+
+def run_schedule(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                 act: str, s: _gemm.Schedule) -> torch.Tensor:
+    """``act(x @ w + b)`` by the kernel on schedule ``s``, for checked CUDA
+    operands (what :func:`gemm_act` launches with ``gemm.plan(x, w)``;
+    ``chip_smoke.py`` times other schedules with it).  Counts no
+    launch."""
     m, k = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m == 0 or n == 0:
-        return y
-    vec = int(k % 8 == 0 and n % 8 == 0 and _gemm._aligned(x, w))
+    ws = _gemm.workspace(s, x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _build.lib().rt_gemm_act(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            y.data_ptr(), m, n, k, vec, ref.ACT_CODES[act], stream)
+            y.data_ptr(), None if ws is None else ws.data_ptr(), m, n, k,
+            ref.ACT_CODES[act], int(s.route == "tma"), s.block_n,
+            s.split_k, s.grid, stream)
     _build.check(rc, "gemm_act")
-    launches += 1
     return y

@@ -50,6 +50,78 @@ def test_gemm(dev, m, k, n):
     assert gemm.launches == before + 1
 
 
+# each route of the GEMM tile loops, as kernels/gemm.py:schedule picks it
+# on an H100's 132 SMs: full 128 x 256 tiles, full 128 x 128 tiles, ragged
+# M and N with a K that is no multiple of 64 (TMA's zero fill), 256-wide
+# tiles whose columns span four 64-column TMA boxes with ragged N, split-K
+# (granite's MQA wk/wv; a short prefill bucket of its down projection),
+# and the mma.sync loop
+ROUTES = [((2048, 1024, 6144), "tma", 256),
+          ((3072, 768, 3072), "tma", 128),
+          ((130, 3000, 136), "tma+splitk=10", 128),
+          ((1100, 640, 6136), "tma", 256),
+          ((2048, 6144, 128), "tma+splitk=6", 128),
+          ((128, 24576, 6144), "tma+splitk=5", 256),
+          ((1001, 1003, 3005), "mma.sync", 128)]
+
+
+@pytest.mark.parametrize("shape,route,block_n", ROUTES)
+def test_gemm_routes(dev, shape, route, block_n):
+    m, k, n = shape
+    x, w = _rand(dev, 11, m, k), _rand(dev, 12, k, n, scale=k ** -0.5)
+    s = gemm.plan(x, w)
+    if gemm.sm_count(dev.index) == gemm.H100_SMS:
+        assert (s.label, s.block_n) == (route, block_n)
+    before = gemm.launches
+    _close(gemm.gemm(x, w), ref.gemm(x, w))
+    assert gemm.launches == before + 1
+
+
+@pytest.mark.parametrize("shape,route,block_n", ROUTES)
+def test_gemm_act_routes(dev, shape, route, block_n):
+    m, k, n = shape
+    x, w = _rand(dev, 13, m, k), _rand(dev, 14, k, n, scale=k ** -0.5)
+    b = _rand(dev, 15, n, scale=0.5)
+    assert gemm.plan(x, w).route == route.split("+")[0]
+    before = gemm_act.launches
+    _close(gemm_act.gemm_act(x, w, b, act="gelu"),
+           ref.gemm_act(x, w, b, act="gelu"))
+    assert gemm_act.launches == before + 1
+
+
+def test_gemm_act_split_k_applies_the_activation_to_the_sum(dev):
+    """With split-K the bias and gelu follow the sum of the K ranges' fp32
+    partials: the kernel agrees with gelu(x @ w + b) and, by far more than
+    the tolerance, not with the sum over ranges of gelu(partial + b)."""
+    m, k, n = 2048, 6144, 128
+    x, w = _rand(dev, 16, m, k), _rand(dev, 17, k, n, scale=k ** -0.5)
+    b = _rand(dev, 18, n, scale=0.5)
+    s = gemm.plan(x, w)
+    assert s.split_k > 1
+    got = gemm_act.gemm_act(x, w, b, act="gelu")
+    _close(got, ref.gemm_act(x, w, b, act="gelu"))
+    xf, wf = x.float(), w.float()
+    wrong = sum(ref.act_fn("gelu")(xf[:, k0:k1] @ wf[k0:k1] + b.float())
+                for k0, k1 in gemm.k_ranges(k, s.split_k))
+    o, v = got.float(), wrong.to(torch.bfloat16).float()
+    assert not bool(((o - v).abs() <= 2e-2 + 2e-2 * v.abs()).all())
+
+
+@pytest.mark.parametrize("shape", [(2048, 6144, 128), (128, 24576, 6144)])
+def test_split_k_is_deterministic(dev, shape):
+    m, k, n = shape
+    x, w = _rand(dev, 19, m, k), _rand(dev, 20, k, n, scale=k ** -0.5)
+    b = _rand(dev, 21, n, scale=0.5)
+    assert gemm.plan(x, w).split_k > 1
+    assert torch.equal(gemm.gemm(x, w), gemm.gemm(x, w))
+    assert torch.equal(gemm_act.gemm_act(x, w, b), gemm_act.gemm_act(x, w, b))
+
+
+def test_gemm_smem_bytes_match_the_launcher(dev):
+    from repro_torch.kernels import _build
+    assert _build.lib().rt_gemm_smem_bytes() == gemm.SMEM_BYTES
+
+
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("act", ["gelu", "gelu_exact", "silu", "relu",
                                  "identity"])
