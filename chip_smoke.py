@@ -9,8 +9,9 @@ PyTorch built for CUDA::
 Phases, in order (any failure ends the run with a non-zero exit code):
 
 1. Set-up: build the CUDA kernels from ``src/repro_torch/csrc`` into
-   ``build/kernels`` (one ``nvcc`` per source, all started together) and
-   print the card's name and power limit.
+   ``build/kernels`` (one ``nvcc`` per source, all started together),
+   print the card's name and power limit, and check that the footprints
+   the planner and the schedules read agree with the launchers'.
 2. Kernels against their plain PyTorch versions, in bf16 at the serving
    paths' shapes: max |difference| against the stated tolerance, and each
    kernel's time (CUDA events, median of 20 launches, L2 flushed before
@@ -25,7 +26,13 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    is held at granite-20b's up projection (M = 2048 and 128), at the
    paper's ViT-B op and at a ragged shape; granite's whole MLP is timed
    through the fused-MLP kernel and through the partial schedule, beside
-   the planner's modelled traffic for each.  The mLSTM scan is held, h and
+   the planner's modelled traffic for each.  Flash attention is held at
+   llama's GQA 24/8 (T = 1024 and 200), granite's MQA 48/1 (T = 2048),
+   recurrentgemma's MQA 16/1 at head_dim 256 with its 2048 window (T =
+   4096 and 1024) and whisper-base's cross-attention (head_dim 64, 448
+   queries over 1500 keys, not causal), each case printing its schedule
+   (tile height, key tile, ring stages, grid) and its time at the other
+   tile height.  The mLSTM scan is held, h and
    its final fp32 state, at xlstm-1.3b's prefill (B = 1, H = 4, T = 2048,
    Dh = 1024, with and without state), four slots at T = 512, a ragged
    (2, 2, 1000, 128), and a right-padded scan whose state is taken below T
@@ -129,6 +136,9 @@ LLAMA, RG, GRANITE, XLSTM = ("llama3.2-3b", "recurrentgemma-9b",
 # the paper's own op (benchmarks/bench_paper_mlp.py): ViT-B's first MLP
 # half, 3072 tokens, 768 -> 3072, gelu + bias; on no serving path
 VIT_B = "vit-b (paper op)"
+# whisper-base's cross-attention (head_dim 64, Tq != Tk, not causal); the
+# encoder-decoder family is not served yet
+WHISPER_X = "whisper-base (cross-attention)"
 
 N_TIMED = 20
 
@@ -205,7 +215,7 @@ def compare(out: torch.Tensor, want: torch.Tensor, label: str, *,
 
 
 def kernel_cases(dev, timer):
-    from repro_torch.kernels import flash_attention, gemm, gemm_act, ref
+    from repro_torch.kernels import gemm, ref
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -243,56 +253,7 @@ def kernel_cases(dev, timer):
             library_ms=timer.ms(lambda: torch.matmul(x, w)),
             bound_ms=b, bound_by=why))
 
-    # llama's GQA 24/8 and granite-20b's MQA 48/1, head_dim 128, causal
-    for path, (b_, hq, hk, t, dh) in ((LLAMA, (1, 24, 8, 1024, 128)),
-                                      (LLAMA, (1, 24, 8, 200, 128)),
-                                      (GRANITE, (1, 48, 1, 2048, 128))):
-        q, kk, v = (randn(b_, hq, t, dh), randn(b_, hk, t, dh),
-                    randn(b_, hk, t, dh))
-        label = f"flash_attention B={b_} Hq={hq} Hk={hk} T={t} causal"
-        err = compare(flash_attention.flash_attention(q, kk, v, causal=True),
-                      ref.attention(q, kk, v, causal=True), label)
-        pairs = t * (t + 1) // 2          # unmasked (query, key) pairs
-        b, why = bound_ms(2 * (2 * q.numel() + 2 * kk.numel()),
-                          4 * b_ * hq * dh * pairs)
-        results["flash_attention"].append(dict(
-            path=path, shape=[b_, hq, hk, t, dh], max_abs_err=err,
-            ms=timer.ms(lambda: flash_attention.flash_attention(
-                q, kk, v, causal=True)),
-            plain_ms=timer.ms(lambda: ref.attention(q, kk, v, causal=True)),
-            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                q, kk, v, is_causal=True, enable_gqa=True)),
-            bound_ms=b, bound_by=why))
-
-    # recurrentgemma-9b's local attention: MQA 16/1, head_dim 256, window
-    # 2048.  q and k at 1.5 give scores of std 2.25, so that a row's
-    # output is not the near-zero mean of ~2048 values (|o| ~ 0.04 at
-    # unit scale) and one key more or less at the window's edge shows far
-    # beyond the tolerance
-    b_, hq, hk, dh, win = 1, 16, 1, 256, 2048
-    for t in (4096, 1024):
-        q, kk, v = (randn(b_, hq, t, dh, scale=1.5),
-                    randn(b_, hk, t, dh, scale=1.5), randn(b_, hk, t, dh))
-        kw = dict(causal=True, window=win)
-        label = (f"flash_attention B={b_} Hq={hq} Hk={hk} T={t} D={dh} "
-                 f"causal window={win}")
-        err = compare(flash_attention.flash_attention(q, kk, v, **kw),
-                      ref.attention(q, kk, v, **kw), label)
-        qi = torch.arange(t, device=dev)
-        # unmasked (query, key) pairs: each query sees min(q + 1, window)
-        pairs = int(torch.clamp(qi + 1, max=win).sum())
-        b, why = bound_ms(2 * (2 * q.numel() + 2 * kk.numel()),
-                          4 * b_ * hq * dh * pairs)
-        mask = (qi[None, :] <= qi[:, None]) & (qi[None, :] > qi[:, None] - win)
-        results["flash_attention"].append(dict(
-            path=RG, shape=[b_, hq, hk, t, dh], window=win, max_abs_err=err,
-            ms=timer.ms(lambda: flash_attention.flash_attention(
-                q, kk, v, **kw)),
-            plain_ms=timer.ms(lambda: ref.attention(q, kk, v, **kw)),
-            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                q, kk, v, attn_mask=mask, enable_gqa=True)),
-            bound_ms=b, bound_by=why))
-
+    results["flash_attention"] = flash_cases(dev, timer, randn)
     results["fused_mlp"] += fused_mlp_cases(
         dev, timer, randn, 3072, 8192, 3072, "silu", (1024, 256, 4), LLAMA)
     results["fused_mlp"] += fused_mlp_cases(
@@ -310,6 +271,81 @@ def kernel_cases(dev, timer):
                   f"{c['bound_ms']} ms ({c['bound_by']}), plain "
                   f"{c['plain_ms']} ms{lib}")
     return results
+
+
+def flash_cases(dev, timer, randn):
+    """Flash attention against its plain version: llama's GQA 24/8 and
+    granite-20b's MQA 48/1 at head_dim 128, causal; recurrentgemma-9b's
+    local attention (MQA 16/1, head_dim 256, window 2048) at T = 4096 and
+    1024; whisper-base's cross-attention (8/8 heads, head_dim 64, not
+    causal, 448 queries over 1500 keys; on no served path yet).  Each
+    row prints its schedule and its time at the other tile height.  The
+    one PyTorch call is SDPA: causal where the window is at least T (the
+    same function), with a boolean window mask at T = 4096."""
+    from repro_torch.kernels import flash_attention, ref
+
+    out = []
+    win = 2048
+    rows = [(LLAMA, (1, 24, 8, 1024, 1024, 128), dict(causal=True), 1.0),
+            (LLAMA, (1, 24, 8, 200, 200, 128), dict(causal=True), 1.0),
+            (GRANITE, (1, 48, 1, 2048, 2048, 128), dict(causal=True), 1.0),
+            # q and k at 1.5 give scores of std 2.25, so that a row's
+            # output is not the near-zero mean of ~2048 values (|o| ~ 0.04
+            # at unit scale) and one key more or less at the window's edge
+            # shows far beyond the tolerance
+            (RG, (1, 16, 1, 4096, 4096, 256), dict(causal=True, window=win),
+             1.5),
+            (RG, (1, 16, 1, 1024, 1024, 256), dict(causal=True, window=win),
+             1.5),
+            (WHISPER_X, (1, 8, 8, 448, 1500, 64), dict(causal=False), 1.0)]
+    for path, (b_, hq, hk, tq, tk, dh), kw, sc in rows:
+        q, kk, v = (randn(b_, hq, tq, dh, scale=sc),
+                    randn(b_, hk, tk, dh, scale=sc), randn(b_, hk, tk, dh))
+        kw = {"window": None, "q_offset": 0, **kw}
+        label = (f"flash_attention B={b_} Hq={hq} Hk={hk} Tq={tq} Tk={tk} "
+                 f"D={dh} {'causal' if kw['causal'] else 'not causal'}"
+                 f"{'' if kw['window'] is None else ' window=%d' % win}")
+        s = flash_attention.plan(q, kk, **kw)
+        print(f"  {label}: schedule {s.label}, {s.smem_bytes} B of shared "
+              f"memory")
+        err = compare(flash_attention.flash_attention(q, kk, v, **kw),
+                      ref.attention(q, kk, v, **kw), label)
+        qi = torch.arange(tq, device=dev)[:, None]
+        ki = torch.arange(tk, device=dev)[None, :]
+        mask = torch.ones((tq, tk), dtype=torch.bool, device=dev)
+        if kw["causal"]:
+            mask &= ki <= qi
+        if kw["window"] is not None:
+            mask &= ki > qi - win
+        pairs = int(mask.sum())           # unmasked (query, key) pairs
+        bd, why = bound_ms(2 * (2 * q.numel() + 2 * kk.numel()),
+                           4 * b_ * hq * dh * pairs)
+        if kw["window"] is None or win >= tk:
+            lib_name = f"SDPA, is_causal={kw['causal']}"
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, kk, v, is_causal=kw["causal"], enable_gqa=True)
+        else:
+            lib_name = "SDPA, boolean window mask"
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, kk, v, attn_mask=mask, enable_gqa=True)
+        other = flash_attention.schedule(
+            b_, hq, hk, tq, tk, dh, kw["causal"], kw["window"], 0,
+            sms=flash_attention.sm_count(dev.index),
+            block_q={64: 128, 128: 64}[s.block_q])
+        other_ms = timer.ms(lambda: flash_attention.run_schedule(
+            q, kk, v, other, **kw))
+        print(f"    at the other tile height, {other.label}: {other_ms} ms")
+        out.append(dict(
+            path=path, shape=[b_, hq, hk, tq, tk, dh], causal=kw["causal"],
+            window=kw["window"], max_abs_err=err, block_q=s.block_q,
+            block_k=s.block_k, stages=s.stages, grid=s.grid,
+            ms=timer.ms(lambda: flash_attention.flash_attention(
+                q, kk, v, **kw)),
+            other_height_ms=other_ms,
+            plain_ms=timer.ms(lambda: ref.attention(q, kk, v, **kw)),
+            library=lib_name, library_ms=timer.ms(lib),
+            bound_ms=bd, bound_by=why))
+    return out
 
 
 def tile_loop(label, x, w) -> dict:
@@ -806,7 +842,9 @@ def served_vs_plain(cfg, params, dev, n_tokens: int):
 def _model_greedy(cfg, params, dev, tokens: np.ndarray, n_new: int,
                   max_seq: int, last_pos: int | None = None):
     """The model's own greedy prefill + decode_step loop on one prompt:
-    (tokens, top-2 logit gaps)."""
+    (tokens, top-2 logit gaps).  The token is ``torch.argmax``'s, the
+    first of equal logits, as the engine (and the JAX reference's engine)
+    picks it; ``torch.topk`` leaves the order of equal values open."""
     from repro_torch.models import model as M
 
     t = torch.as_tensor(tokens, device=dev)[None].long()
@@ -816,7 +854,7 @@ def _model_greedy(cfg, params, dev, tokens: np.ndarray, n_new: int,
     out, gaps = [], []
     for i in range(n_new):
         top2 = torch.topk(logits[0, -1].float(), 2)
-        out.append(int(top2.indices[0]))
+        out.append(int(torch.argmax(logits[0, -1])))
         gaps.append(float(top2.values[0] - top2.values[1]))
         if i + 1 < n_new:
             logits, cache = M.decode_step(
@@ -1063,6 +1101,14 @@ def main() -> int:
     check(_build.lib().rt_gemm_smem_bytes() == gemm.SMEM_BYTES,
           f"gemm footprint: Python {gemm.SMEM_BYTES}, CUDA "
           f"{_build.lib().rt_gemm_smem_bytes()}")
+    # and flash attention's footprint at every head dim and tile height
+    for dh in flash_attention.HEAD_DIMS:
+        for bq in flash_attention.BLOCK_Q:
+            got = _build.lib().rt_flash_smem_bytes(
+                dh, bq, flash_attention.stages_for(dh, bq))
+            check(got == flash_attention.smem_bytes_for(dh, bq),
+                  f"flash_attention footprint at D={dh}, BQ={bq}: Python "
+                  f"{flash_attention.smem_bytes_for(dh, bq)}, CUDA {got}")
     for line in (lib.parent / "build.log").read_text().splitlines():
         if line.startswith("==") or "Compiling entry" in line \
                 or "Used" in line or "spill" in line:

@@ -87,8 +87,9 @@ def _mlp_kernel_fits(c: ExecContext) -> bool:
 
 
 def _attention_kernel_fits(c: ExecContext) -> bool:
-    """Flash kernel: bf16, a head dim it is built for, and its Q tile plus
-    two-stage K/V ring within the target's fast level."""
+    """Flash kernel: bf16, a head dim it is built for, and the largest
+    block its schedule can pick (Q tile plus K/V ring) within the target's
+    fast level."""
     from repro_torch.kernels import flash_attention
 
     if c.dtype != "bfloat16":

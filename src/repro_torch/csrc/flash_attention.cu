@@ -5,264 +5,477 @@
 // and computes what it computes: S = (q k^T) * Dh^-0.5 with fp32
 // accumulation, masked entries at -1e30 with explicit zero guards (a row
 // with nothing unmasked gives zeros), P rounded to bf16 before P V, the
-// fp32 running max / sum / accumulator rescaled per key tile, and
-// q-head h reading kv-head h / (Hq / Hk).
+// fp32 running max / sum / accumulator rescaled per key tile, the divide
+// by l with l == 0 taken as 1, and q-head h reading kv-head h / (Hq / Hk).
 //
-// Bound on an H100: at prefill lengths (T <= 1024, Dh = 128) the work is
-// small and compute-light -- q, k, v and o are a few MB -- so launch and
-// latency dominate; at long T it is compute-bound (4 * Tq * Tk * Dh FLOP
-// per head, halved by the causal mask, cut to 4 * Tq * window * Dh by a
-// local window).  Design: one block of 4 warps per
-// (64-query tile, head, batch); each warp owns 16 query rows and keeps its
-// Q fragments (at Dh <= 128; at Dh = 256 they are re-read from shared
-// memory per k step, for registers), running max/sum and output
-// accumulator in registers (the
-// mma.sync fragment layout lets the rescale address rows directly, and
-// P goes from the S accumulators straight into A fragments without a trip
-// through shared memory).  Key/value tiles of 64 rows stream through a
-// two-stage cp.async ring.  Key tiles that the causal or window mask
-// hides from every row of the query tile are skipped; ragged Tq / Tk edges
-// load as zeros and are masked.  The TPU's (batch*heads, q, kv) grid with
-// kv innermost becomes the kv loop inside one block.
-#include "common.cuh"
+// Bound on an H100: 4 * Tq * Tk * Dh FLOP per head (halved by the causal
+// mask, cut to about 4 * Tq * window * Dh by a local window) against a few
+// MB of q, k, v and o, so at prefill lengths it is compute-bound, on the
+// tensor cores.  Design, for wgmma's rate:
+// * One block per (query tile of BQ = 64 or 128 rows, q-head, batch),
+//   launched heaviest first: kernels/flash_attention.py:schedule sorts the
+//   query tiles by their number of key tiles and passes that order, so the
+//   last wave is short blocks, not long ones.
+// * Warpgroup 0 is the producer: one thread issues every TMA load, the Q
+//   tile once, then the K and V tiles of BKV keys (128 at Dh <= 128, 64 at
+//   Dh = 256) into a ring as deep as shared memory allows (``stages``: 3
+//   at Dh = 128), each stage with a "full" mbarrier for K, one for V, and
+//   an "empty" one its consumers release.  It runs ahead bounded only by
+//   the empty barriers; the key loop has no __syncthreads.  q, k, v and o are (Dh, T, B * H) tensor maps with the
+//   128-byte swizzle (a row arrives as Dh / 64 boxes 64 wide), so rows past
+//   Tq or Tk read as zeros and a ragged output tile's store stops at Tq
+//   instead of reaching the next head's rows.
+// * Warpgroups 1.. are the consumers, 64 query rows each (setmaxnreg moves
+//   registers to them from the producer where there are two).  S = Q K^T
+//   is wgmma m64nBKVk16 with Q and K (K-major as [keys, Dh] rows) read from
+//   shared memory; O += P V is wgmma m64nDhk16 with P from registers (the
+//   S accumulators turn into A fragments in place) and V read N-major
+//   through the descriptor's transpose bit.  Tile j's Q K^T and tile j-1's
+//   P V are issued together; tile j's softmax runs while P V is on the
+//   tensor cores.  Two consumer groups (Dh <= 128) also take turns issuing
+//   their products, so that one group's softmax runs under the other's
+//   products.  Row max and sum are quad shuffles; the exponential is exp2
+//   of one FMA with scale * log2(e) folded in.
+// * Masks only where needed: the key tiles every row of the query tile
+//   sees whole run no mask code; those on the causal diagonal, on the
+//   window's lower edge or past Tk do.
+// * The output is rounded to bf16 into the consumer's own rows of the Q
+//   tile and leaves by TMA stores.
+// The TPU's (batch * heads, q, kv) grid with kv innermost becomes the
+// key loop inside one block.
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
 using rt::bf16;
 
-constexpr int BQ = 64, BKV = 64, THREADS = 128;
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_TILES = 1024;  // query tiles the launch order can list
+constexpr int BAR_BYTES = 256;   // the Q, full and empty mbarriers
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int Hq, int Hk,
-             int Tq, int Tk, int causal, int window, int q_offset,
-             float scale) {
-  constexpr int LD = D + 8;
-  constexpr int DN = D / 8;       // n8 tiles of the output row
-  constexpr int KN = BKV / 8;     // n8 tiles of one S row block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LD;        // [2][BKV * LD]
-  bf16* Vs = Ks + 2 * BKV * LD;   // [2][BKV * LD]
+struct Params {
+  CUtensorMap q, k, v, o;  // (Dh, T, B * H) bf16, 128-byte swizzle
+  int B, Hq, Hk, Tq, Tk, causal, window, q_offset, stages;
+  float scale_log2;            // Dh^-0.5 * log2(e)
+  uint16_t order[MAX_TILES];   // query tiles, heaviest first
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hk);
-  const bf16* qb = q + ((size_t)b * Hq + h) * Tq * D;
-  const bf16* kb = k + ((size_t)b * Hk + hk) * Tk * D;
-  const bf16* vb = v + ((size_t)b * Hk + hk) * Tk * D;
-  bf16* ob = o + ((size_t)b * Hq + h) * Tq * D;
-
-  // key tiles some row of this query tile can see
-  const int nk = (Tk + BKV - 1) / BKV;
-  int j_hi = nk;
-  if (causal) {
-    const int last = q0 + BQ - 1 + q_offset;  // largest visible key
-    j_hi = last < 0 ? 0 : min(nk, last / BKV + 1);
+template <int D, int BQ>
+struct Cfg {
+  static constexpr int NC = BQ / 64;  // consumer warpgroups
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;  // one K or one V tile
+  static constexpr int QBOX = BQ * 128;         // one 64-column box of Q
+  static constexpr int KVBOX = BKV * 128;       // ... of K or V
+  static constexpr int SN = BKV / 2, ON = D / 2;  // fp32 S and O a thread
+  // two consumer groups take turns on the tensor cores (not at Dh = 256,
+  // where the products dwarf the softmax and the turns cost more than
+  // they hide)
+  static constexpr bool PINGPONG = NC == 2 && D < 256;
+  // the ring, its barriers, and the slack to align it to the 128-byte
+  // swizzle's 1024-byte pattern
+  static constexpr int smem_bytes(int stages) {
+    return 1024 + Q_BYTES + 2 * stages * KV_BYTES + BAR_BYTES;
   }
-  int j_lo = 0;
-  if (window > 0) {
-    const int first = q0 + q_offset - window + 1;  // smallest visible key
-    j_lo = first > 0 ? first / BKV : 0;
-  }
+};
 
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  auto load_rows = [&](bf16* dst, const bf16* src, int row0, int nrows) {
-    for (int c = tid; c < BQ * CH; c += THREADS) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const bool in = row0 + r < nrows;
-      rt::cp_async16(dst + r * LD + cc,
-                     in ? src + (size_t)(row0 + r) * D + cc : src, in);
+// The key tiles [lo, hi) some row of a query tile sees, and among them
+// [full_lo, full_hi), the ones every row sees whole (no mask needed);
+// rows past Tq do not count.  kernels/flash_attention.py:key_tiles
+// computes the same.
+struct Span {
+  int lo, full_lo, full_hi, hi;
+};
+
+__device__ __forceinline__ Span key_span(int q0, int bq, int bkv,
+                                         const Params& p) {
+  const int first = q0 + p.q_offset;                     // first row
+  const int last = min(q0 + bq, p.Tq) - 1 + p.q_offset;  // last real row
+  const int k_min = p.window > 0 ? max(0, first - p.window + 1) : 0;
+  const int k_max = p.causal ? min(p.Tk - 1, last) : p.Tk - 1;
+  if (k_min > k_max) return {0, 0, 0, 0};
+  // keys every real row sees
+  const int f_min = p.window > 0 ? max(0, last - p.window + 1) : 0;
+  const int f_max = p.causal ? min(p.Tk - 1, first) : p.Tk - 1;
+  Span s;
+  s.lo = k_min / bkv;
+  s.hi = k_max / bkv + 1;
+  s.full_lo = max(s.lo, (f_min + bkv - 1) / bkv);
+  s.full_hi = max(s.full_lo, min(s.hi, (f_max + 1) / bkv));
+  return s;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Tile j's scores s (this thread's part of the m64nBKV accumulator) to
+// probabilities, in place: the mask (MASK only), the running max m, the
+// rescale factor alpha of the rows' earlier sums, and the thread's part
+// of the running row sums l.  kbase: the key of s[0]; qpos: the position
+// of the thread's first row (its second is 8 further).
+template <bool MASK, int SN>
+__device__ __forceinline__ void softmax(float (&s)[SN], float (&m)[2],
+                                        float (&l)[2], float (&alpha)[2],
+                                        int kbase, int qpos,
+                                        const Params& p) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < SN / 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      if constexpr (MASK) {
+        const int qp = qpos + 8 * h, kp = kbase + 8 * n + (e & 1);
+        bool ok = kp < p.Tk;
+        if (p.causal) ok = ok && kp <= qp;
+        if (p.window > 0) ok = ok && kp > qp - p.window;
+        if (!ok) s[4 * n + e] = rt::kNeg;
+      }
+      mx[h] = fmaxf(mx[h], s[4 * n + e]);
     }
-  };
-
-  load_rows(Qs, qb, q0, Tq);
-  if (j_lo < j_hi) {
-    load_rows(Ks, kb, j_lo * BKV, Tk);
-    load_rows(Vs, vb, j_lo * BKV, Tk);
+  float mc[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] =
+        m[h] > rt::kNeg / 2 ? ex2((m[h] - mx[h]) * p.scale_log2) : 0.f;
+    m[h] = mx[h];
+    mc[h] = mx[h] * p.scale_log2;
   }
-  rt::cp_async_commit();
-
-  float m_run[2] = {rt::kNeg, rt::kNeg}, l_run[2] = {0.f, 0.f};
-  float acc[DN][4];
 #pragma unroll
-  for (int j = 0; j < DN; ++j)
+  for (int i = 0; i < SN; ++i) {
+    const int h = (i >> 1) & 1;
+    float e = ex2(fmaf(s[i], p.scale_log2, -mc[h]));
+    if constexpr (MASK) e = s[i] > rt::kNeg / 2 ? e : 0.f;
+    s[i] = e;
+    rs[h] += e;
+  }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  // Q's A fragments stay in registers at D <= 128; at D = 256 they would
-  // take 64 registers a thread beside the 128 of the output accumulator
-  // and 32 of S, past the 255 a thread may hold, so they are re-read from
-  // the Q tile in shared memory at every k step instead.
-  constexpr bool QREG = D <= 128;
-  uint32_t qa[QREG ? D / 16 : 1][4];
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+}
 
-  const int row_base = q0 + warp * 16;
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int st = (j - j_lo) & 1;
-    if (j + 1 < j_hi) {
-      load_rows(Ks + (st ^ 1) * BKV * LD, kb, (j + 1) * BKV, Tk);
-      load_rows(Vs + (st ^ 1) * BKV * LD, vb, (j + 1) * BKV, Tk);
+template <int D, int BQ>
+__global__ void __launch_bounds__(Cfg<D, BQ>::THREADS, 1)
+    flash_kernel(const __grid_constant__ Params p) {
+  using C = Cfg<D, BQ>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (rt::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + C::Q_BYTES;
+  uint8_t* Vs = Ks + p.stages * C::KV_BYTES;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + p.stages * C::KV_BYTES);
+  uint64_t* full_k = qbar + 1;
+  uint64_t* full_v = full_k + MAX_STAGES;
+  uint64_t* empty = full_v + MAX_STAGES;
+
+  const int heads = p.B * p.Hq;
+  const int tile = p.order[blockIdx.x / heads];
+  const int bh = blockIdx.x % heads;  // b * Hq + h
+  const int bhk = bh / p.Hq * p.Hk + bh % p.Hq / (p.Hq / p.Hk);
+  const int q0 = tile * BQ;
+  const Span sp = key_span(q0, BQ, C::BKV, p);
+
+  if (threadIdx.x == 0) {
+    rt::mbar_init(qbar, 1);
+    for (int s = 0; s < p.stages; ++s) {
+      rt::mbar_init(&full_k[s], 1);       // the producer's expect_tx
+      rt::mbar_init(&full_v[s], 1);
+      rt::mbar_init(&empty[s], C::NC);    // one arrival per consumer group
     }
-    rt::cp_async_commit();
-    rt::cp_async_wait<1>();
-    __syncthreads();
-    if constexpr (QREG) {
-      if (j == j_lo) {
+    rt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----------------------
+    if constexpr (C::NC == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      rt::mbar_expect_tx(qbar, C::Q_BYTES);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          rt::load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
+      for (int x = 0; x < D / 64; ++x)
+        rt::tma_load_3d(Qs + x * C::QBOX, &p.q, 64 * x, q0, bh, qbar);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = sp.lo; j < sp.hi; ++j) {
+        rt::mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* kd = Ks + stage * C::KV_BYTES;
+        uint8_t* vd = Vs + stage * C::KV_BYTES;
+        rt::mbar_expect_tx(&full_k[stage], C::KV_BYTES);
+#pragma unroll
+        for (int x = 0; x < D / 64; ++x)
+          rt::tma_load_3d(kd + x * C::KVBOX, &p.k, 64 * x, j * C::BKV, bhk,
+                          &full_k[stage]);
+        rt::mbar_expect_tx(&full_v[stage], C::KV_BYTES);
+#pragma unroll
+        for (int x = 0; x < D / 64; ++x)
+          rt::tma_load_3d(vd + x * C::KVBOX, &p.v, 64 * x, j * C::BKV, bhk,
+                          &full_v[stage]);
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    const bf16* Kt = Ks + st * BKV * LD;
-    const bf16* Vt = Vs + st * BKV * LD;
+  } else {
+    // ---- consumers: query rows [64 (wg - 1), 64 wg) of the tile ----------
+    if constexpr (C::NC == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1, warp = threadIdx.x / 32 % 4,
+              lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const bool leader = threadIdx.x % 128 == 0;
+    const int qpos = q0 + cw * 64 + warp * 16 + g + p.q_offset;
+    // Q: rows 128 bytes apart, 8-row swizzle atoms 1024 apart, a k16 slice
+    // 32 bytes along the row, a 64-column box QBOX further; K the same in
+    // KVBOX boxes.  V (N-major): 64-column boxes KVBOX apart (leading
+    // offset), 8-key atoms 1024 apart (stride offset), a k16 slice 16 keys
+    // further.
+    const uint8_t* qa = Qs + cw * 64 * 128;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[KN][4];
+    float o[C::ON];
 #pragma unroll
-    for (int n = 0; n < KN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    auto qk_step = [&](const uint32_t(&qf)[4], int kk) {
-#pragma unroll
-      for (int n = 0; n < KN; n += 2) {
-        uint32_t bb[4];
-        rt::load_b_nk(bb, Kt, LD, n * 8, kk * 16, lane);
-        rt::mma16816(s[n], qf, bb[0], bb[1]);
-        rt::mma16816(s[n + 1], qf, bb[2], bb[3]);
+    for (int i = 0; i < C::ON; ++i) o[i] = 0.f;
+    float m[2] = {rt::kNeg, rt::kNeg}, l[2] = {0.f, 0.f};
+    float s[C::SN];
+    uint32_t pa[C::BKV / 16][4];
+
+    int stage = 0, prev = 0;
+    uint32_t phase = 0, prev_phase = 0;
+    auto advance = [&] {
+      prev = stage;
+      prev_phase = phase;
+      if (++stage == p.stages) {
+        stage = 0;
+        phase ^= 1;
       }
     };
+    // S = Q K^T of the tile in ``stage``, issued and committed
+    auto qk = [&] {
+      const uint8_t* kt = Ks + stage * C::KV_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      if constexpr (QREG) {
-        qk_step(qa[kk], kk);
-      } else {
-        uint32_t qf[4];
-        rt::load_a(qf, Qs, LD, warp * 16, kk * 16, lane);
-        qk_step(qf, kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        rt::Wgmma<C::BKV, 0>::ss(
+            s, rt::desc(qa + kk / 4 * C::QBOX + kk % 4 * 32, 16, 1024),
+            rt::desc(kt + kk / 4 * C::KVBOX + kk % 4 * 32, 16, 1024),
+            kk > 0);
+      rt::wgmma_commit();
+    };
+    // O += P V of the tile in ``prev``, issued and committed
+    auto pv = [&] {
+      rt::mbar_wait(&full_v[prev], prev_phase);
+      const uint8_t* vt = Vs + prev * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < C::BKV / 16; ++kk)
+        rt::Wgmma<D, 1>::rs(o, pa[kk],
+                            rt::desc(vt + kk * 16 * 128, C::KVBOX, 1024));
+      rt::wgmma_commit();
+    };
+    // P's A fragment for keys [16kk, 16kk + 16): S's n8 tiles 2kk, 2kk+1
+    auto to_p = [&] {
+#pragma unroll
+      for (int kk = 0; kk < C::BKV / 16; ++kk) {
+        pa[kk][0] = rt::pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = rt::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = rt::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = rt::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
+    };
+    // Tile j: its Q K^T and tile j-1's P V issued together, tile j's
+    // softmax while P V runs, then O rescaled and tile j's P formed.  No
+    // branch lies between the products and their waits: MASK is a
+    // template argument of each of the three key loops below.
+    // With two consumer groups, they take turns issuing their products
+    // (named barriers 3 and 4), so that one group's softmax runs while the
+    // other group's products hold the tensor cores.  Each waits for its
+    // turn once a tile and passes it on once; the first group starts, and
+    // takes one turn more at the end so that no arrival is left pending.
+    // The groups differ only in the barriers' ids and counts, never in a
+    // branch: ptxas serialises every wgmma of a kernel with a branch on
+    // the group around one.  (A barrier id 5 or 6 with a count of 128 is
+    // one group meeting itself: a no-op.)
+    auto my_turn = [&] {
+      if constexpr (C::PINGPONG) rt::named_barrier(3 + cw, 256);
+    };
+    auto pass_turn = [&] {
+      if constexpr (C::PINGPONG) rt::named_barrier_arrive(4 - cw, 256);
+    };
+    auto step = [&](int j, auto mask) {
+      rt::mbar_wait(&full_k[stage], phase);
+      my_turn();
+      rt::wgmma_fence();
+      qk();
+      pv();
+      pass_turn();
+      rt::wgmma_wait<1>();
+      rt::fence_regs(s);
+      float alpha[2];
+      softmax<decltype(mask)::value>(s, m, l, alpha, j * C::BKV + 2 * t,
+                                     qpos, p);
+      rt::wgmma_wait<0>();
+      rt::fence_regs(o);
+      rt::fence_regs(pa);
+      if (leader) rt::mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int i = 0; i < C::ON; ++i) o[i] *= alpha[(i >> 1) & 1];
+      to_p();
+      advance();
+    };
+    using Masked = std::integral_constant<bool, true>;
+    using Whole = std::integral_constant<bool, false>;
+
+    rt::mbar_wait(qbar, 0);
+    if (sp.lo < sp.hi) {
+      if constexpr (C::PINGPONG)  // the first group's first turn
+        rt::named_barrier_arrive(cw ? 3 : 5, cw ? 256 : 128);
+      // the first tile alone (O is still zero: nothing to overlap)
+      rt::mbar_wait(&full_k[stage], phase);
+      my_turn();
+      rt::wgmma_fence();
+      qk();
+      pass_turn();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(s);
+      float alpha[2];
+      if (sp.lo < sp.full_lo || sp.lo >= sp.full_hi)
+        softmax<true>(s, m, l, alpha, sp.lo * C::BKV + 2 * t, qpos, p);
+      else
+        softmax<false>(s, m, l, alpha, sp.lo * C::BKV + 2 * t, qpos, p);
+      to_p();
+      advance();
+      // the rest: the window's lower edge, the tiles every row sees
+      // whole, then the causal diagonal and Tk's edge
+      const int mid = max(sp.lo + 1, sp.full_lo);
+      const int top = max(sp.lo + 1, sp.full_hi);
+      for (int j = sp.lo + 1; j < sp.full_lo; ++j) step(j, Masked{});
+      for (int j = mid; j < sp.full_hi; ++j) step(j, Whole{});
+      for (int j = top; j < sp.hi; ++j) step(j, Masked{});
+      rt::wgmma_fence();
+      pv();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(o);
+      if (leader) rt::mbar_arrive(&empty[prev]);
+      if constexpr (C::PINGPONG)  // the first group's last turn
+        rt::named_barrier(cw ? 6 : 3, cw ? 128 : 256);
     }
 
-    // scale + mask, row max over the tile
-    float mx[2] = {rt::kNeg, rt::kNeg};
+    // O / l (l == 0: a row that saw no key gives zeros), rounded to bf16
+    // into this group's rows of the Q tile, swizzled as TMA reads it
+    float inv[2];
 #pragma unroll
-    for (int n = 0; n < KN; ++n)
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      inv[h] = l[h] == 0.f ? 1.f : 1.f / l[h];
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const int qpos = row_base + g + hr * 8 + q_offset;
-        const int kpos = j * BKV + n * 8 + 2 * t + (e & 1);
-        bool ok = kpos < Tk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        const float val = ok ? s[n][e] * scale : rt::kNeg;
-        s[n][e] = val;
-        mx[hr] = fmaxf(mx[hr], val);
+    for (int jn = 0; jn < D / 8; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = cw * 64 + warp * 16 + g + 8 * h;  // row of the tile
+        uint8_t* dst = Qs + jn / 8 * C::QBOX + r * 128 +
+                       ((jn % 8) ^ g) * 16 + 4 * t;
+        *reinterpret_cast<uint32_t*>(dst) = rt::pack_bf16(
+            o[4 * jn + 2 * h] * inv[h], o[4 * jn + 2 * h + 1] * inv[h]);
       }
-    float alpha[2];
+    rt::fence_async_smem();
+    rt::named_barrier(1 + cw, 128);
+    if (leader && q0 + cw * 64 < p.Tq) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-      const float m_new = fmaxf(m_run[hr], mx[hr]);
-      alpha[hr] = m_run[hr] > rt::kNeg / 2 ? __expf(m_run[hr] - m_new) : 0.f;
-      m_run[hr] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < KN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const float p =
-            s[n][e] > rt::kNeg / 2 ? __expf(s[n][e] - m_run[hr]) : 0.f;
-        s[n][e] = p;
-        rs[hr] += p;
-      }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 1);
-      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 2);
-      l_run[hr] = l_run[hr] * alpha[hr] + rs[hr];
-    }
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
-
-    // O += P V: P (bf16) straight from the S accumulators as A fragments
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = rt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = rt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = rt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = rt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < DN; dn += 2) {
-        uint32_t bb[4];
-        rt::load_b_kn(bb, Vt, LD, kk * 16, dn * 8, lane);
-        rt::mma16816(acc[dn], pa, bb[0], bb[1]);
-        rt::mma16816(acc[dn + 1], pa, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();
-  }
-  rt::cp_async_wait<0>();
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row_base + g + hr * 8;
-    if (r >= Tq) continue;
-    const float inv = l_run[hr] == 0.f ? 1.f : 1.f / l_run[hr];
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      const int c = dn * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * D + c) =
-          __floats2bfloat162_rn(acc[dn][2 * hr] * inv,
-                                acc[dn][2 * hr + 1] * inv);
+      for (int x = 0; x < D / 64; ++x)
+        rt::tma_store_3d(&p.o, Qs + x * C::QBOX + cw * 64 * 128, 64 * x,
+                         q0 + cw * 64, bh);
+      rt::tma_store_wait_read();
     }
   }
 }
 
+template <int D, int BQ>
+int launch(Params& p, const void* q, const void* k, const void* v, void* o,
+           int n_tiles, cudaStream_t stream) {
+  using C = Cfg<D, BQ>;
+  const rt::Encode enc = rt::encode_fn();
+  if (!enc) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUresult cr = rt::make_map_3d(enc, &p.q, q, p.B * p.Hq, p.Tq, D, BQ);
+  if (cr == CUDA_SUCCESS)
+    cr = rt::make_map_3d(enc, &p.k, k, p.B * p.Hk, p.Tk, D, C::BKV);
+  if (cr == CUDA_SUCCESS)
+    cr = rt::make_map_3d(enc, &p.v, v, p.B * p.Hk, p.Tk, D, C::BKV);
+  if (cr == CUDA_SUCCESS)
+    cr = rt::make_map_3d(enc, &p.o, o, p.B * p.Hq, p.Tq, D, 64);
+  if (cr != CUDA_SUCCESS) return 1000 + static_cast<int>(cr);
+  const int smem = C::smem_bytes(p.stages);
+  const void* fn = reinterpret_cast<const void*>(&flash_kernel<D, BQ>);
+  cudaError_t rc = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  void* args[] = {&p};
+  if (rc == cudaSuccess)
+    rc = cudaLaunchKernel(fn, dim3(n_tiles * p.B * p.Hq), dim3(C::THREADS),
+                          args, smem, stream);
+  return static_cast<int>(rc);
+}
+
 template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-           int Hq, int Hk, int Tq, int Tk, int causal, int window,
-           int q_offset, cudaStream_t stream) {
-  const int smem = (BQ + 4 * BKV) * (D + 8) * (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
-  flash_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, Hq, Hk, Tq, Tk, causal, window, q_offset,
-      1.0f / sqrtf((float)D));
-  return static_cast<int>(cudaGetLastError());
+int smem_of(int block_q, int stages) {
+  return block_q == 128 ? Cfg<D, 128>::smem_bytes(stages)
+                        : Cfg<D, 64>::smem_bytes(stages);
 }
 
 }  // namespace
 
+// Launch on ``stream`` what kernels/flash_attention.py:schedule chose: the
+// tile height ``block_q``, the ring's ``stages`` and the launch order of
+// the ``n_tiles`` query tiles.  Returns the first cudaError_t; a tensor
+// map the driver refuses returns 1000 + its CUresult.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int Hq, int Hk, int Tq,
                                   int Tk, int D, int causal, int window,
-                                  int q_offset, void* stream) {
-  auto* qq = static_cast<const bf16*>(q);
-  auto* kk = static_cast<const bf16*>(k);
-  auto* vv = static_cast<const bf16*>(v);
-  auto* oo = static_cast<bf16*>(o);
+                                  int q_offset, int block_q, int stages,
+                                  const void* order, int n_tiles,
+                                  void* stream) {
+  if ((block_q != 64 && block_q != 128) || stages < 2 ||
+      stages > MAX_STAGES || n_tiles < 1 || n_tiles > MAX_TILES ||
+      n_tiles != (Tq + block_q - 1) / block_q || Tk < 1 || Hk < 1 ||
+      Hq % Hk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.B = B, p.Hq = Hq, p.Hk = Hk, p.Tq = Tq, p.Tk = Tk;
+  p.causal = causal, p.window = window, p.q_offset = q_offset;
+  p.stages = stages;
+  p.scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
+  const auto* ord = static_cast<const uint16_t*>(order);
+  for (int i = 0; i < n_tiles; ++i) p.order[i] = ord[i];
   auto s = static_cast<cudaStream_t>(stream);
+  const bool tall = block_q == 128;
   if (D == 256)
-    return launch<256>(qq, kk, vv, oo, B, Hq, Hk, Tq, Tk, causal, window,
-                       q_offset, s);
+    return tall ? launch<256, 128>(p, q, k, v, o, n_tiles, s)
+                : launch<256, 64>(p, q, k, v, o, n_tiles, s);
   if (D == 128)
-    return launch<128>(qq, kk, vv, oo, B, Hq, Hk, Tq, Tk, causal, window,
-                       q_offset, s);
+    return tall ? launch<128, 128>(p, q, k, v, o, n_tiles, s)
+                : launch<128, 64>(p, q, k, v, o, n_tiles, s);
   if (D == 64)
-    return launch<64>(qq, kk, vv, oo, B, Hq, Hk, Tq, Tk, causal, window,
-                      q_offset, s);
+    return tall ? launch<64, 128>(p, q, k, v, o, n_tiles, s)
+                : launch<64, 64>(p, q, k, v, o, n_tiles, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one block (kernels/flash_attention.py:
+// smem_bytes_for must agree), or -1 for a shape the kernel does not take.
+extern "C" int rt_flash_smem_bytes(int D, int block_q, int stages) {
+  if (block_q != 64 && block_q != 128) return -1;
+  if (D == 256) return smem_of<256>(block_q, stages);
+  if (D == 128) return smem_of<128>(block_q, stages);
+  if (D == 64) return smem_of<64>(block_q, stages);
+  return -1;
 }

@@ -43,9 +43,7 @@
 // element with the ragged edges zero-filled.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and the driver's enums (no libcuda link)
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace rt::gemm_tile {
 
@@ -88,139 +86,6 @@ __device__ __forceinline__ __nv_bfloat162 bias_pair(const Params& p, int c) {
     return __ldg(reinterpret_cast<const __nv_bfloat162*>(p.bias + c));
   return __halves2bfloat162(__ldg(p.bias + c), __ldg(p.bias + c + 1));
 }
-
-// ---------------------------------------------------------------------------
-// PTX for the TMA route: mbarriers, TMA, wgmma, setmaxnreg
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Spin until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 2-D tensor map (coordinates innermost first) into shared
-// memory, completing ``bar``'s transaction bytes.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-#define RT_ACC8(d, i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x BN, fp32) += A (64 x 16, K-major) @ B (16 x BN, N-major: the
-// transpose bit), both read from shared memory through descriptors.
-template <int BN>
-__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
-                                      uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : RT_ACC8(d, 0), RT_ACC8(d, 8), RT_ACC8(d, 16), RT_ACC8(d, 24),
-        RT_ACC8(d, 32), RT_ACC8(d, 40), RT_ACC8(d, 48), RT_ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87,"
-      "%88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103,"
-      "%104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : RT_ACC8(d, 0), RT_ACC8(d, 8), RT_ACC8(d, 16), RT_ACC8(d, 24),
-        RT_ACC8(d, 32), RT_ACC8(d, 40), RT_ACC8(d, 48), RT_ACC8(d, 56),
-        RT_ACC8(d, 64), RT_ACC8(d, 72), RT_ACC8(d, 80), RT_ACC8(d, 88),
-        RT_ACC8(d, 96), RT_ACC8(d, 104), RT_ACC8(d, 112), RT_ACC8(d, 120)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-#undef RT_ACC8
 
 // ---------------------------------------------------------------------------
 // TMA + wgmma, persistent, warp-specialised, optionally split along K
@@ -278,7 +143,7 @@ struct TmaLoop {
         mbar_init(&full[s], 1);   // the producer's expect_tx
         mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
       }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_init_fence();
     }
     __syncthreads();
 
@@ -331,8 +196,8 @@ struct TmaLoop {
           const uint8_t* b = Bs + stage * B_BYTES;
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma<BN>(acc, desc(a + kk * 32, 16, 1024),
-                      desc(b + kk * 16 * 128, BOX_BYTES, 1024));
+            Wgmma<BN, 1>::ss(acc, desc(a + kk * 32, 16, 1024),
+                             desc(b + kk * 16 * 128, BOX_BYTES, 1024), 1);
           wgmma_commit();
           wgmma_wait<1>();  // the step before is done: free its stage
           if (prev >= 0 && signal) mbar_arrive(&empty[prev]);
@@ -540,51 +405,8 @@ struct SyncLoop {
 };
 
 // ---------------------------------------------------------------------------
-// host side: tensor maps and the launch
+// host side: the launch (the tensor maps come from hopper.cuh)
 // ---------------------------------------------------------------------------
-
-using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                            void*, const cuuint64_t*, const cuuint64_t*,
-                            const cuuint32_t*, const cuuint32_t*,
-                            CUtensorMapInterleave, CUtensorMapSwizzle,
-                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so
-// that the library needs no link against libcuda.
-inline Encode encode_fn() {
-  static Encode fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found =
-        cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<Encode>(ptr);
-  }
-  return fn;
-}
-
-// A row-major (rows x cols) bf16 matrix read in boxes of box_rows x 64,
-// 128-byte swizzled; what lies past its edges reads as zeros.
-inline CUresult make_map(Encode enc, CUtensorMap* map, const void* base,
-                         int rows, int cols, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
 
 // One kernel's instantiations, one for each loop.
 using KernelFn = void (*)(Params);

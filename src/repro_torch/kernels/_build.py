@@ -34,7 +34,9 @@ SIGNATURES = {
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     "rt_gemm_smem_bytes": ((), _I),
     "rt_flash_attention": (
-        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+         _P), _I),
+    "rt_flash_smem_bytes": ((_I, _I, _I), _I),
     "rt_fused_mlp": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "rt_fused_mlp_smem_bytes": ((_I,), _I),

@@ -7,34 +7,195 @@ position offset, the -1e30 mask constant with zero guards so a fully
 masked row gives zeros, q·k and the softmax statistics in fp32, P rounded
 to the input dtype before P·V.  Every prefill runs it
 (``models/layers.py:attention_prefill``), and so does ``run_block``.  At
-the serving prefill lengths (T ≤ 1024, Dh = 128) one head's work is small,
-so latency and occupancy bound it; at long T it turns compute-bound.  The
-kernel (``csrc/flash_attention.cu``) gives each 64-query tile of a head
-one block of four warps; each warp keeps its running max / sum and output
-accumulator in registers, and its 16 rows' Q fragments too at Dh ≤ 128
-(at Dh = 256 they come from the Q tile in shared memory at every k step:
-the output accumulator alone takes 128 registers a thread), turns the S
-accumulators into P fragments without a trip through shared memory, and
-streams 64-key tiles of K and V through a two-stage ``cp.async`` ring.
-Key tiles the causal or window mask hides from the whole query tile are
-skipped; ragged Tq / Tk are zero-filled and masked.  The plain version is
+prefill lengths it is compute-bound on the tensor cores (4·Tq·Tk·Dh FLOP
+a head, halved by the causal mask).
+
+The kernel (``csrc/flash_attention.cu``) is a TMA + ``wgmma`` loop: one
+block per (query tile, head, batch), a producer warp keeping TMA loads of
+K and V tiles in flight through an mbarrier ring, and one or two consumer
+warpgroups of 64 query rows each running Q·Kᵀ and P·V on ``wgmma`` with
+the softmax between them in registers.  What it runs is decided here, in
+pure Python (:func:`schedule`): the tile height (128 rows, or 64 where 128
+would leave SMs idle), the key tile width, the ring's depth, the grid and
+the launch order of the query tiles, heaviest first; :func:`key_tiles`
+gives each tile's span of key tiles and the ones that need no mask, as the
+kernel computes them.  The plain version is
 :func:`repro_torch.kernels.ref.attention`.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
 from . import _build, ref
+from .gemm import H100_SMS, sm_count
 
-BLOCK = (64, 64)                  # (block_q, block_k)
 HEAD_DIMS = (64, 128, 256)
+BLOCK_Q = (128, 64)               # query tile heights, the taller preferred
+MAX_STAGES = 4                    # K/V ring stages the kernel can hold
+MAX_TILES = 1024                  # query tiles the launch order can list
+SMEM_LIMIT = 232_448              # dynamic shared memory a block may use
+
+
+def block_kv(head_dim: int) -> int:
+    """Keys a K/V tile holds: 128, or 64 at head_dim 256 (registers: the
+    fp32 output accumulator alone is 128 a thread there)."""
+    return 64 if head_dim == 256 else 128
+
+
+def _ring_bytes(head_dim: int, block_q: int, stages: int) -> int:
+    # the Q tile, ``stages`` K and V tiles, 256 B of mbarriers and 1 KB to
+    # align the ring to the 128-byte swizzle (csrc/flash_attention.cu:
+    # Cfg::smem_bytes)
+    return (1024 + block_q * head_dim * 2
+            + 2 * stages * block_kv(head_dim) * head_dim * 2 + 256)
+
+
+def stages_for(head_dim: int, block_q: int) -> int:
+    """The K/V ring's depth: as many stages as fit a block's shared
+    memory, at most MAX_STAGES (3 at head_dim 128, 2 or 3 at 256, 4 at
+    64)."""
+    n = MAX_STAGES
+    while _ring_bytes(head_dim, block_q, n) > SMEM_LIMIT:
+        n -= 1
+    return n
+
+
+def smem_bytes_for(head_dim: int, block_q: int) -> int:
+    """Dynamic shared memory of one block at tile height ``block_q``."""
+    return _ring_bytes(head_dim, block_q, stages_for(head_dim, block_q))
 
 
 def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one block: Q tile + two K and two V
-    tiles, rows padded by 8 (csrc/flash_attention.cu: launch)."""
-    bq, bk = BLOCK
-    return (bq + 4 * bk) * (head_dim + 8) * 2
+    """The largest footprint :func:`schedule` can pick at ``head_dim``
+    (what the registry qualifies the kernel on)."""
+    return max(smem_bytes_for(head_dim, bq) for bq in BLOCK_Q)
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """Key tiles [lo, hi) some row of a query tile sees, and [full_lo,
+    full_hi) among them that every row sees whole: those run no mask."""
+    lo: int
+    full_lo: int
+    full_hi: int
+    hi: int
+
+    @property
+    def tiles(self) -> int:
+        return self.hi - self.lo
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def key_tiles(tile: int, block_q: int, block_k: int, tq: int, tk: int,
+              causal: bool, window: int | None, q_offset: int) -> Span:
+    """The key tiles of query tile ``tile``, as the kernel computes them
+    (csrc/flash_attention.cu: key_span); rows past ``tq`` do not count."""
+    win = window or 0
+    first = tile * block_q + q_offset
+    last = min((tile + 1) * block_q, tq) - 1 + q_offset
+    k_min = max(0, first - win + 1) if win else 0
+    k_max = min(tk - 1, last) if causal else tk - 1
+    if k_min > k_max:
+        return Span(0, 0, 0, 0)
+    f_min = max(0, last - win + 1) if win else 0
+    f_max = min(tk - 1, first) if causal else tk - 1
+    lo, hi = k_min // block_k, k_max // block_k + 1
+    full_lo = max(lo, _cdiv(f_min, block_k))
+    full_hi = max(full_lo, min(hi, (f_max + 1) // block_k))
+    return Span(lo, full_lo, full_hi, hi)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """What the launcher runs: the query tile height, the key tile width,
+    the ring's stages, the blocks launched, their shared memory, and the
+    query tiles in launch order (heaviest first)."""
+    block_q: int
+    block_k: int
+    stages: int
+    grid: int
+    smem_bytes: int
+    order: tuple[int, ...]
+
+    @property
+    def label(self) -> str:
+        return (f"BQ={self.block_q} BKV={self.block_k} stages={self.stages} "
+                f"grid={self.grid}")
+
+
+@functools.lru_cache(maxsize=4096)
+def schedule(b: int, hq: int, hk: int, tq: int, tk: int, dh: int,
+             causal: bool, window: int | None, q_offset: int, *,
+             sms: int = H100_SMS, block_q: int | None = None) -> Schedule:
+    """The launch for q (b, hq, tq, dh) over k/v (b, hk, tk, dh) on
+    ``sms`` SMs.
+
+    The tile height is ``block_q`` if given, else 128 unless the grid
+    would then fill less than one wave of the SMs, and 64 there.  One block
+    per (query tile, q-head, batch); the query tiles launch in the order of
+    their number of key tiles, most first, later tiles first on a tie."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {dh}")
+    if hk < 1 or hq % hk:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hk}")
+    if block_q is None:
+        block_q = BLOCK_Q[0] if _cdiv(tq, BLOCK_Q[0]) * hq * b >= sms \
+            else BLOCK_Q[1]
+    if block_q not in BLOCK_Q:
+        raise ValueError(f"block_q must be one of {BLOCK_Q}, got {block_q}")
+    n = _cdiv(tq, block_q)
+    if not 1 <= n <= MAX_TILES:
+        raise ValueError(f"flash_attention kernel takes 1 to "
+                         f"{MAX_TILES * block_q} queries, got {tq}")
+    bk = block_kv(dh)
+    spans = [key_tiles(i, block_q, bk, tq, tk, causal, window, q_offset)
+             .tiles for i in range(n)]
+    order = tuple(sorted(range(n), key=lambda i: (-spans[i], -i)))
+    return Schedule(block_q, bk, stages_for(dh, block_q), n * hq * b,
+                    smem_bytes_for(dh, block_q), order)
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+         window: int | None, q_offset: int) -> Schedule:
+    """The schedule :func:`flash_attention` launches for CUDA q and k."""
+    b, hq, tq, dh = q.shape
+    return schedule(b, hq, k.shape[1], tq, k.shape[2], dh, bool(causal),
+                    window, int(q_offset), sms=sm_count(q.device.index))
+
+
+@functools.lru_cache(maxsize=4096)
+def _order_array(order: tuple[int, ...]):
+    return (ctypes.c_uint16 * len(order))(*order)
+
+
+def run_schedule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 s: Schedule, *, causal: bool, window: int | None,
+                 q_offset: int) -> torch.Tensor:
+    """Attention by the kernel on schedule ``s``, for checked CUDA
+    operands with ``k.shape[2] > 0`` (what :func:`flash_attention` launches
+    with :func:`plan`; ``chip_smoke.py`` times other schedules with it).
+    Counts no launch."""
+    b, hq, tq, dh = q.shape
+    _, hk, tk, _ = k.shape
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _build.lib().rt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, hq, hk, tq, tk, dh, int(causal),
+            0 if window is None else int(window), int(q_offset),
+            s.block_q, s.stages, _order_array(s.order), len(s.order),
+            stream)
+    _build.check(rc, "flash_attention")
+    return o
 
 
 # kernel launches since the last reset (``chip_smoke.py`` reads it)
@@ -80,15 +241,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes contiguous, "
                          "16-byte aligned q, k, v")
-    o = torch.empty_like(q)
     if q.numel() == 0:
-        return o
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _build.lib().rt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, hq, hk, tq, tk, dh, int(causal),
-            0 if window is None else int(window), int(q_offset), stream)
-    _build.check(rc, "flash_attention")
+        return torch.empty_like(q)
+    if tk == 0:                      # no key: every row gives zeros
+        return torch.zeros_like(q)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o = run_schedule(q, k, v, plan(q, k, **kw), **kw)
     launches += 1
     return o

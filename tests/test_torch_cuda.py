@@ -165,6 +165,23 @@ def test_partial_mlp_executor(dev, m, k, f, n):
     _close(y.reshape(-1, n), want)
 
 
+# flash attention's schedule on an H100's 132 SMs: (case, tile height).
+# 128-row tiles with ragged Tq and Tk at B = 2 and several heads (a store
+# past Tq would land in the next head's rows), Dh = 128 and 256 rows of
+# V spanning two and four 64-column TMA boxes, a window edge inside a
+# 128-key tile, q_offset > 0 with Tq != Tk, and the 64-row schedule
+FLASH_SCHEDULES = [
+    ((2, 24, 8, 300, 333, 128, False, None, 0), 128),
+    ((2, 24, 8, 300, 333, 256, True, None, 0), 128),
+    ((1, 48, 1, 1000, 1000, 128, True, None, 0), 128),
+    ((1, 48, 1, 700, 700, 256, True, None, 0), 128),
+    ((1, 48, 4, 600, 600, 128, True, 100, 0), 128),
+    ((2, 32, 8, 260, 900, 128, True, None, 640), 128),
+    ((1, 16, 1, 1024, 1024, 256, True, 2048, 0), 64),
+    ((1, 8, 8, 448, 1500, 64, False, None, 0), 64),
+]
+
+
 @pytest.mark.parametrize("b,hq,hk,tq,tk,dh,causal,window,q_offset", [
     (1, 24, 8, 200, 200, 128, True, None, 0),
     (2, 4, 2, 70, 100, 128, True, 16, 30),
@@ -176,14 +193,43 @@ def test_partial_mlp_executor(dev, m, k, f, n):
     (2, 4, 1, 50, 90, 256, True, 16, 40),
     (1, 2, 2, 40, 40, 256, False, None, 0),
     (1, 48, 1, 300, 300, 128, True, None, 0),   # granite-20b's MQA 48/1
-])
+] + [case for case, _ in FLASH_SCHEDULES])
 def test_flash_attention(dev, b, hq, hk, tq, tk, dh, causal, window,
                          q_offset):
     q = _rand(dev, 2, b, hq, tq, dh)
     k, v = _rand(dev, 3, b, hk, tk, dh), _rand(dev, 4, b, hk, tk, dh)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention.launches
     _close(flash_attention.flash_attention(q, k, v, **kw),
            ref.attention(q, k, v, **kw))
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("block_q", flash_attention.BLOCK_Q)
+@pytest.mark.parametrize("case,want_block_q", FLASH_SCHEDULES)
+def test_flash_attention_schedules(dev, case, want_block_q, block_q):
+    """Each case at the tile height its schedule picks on an H100 and at
+    the other one (kernels/flash_attention.py:run_schedule)."""
+    b, hq, hk, tq, tk, dh, causal, window, q_offset = case
+    if flash_attention.sm_count(dev.index) == flash_attention.H100_SMS:
+        assert flash_attention.schedule(*case).block_q == want_block_q
+    q = _rand(dev, 12, b, hq, tq, dh, scale=1.5)
+    k = _rand(dev, 13, b, hk, tk, dh, scale=1.5)
+    v = _rand(dev, 14, b, hk, tk, dh)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    s = flash_attention.schedule(*case, block_q=block_q)
+    _close(flash_attention.run_schedule(q, k, v, s, **kw),
+           ref.attention(q, k, v, **kw))
+
+
+def test_flash_smem_bytes_match_the_launcher(dev):
+    from repro_torch.kernels import _build
+
+    for dh in flash_attention.HEAD_DIMS:
+        for bq in flash_attention.BLOCK_Q:
+            assert _build.lib().rt_flash_smem_bytes(
+                dh, bq, flash_attention.stages_for(dh, bq)) == \
+                flash_attention.smem_bytes_for(dh, bq)
 
 
 @pytest.mark.parametrize("m,k,f,n,gated,bias,act", [
