@@ -17,8 +17,10 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    kernel's time (CUDA events, median of 20 launches, L2 flushed before
    each) beside its roofline bound, its plain version's time and, where
    one exists, the time of the one PyTorch call that computes the same
-   function.  The fused MLP's planned F slice is also timed beside its
-   neighbours, each with the bytes of its fp32 partials.  Each ``gemm``
+   function.  Each fused-MLP case prints its schedule (M tile, F slice,
+   hidden chunk, ring stages, grid), checks two launches bit-identical,
+   and times the other M-tile height and the unfused cuBLAS chain
+   (``unfused_ms``, a yardstick the port never calls).  Each ``gemm``
    and ``gemm_act`` case prints the tile loop its schedule runs (``tma``,
    ``tma+splitk=N`` or ``mma.sync``) and, on the TMA route, its time at
    the other tile width.  ``gemm`` is held at the served projections and
@@ -381,48 +383,50 @@ def other_width_ms(timer, x, w, run) -> float | None:
 
 def fused_mlp_cases(dev, timer, randn, k_, f_, n_, act, ms, path):
     """The gated fused MLP at widths K -> F -> N against its plain version
-    at each M of ``ms``; the planned F slice timed beside its
-    neighbours."""
-    from repro_torch.core import hw
+    at each M of ``ms``: its schedule (M tile, F slice, hidden chunk, ring
+    stages, grid), two launches checked bit-identical, its time at the
+    other M-tile height, and the unfused cuBLAS chain (two torch.matmul,
+    the activation and the gate, torch.matmul) timed beside it as a
+    yardstick the port never calls."""
     from repro_torch.kernels import fused_mlp, ref
 
     out = []
     w1, wg = randn(k_, f_, scale=k_ ** -0.5), randn(k_, f_, scale=k_ ** -0.5)
     w2 = randn(f_, n_, scale=f_ ** -0.5)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    act_fn = {"silu": F.silu,
+              "gelu": lambda t: F.gelu(t, approximate="tanh")}[act]
     for m in ms:
         x = randn(m, k_)
         label = f"fused_mlp M={m} {k_}->{f_}->{n_} {act} gated"
-        err = compare(fused_mlp.fused_mlp(x, w1, w2, wg, act=act),
-                      ref.mlp(x, w1, w2, wg, act=act), label)
+        s = fused_mlp.schedule(m, k_, f_, n_, True, n_sm)
+        y1 = fused_mlp.fused_mlp(x, w1, w2, wg, act=act)
+        y2 = fused_mlp.fused_mlp(x, w1, w2, wg, act=act)
+        torch.cuda.synchronize()
+        check(torch.equal(y1, y2), f"{label}: two launches differ")
+        err = compare(y1, ref.mlp(x, w1, w2, wg, act=act), label)
         b, why = bound_ms(2 * (m * k_ + 2 * k_ * f_ + f_ * n_ + m * n_),
                           2 * m * k_ * f_ * 2 + 2 * m * f_ * n_)
-        # the planned F slice against its neighbours: each one's time
-        # beside its fp32 partial buffer, the bytes the partials move in
-        # device memory (written and read once) and what h would move there
-        # (bf16, written and read once)
-        tgt = hw.default_target()
-        _, bf = fused_mlp.plan_blocks(m, k_, f_, n_, tgt, n_sm, True)
-        sweep = {}
-        for alt in (bf // 4, bf // 2, bf, 2 * bf):
-            if alt < fused_mlp.F_ALIGN or \
-                    alt not in fused_mlp.feasible_block_f(f_, tgt):
-                continue
-            sweep[str(alt)] = timer.ms(lambda: fused_mlp.fused_mlp(
-                x, w1, w2, wg, act=act, block_f=alt))
-            moved = fused_mlp.partial_bytes(m, n_, f_, alt)
-            print(f"  fused_mlp M={m} block_f={alt}"
-                  f"{' (planned)' if alt == bf else ''}: {sweep[str(alt)]} "
-                  f"ms, partial buffer {moved // 2} B, partials move "
-                  f"{moved} B in device memory (h would move "
-                  f"{2 * 2 * m * f_} B)")
+        other = fused_mlp.schedule(m, k_, f_, n_, True, n_sm,
+                                   block_m={64: 128, 128: 64}[s.block_m])
+        t_other = timer.ms(lambda: fused_mlp.run_schedule(
+            x, w1, w2, wg, None, None, act, other))
+        t_unfused = timer.ms(lambda: torch.matmul(
+            act_fn(torch.matmul(x, w1)) * torch.matmul(x, wg), w2))
+        print(f"  {label}: schedule {s.label}, {s.partial_bytes} B of fp32 "
+              f"partials; two launches bit-identical; at the other M-tile "
+              f"height ({other.label}) {t_other} ms; the unfused cuBLAS "
+              f"chain {t_unfused} ms")
         out.append(dict(
-            path=path, shape=[m, k_, f_, n_], max_abs_err=err, block_f=bf,
+            path=path, shape=[m, k_, f_, n_], max_abs_err=err,
+            schedule=s.label, block_m=s.block_m, block_f=s.block_f,
+            hidden_chunk=s.hidden_chunk, stages=s.stages, grid=s.grid,
             ms=timer.ms(lambda: fused_mlp.fused_mlp(x, w1, w2, wg,
                                                      act=act)),
+            other_height_ms=t_other,
             plain_ms=timer.ms(lambda: ref.mlp(x, w1, w2, wg, act=act)),
-            library_ms=None, bound_ms=b, bound_by=why,
-            block_f_ms=sweep))
+            library_ms=None, unfused_ms=t_unfused, bound_ms=b,
+            bound_by=why))
     return out
 
 
@@ -500,11 +504,11 @@ def gemm_act_cases(dev, timer, randn):
 
 def partial_vs_fused(dev, timer, randn):
     """granite-20b's whole MLP (6144 -> 24576 -> 6144, gelu, biases) at
-    M = 2048 and M = 128 through both kernel executors: the fused MLP at
-    its planned F slice, and the partial schedule (gemm_act, then gemm)
-    that the planner picks on the h100 target.  Measured only; printed
-    beside the planner's modelled traffic for each schedule and the fused
-    kernel's fp32 partial bytes."""
+    M = 2048 and M = 128 through both kernel executors: the fused MLP on
+    its schedule, and the partial schedule (gemm_act, then gemm) that the
+    planner picks on the h100 target.  Measured only; printed beside the
+    planner's modelled traffic for each schedule and the fused kernel's
+    fp32 partial bytes."""
     from repro_torch.core import hw
     from repro_torch.core.ftl import graph, partition, registry
     from repro_torch.kernels import fused_mlp, ref
@@ -521,7 +525,7 @@ def partial_vs_fused(dev, timer, randn):
                             act="gelu")
         chosen = partition.plan_chain(g, target=hw.H100)
         whole = partition.plan_fixed(g, (), target=hw.H100)
-        _, bf = fused_mlp.plan_blocks(m, k_, f_, k_, hw.H100, n_sm, False)
+        sched = fused_mlp.schedule(m, k_, f_, k_, False, n_sm)
         want = ref.mlp(x, w1, w2, None, b1, b2, act="gelu")
         for name, fn in (("fused", fused), ("partial", part)):
             compare(fn(x, w1, w2, None, b1, b2, act="gelu", target=hw.H100),
@@ -532,9 +536,9 @@ def partial_vs_fused(dev, timer, randn):
         t_ref = timer.ms(lambda: ref.mlp(x, w1, w2, None, b1, b2,
                                          act="gelu"))
         print(f"  granite MLP M={m}: plain {t_ref} ms; "
-              f"cuda_fused_mlp (block_f={bf}) {t_f} "
-              f"ms, fp32 partials move {fused_mlp.partial_bytes(m, k_, f_, bf)}"
-              f" B; cuda_partial_mlp {t_p} ms, h moves {2 * 2 * m * f_} B; "
+              f"cuda_fused_mlp ({sched.label}) {t_f} ms, fp32 partials move "
+              f"{2 * sched.partial_bytes} B; cuda_partial_mlp {t_p} ms, h "
+              f"moves {2 * 2 * m * f_} B; "
               f"the planner on h100 picks {chosen.schedule} (cuts "
               f"{list(chosen.cuts())}, modelled traffic "
               f"{chosen.traffic_bytes} B, {chosen.modeled_runtime_s} s) over "
@@ -1084,18 +1088,18 @@ def main() -> int:
     lib = _build.build()
     print(f"  built {lib.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0} s")
-    # the planner sizes the fused MLP's F slice from fused_mlp.smem_bytes;
-    # it must be the footprint the CUDA launcher asks for
-    # and how many blocks share an SM from fused_mlp.blocks_per_sm
-    for bf in (64, 128, 256, 512, 1024):
-        check(_build.lib().rt_fused_mlp_smem_bytes(bf)
-              == fused_mlp.smem_bytes(bf),
-              f"fused_mlp footprint at block_f={bf}: Python and CUDA differ")
-        check(_build.lib().rt_fused_mlp_blocks_per_sm(bf, 1)
-              == fused_mlp.blocks_per_sm(bf),
-              f"fused_mlp blocks per SM at block_f={bf}: the planner's "
-              f"{fused_mlp.blocks_per_sm(bf)}, the CUDA runtime's "
-              f"{_build.lib().rt_fused_mlp_blocks_per_sm(bf, 1)}")
+    # the fused MLP's schedule sizes the ring and the slice from
+    # fused_mlp.smem_bytes; it must be the footprint the CUDA launcher asks
+    # for, at every schedule the served widths and the buckets give
+    from repro_torch.models.model import PREFILL_BUCKETS
+    for k_, f_, gated in ((3072, 8192, True), (4096, 12288, True),
+                          (6144, 24576, False)):
+        for m in (4, *PREFILL_BUCKETS):
+            s = fused_mlp.schedule(m, k_, f_, k_, gated)
+            got = _build.lib().rt_fused_mlp_smem_bytes(
+                s.block_m, s.block_f, s.hidden_chunk, s.stages, int(gated))
+            check(got == s.smem_bytes, f"fused_mlp footprint at {s.label}: "
+                  f"Python {s.smem_bytes}, CUDA {got}")
     # the registry binds the GEMM kernels from gemm.SMEM_BYTES; it must be
     # the footprint the CUDA launcher asks for
     check(_build.lib().rt_gemm_smem_bytes() == gemm.SMEM_BYTES,

@@ -71,19 +71,21 @@ def dtype_name(dtype) -> str:
 
 def _mlp_kernel_fits(c: ExecContext) -> bool:
     """The fused-MLP kernel takes bf16, K and N multiples of 8 and F a
-    multiple of its 64-wide slice lattice, and needs some F slice whose
-    shared-memory footprint fits the target's fast level."""
+    multiple of its 64-wide slice lattice, and needs some schedule whose
+    shared-memory footprint (the hidden slice and a ring of at least two
+    slots) fits the target's fast level."""
     from repro_torch.kernels import fused_mlp
 
     if c.dtype != "bfloat16":
         return False
     if c.target is None:
         return True
+    cap = c.target.fast.capacity_bytes
     if not c.d_ff:
-        return fused_mlp.smem_bytes(fused_mlp.F_ALIGN) \
-            <= c.target.fast.capacity_bytes
+        return fused_mlp.min_smem_bytes(c.gated) <= cap
     return (c.d_model % 8 == 0 and c.d_ff % fused_mlp.F_ALIGN == 0
-            and bool(fused_mlp.feasible_block_f(c.d_ff, c.target)))
+            and bool(fused_mlp.block_f_choices(
+                c.d_ff, fused_mlp.BLOCK_M[0], c.gated, cap)))
 
 
 def _attention_kernel_fits(c: ExecContext) -> bool:

@@ -126,8 +126,9 @@ __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile,
 
 // Activations, matching repro.kernels.ref.act_fn: 0 gelu (tanh form),
 // 1 gelu_exact, 2 silu, 3 relu, 4 identity.  ``act_k<Kind>`` is one of
-// them, for an epilogue that dispatches on the kind once, outside its
-// unrolled loop.
+// them; ``with_act`` hands an epilogue the functor of a kind picked at run
+// time, so that its unrolled loop holds one activation's code and not a
+// switch over all of them per element.
 template <int Kind>
 __device__ __forceinline__ float act_k(float x) {
   if constexpr (Kind == 0) {
@@ -146,18 +147,28 @@ __device__ __forceinline__ float act_k(float x) {
   }
 }
 
-__device__ __forceinline__ float act(float x, int kind) {
+template <int Kind>
+struct Act {
+  __device__ __forceinline__ float operator()(float x) const {
+    return act_k<Kind>(x);
+  }
+};
+
+// f(act) with the functor of activation ``kind``: an epilogue picks its
+// activation once, outside its unrolled loop
+template <class F>
+__device__ __forceinline__ void with_act(int kind, F f) {
   switch (kind) {
     case 0:
-      return act_k<0>(x);
+      return f(Act<0>{});
     case 1:
-      return act_k<1>(x);
+      return f(Act<1>{});
     case 2:
-      return act_k<2>(x);
+      return f(Act<2>{});
     case 3:
-      return act_k<3>(x);
+      return f(Act<3>{});
     default:
-      return act_k<4>(x);
+      return f(Act<4>{});
   }
 }
 

@@ -4,7 +4,7 @@
 // what it computes: the pre-activation lives only in fp32 (accumulator
 // registers, or the split-K partials), the bias (optional: a null pointer)
 // is added and the activation applied in fp32 to the whole sum, and the
-// result is rounded to bf16 once.  Activations as rt::act: gelu (the tanh
+// result is rounded to bf16 once.  Activations as rt::act_k: gelu (the tanh
 // form), gelu_exact (erf), silu, relu, identity.  On the serving path it
 // is granite-20b's MLP up projection (M = the prefill bucket, 6144 ->
 // 24576), compute-bound on an H100 at M = 2048 (6.2e11 FLOP against 428
@@ -25,27 +25,9 @@ namespace gt = rt::gemm_tile;
 // the epilogue: act(sum + b[c]) (the loops add the bias), the activation
 // picked once
 struct Act {
-  template <int Kind>
-  struct Fn {
-    __device__ __forceinline__ float operator()(float v) const {
-      return rt::act_k<Kind>(v);
-    }
-  };
-
   template <class F>
   __device__ __forceinline__ static void with(const gt::Params& p, F f) {
-    switch (p.act) {
-      case 0:
-        return f(Fn<0>{});
-      case 1:
-        return f(Fn<1>{});
-      case 2:
-        return f(Fn<2>{});
-      case 3:
-        return f(Fn<3>{});
-      default:
-        return f(Fn<4>{});
-    }
+    rt::with_act(p.act, f);
   }
 };
 

@@ -38,9 +38,9 @@ SIGNATURES = {
          _P), _I),
     "rt_flash_smem_bytes": ((_I, _I, _I), _I),
     "rt_fused_mlp": (
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
-    "rt_fused_mlp_smem_bytes": ((_I,), _I),
-    "rt_fused_mlp_blocks_per_sm": ((_I, _I), _I),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, _P), _I),
+    "rt_fused_mlp_smem_bytes": ((_I, _I, _I, _I, _I), _I),
     "rt_rg_lru_scan": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "rt_mlstm_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
                       _I),

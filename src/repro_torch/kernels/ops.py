@@ -11,9 +11,10 @@ the first: no caller asks for their plain versions on the card):
 Each kernel's block sizes come from its own shared-memory footprint
 against the planning target's fast level: fixed tiles for ``gemm``,
 ``gemm_act``, ``flash_attention``, ``rg_lru`` and ``mlstm`` (the
-registry qualifies the first three on that footprint), a planned F slice
-for the fused MLP (:func:`repro_torch.kernels.fused_mlp.plan_blocks`, on
-``target``).
+registry qualifies the first three on that footprint), and for the fused
+MLP a schedule (:func:`repro_torch.kernels.fused_mlp.schedule`: M tile,
+F slice, hidden chunk and ring depth within ``target``'s fast level) of
+one kernel that sums its F-slice partials itself, in a fixed order.
 """
 from __future__ import annotations
 

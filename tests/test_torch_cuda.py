@@ -258,7 +258,7 @@ def test_fused_mlp(dev, m, k, f, n, gated, bias, act):
     (130, 1024, 256),
 ])
 def test_fused_mlp_block_f(dev, m, f, block_f):
-    """Every F slice the planner may pick sums alike."""
+    """Every F slice the schedule may pick sums alike."""
     k, n = 128, 136                                 # a ragged N tile
     x = _rand(dev, 11, m, k)
     w1, wg = (_rand(dev, 12, k, f, scale=k ** -0.5),
@@ -268,6 +268,102 @@ def test_fused_mlp_block_f(dev, m, f, block_f):
     _close(fused_mlp.fused_mlp(x, w1, w2, wg, b1, b2, act="silu",
                                block_f=block_f),
            ref.mlp(x, w1, w2, wg, b1, b2, act="silu"))
+
+
+def _fused_operands(dev, m, k, f, n, gated, bias, seed=20):
+    x = _rand(dev, seed, m, k)
+    w1 = _rand(dev, seed + 1, k, f, scale=k ** -0.5)
+    wg = _rand(dev, seed + 2, k, f, scale=k ** -0.5) if gated else None
+    w2 = _rand(dev, seed + 3, f, n, scale=f ** -0.5)
+    b1 = _rand(dev, seed + 4, f, scale=0.1) if bias else None
+    b2 = _rand(dev, seed + 5, n, scale=0.1) if bias else None
+    return x, w1, w2, wg, b1, b2
+
+
+def _poisoned(dev, m, n, s):
+    """Hand the allocator's next blocks for y and the partials back full
+    of NaN, so that a chunk the kernel leaves unwritten shows."""
+    a = torch.full((m, n), float("nan"), dtype=torch.bfloat16, device=dev)
+    b = torch.full((max(1, s.partial_bytes // 4),), float("nan"),
+                   device=dev)
+    del a, b
+
+
+# each M tile height with each hidden chunk (the slices picked so that the
+# ring keeps three slots with 128-wide chunks, or drops to 64), ragged M
+# and N, gated and ungated with biases
+@pytest.mark.parametrize("m,n,block_m,block_f,gated,bias", [
+    (200, 520, 64, 128, True, False),     # 64-row tiles, 128-wide chunks
+    (200, 520, 64, 192, True, True),      # 64-row tiles, 64-wide chunks
+    (300, 520, 128, 256, True, False),    # 128-row tiles, 128-wide chunks
+    (300, 520, 128, 512, True, True),     # 128-row tiles, 64-wide chunks
+    (1, 136, 64, 128, True, True),        # ragged M and N
+    (65, 136, 64, 256, False, True),
+    (130, 136, 128, 256, False, True),    # a second tile of two rows
+    (130, 136, 64, 64, True, False),
+])
+def test_fused_mlp_tile_heights_and_chunks(dev, m, n, block_m, block_f,
+                                           gated, bias):
+    k, f = 192, 1536
+    x, w1, w2, wg, b1, b2 = _fused_operands(dev, m, k, f, n, gated, bias)
+    s = fused_mlp.schedule(m, k, f, n, gated, block_m=block_m,
+                           block_f=block_f)
+    assert (s.block_m, s.block_f) == (block_m, block_f)
+    _poisoned(dev, m, n, s)
+    _close(fused_mlp.run_schedule(x, w1, w2, wg, b1, b2, "silu", s),
+           ref.mlp(x, w1, w2, wg, b1, b2, act="silu"))
+
+
+@pytest.mark.parametrize("m,k,f,n", [(4, 3072, 8192, 3072),
+                                     (256, 3072, 8192, 3072),
+                                     (300, 512, 2048, 776)])
+def test_fused_mlp_two_launches_are_bit_identical(dev, m, k, f, n):
+    """The partials are summed in slice order, not arrival order: the same
+    inputs give the same bits, launch after launch."""
+    x, w1, w2, wg, b1, b2 = _fused_operands(dev, m, k, f, n, True, True)
+    s = fused_mlp.schedule(m, k, f, n, True)
+    before = fused_mlp.launches
+    _poisoned(dev, m, n, s)
+    y1 = fused_mlp.fused_mlp(x, w1, w2, wg, b1, b2, act="gelu")
+    torch.cuda.synchronize()
+    _poisoned(dev, m, n, s)
+    y2 = fused_mlp.fused_mlp(x, w1, w2, wg, b1, b2, act="gelu")
+    assert fused_mlp.launches == before + 2
+    _close(y1, ref.mlp(x, w1, w2, wg, b1, b2, act="gelu"))
+    assert torch.equal(y1, y2)
+
+
+def test_fused_mlp_counters_are_left_zero(dev):
+    """A call right after another on the same stream shares its arrival
+    counters: each launch must leave them zero, or the next would sum too
+    early or never."""
+    from repro_torch.kernels.fused_mlp import _COUNTERS
+
+    shapes = [(70, 128, 768, 520), (300, 256, 1024, 1032), (4, 128, 512, 264)]
+    for m, k, f, n in shapes + shapes:
+        x, w1, w2, wg, b1, b2 = _fused_operands(dev, m, k, f, n, True, True)
+        _close(fused_mlp.fused_mlp(x, w1, w2, wg, b1, b2, act="silu"),
+               ref.mlp(x, w1, w2, wg, b1, b2, act="silu"))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert int(_COUNTERS[(dev.index, stream)].abs().sum()) == 0
+
+
+def test_fused_mlp_smem_bytes_match_the_launcher(dev):
+    """kernels/fused_mlp.py:smem_bytes, which the schedule sizes the ring
+    and the slice by, is the footprint the launcher asks for."""
+    from repro_torch.kernels import _build
+
+    for bm in fused_mlp.BLOCK_M:
+        for fc in fused_mlp.HIDDEN_CHUNK:
+            for bf in (128, 256, 512):
+                for gated in (True, False):
+                    st = fused_mlp.stages_for(bm, bf, fc, gated)
+                    if st < fused_mlp.MIN_STAGES:
+                        continue
+                    assert _build.lib().rt_fused_mlp_smem_bytes(
+                        bm, bf, fc, st, int(gated)) == fused_mlp.smem_bytes(
+                            bm, bf, fc, st, gated)
+    assert _build.lib().rt_fused_mlp_smem_bytes(96, 128, 64, 3, 1) == -1
 
 
 @pytest.mark.parametrize("b,t,w,with_h0", [

@@ -255,8 +255,8 @@ def test_full_width_plan_binds_the_four_kernels():
         1024 + 64 * 256 * 2 + 3 * 2 * 64 * 256 * 2 + 256
     assert flash_attention.smem_bytes(256) <= thw.H100.fast.capacity_bytes
     for m in (4, *TM.PREFILL_BUCKETS):
-        _, bf = fused_mlp.plan_blocks(m, 4096, 12288, 4096, thw.H100)
-        assert bf in fused_mlp.feasible_block_f(12288, thw.H100)
+        s = fused_mlp.schedule(m, 4096, 12288, 4096, True)
+        assert s.block_f in fused_mlp.block_f_choices(12288, s.block_m, True)
+        assert s.smem_bytes <= thw.H100.fast.capacity_bytes
         if m == 4096:             # the fp32 partial buffer, 4·M·N·F/BF B
-            assert (bf, fused_mlp.partial_bytes(m, 4096, 12288, bf) // 2) \
-                == (512, 1_610_612_736)
+            assert (s.block_f, s.partial_bytes) == (512, 1_610_612_736)

@@ -136,9 +136,10 @@ def test_h100_serving_executors_resolve_to_kernels():
 def test_hopper_kernel_blocks_fit_shared_memory(m):
     cap = thw.H100.fast.capacity_bytes
     assert cap == 232_448
-    bm, bf = fused_mlp.plan_blocks(m, 3072, 8192, 3072, thw.H100)
-    assert bm == fused_mlp.BLOCK_M == 64 and bf % 64 == 0 and 8192 % bf == 0
-    assert fused_mlp.smem_bytes(bf) <= cap
+    s = fused_mlp.schedule(m, 3072, 8192, 3072, True)
+    assert s.block_m == (64 if m <= 256 else 128)
+    assert s.block_f % 64 == 0 and 8192 % s.block_f == 0
+    assert s.smem_bytes <= cap
     assert gemm.SMEM_BYTES <= cap
     assert flash_attention.smem_bytes(128) <= cap
     # the registry qualifies the fixed-tile kernels on that footprint
@@ -151,27 +152,32 @@ def test_hopper_kernel_blocks_fit_shared_memory(m):
 
 
 def test_fused_mlp_block_f_widens_with_m():
-    """Few tokens spread the weight stream over many narrow F slices;
-    many tokens take wider slices, still two to an SM."""
-    _, bf_small = fused_mlp.plan_blocks(4, 3072, 8192, 3072, thw.H100)
-    _, bf_big = fused_mlp.plan_blocks(1024, 3072, 8192, 3072, thw.H100)
-    assert bf_small == 64 and bf_big == 512
-    assert fused_mlp.blocks_per_sm(bf_big) >= fused_mlp.LATENCY_BLOCKS
-    assert fused_mlp.blocks_per_sm(1024) < fused_mlp.LATENCY_BLOCKS
+    """Few tokens spread the weight stream over narrow F slices on half
+    the SMs; many tokens take wider slices under 128-row tiles."""
+    small = fused_mlp.schedule(4, 3072, 8192, 3072, True)
+    big = fused_mlp.schedule(1024, 3072, 8192, 3072, True)
+    assert (small.block_m, small.block_f, small.grid) == (64, 128, 64)
+    assert big.block_m == 128 and big.block_f > small.block_f
     # at decode the partials are a small share of the weight stream
     w_bytes = 2 * 3 * 3072 * 8192
-    assert fused_mlp.partial_bytes(4, 3072, 8192, bf_small) <= w_bytes / 8
+    assert 2 * small.partial_bytes <= w_bytes / 8
 
 
-def test_fused_mlp_plan_prices_the_partials():
-    """Of the slices that fill the card two blocks to an SM, the plan
-    takes the one that moves the fewest partial bytes."""
-    _, bf = fused_mlp.plan_blocks(4096, 3072, 8192, 3072, thw.H100)
-    assert bf == max(b for b in fused_mlp.feasible_block_f(8192, thw.H100)
-                     if fused_mlp.blocks_per_sm(b)
-                     >= fused_mlp.LATENCY_BLOCKS)
-    assert fused_mlp.partial_bytes(4096, 3072, 8192, bf) \
-        < fused_mlp.partial_bytes(4096, 3072, 8192, bf // 2)
+def test_fused_mlp_plan_prices_the_partials(monkeypatch):
+    """The schedule's estimate charges each slice the fp32 partials its
+    blocks store and sum (4·M·N bytes a slice): priced dear enough, they
+    drive the pick to the widest slice that fits, which moves the
+    fewest."""
+    fused_mlp.schedule.cache_clear()
+    monkeypatch.setattr(fused_mlp, "PARTIAL_COST", 1e6)
+    s = fused_mlp.schedule(4096, 3072, 8192, 3072, True)
+    fused_mlp.schedule.cache_clear()
+    widest = fused_mlp.block_f_choices(8192, 128, True)[-1]
+    assert s.block_f == widest
+    assert s.partial_bytes == 4 * (8192 // widest) * 4096 * 3072
+    assert all(fused_mlp.schedule(4096, 3072, 8192, 3072, True,
+                                  block_f=bf).partial_bytes > s.partial_bytes
+               for bf in fused_mlp.block_f_choices(8192, 128, True)[:-1])
 
 
 def test_fused_mlp_infeasible_on_a_tiny_fast_level():
@@ -180,7 +186,12 @@ def test_fused_mlp_infeasible_on_a_tiny_fast_level():
         thw.H100, name="tiny",
         levels=(dataclasses.replace(fast, capacity_bytes=16 * 1024), *rest))
     with pytest.raises(tsolver.InfeasibleError):
-        fused_mlp.plan_blocks(64, 3072, 8192, 3072, tiny)
+        fused_mlp.schedule(64, 3072, 8192, 3072, True,
+                           smem_limit=tiny.fast.capacity_bytes)
+    c = tregistry.ExecContext(kind="mlp", platform="cuda", schedule="fused",
+                              m=64, d_model=3072, d_ff=8192, gated=True,
+                              target=tiny)
+    assert tregistry.find("mlp", c).name != "cuda_fused_mlp"
 
 
 def test_detect_target_maps_h100_and_cpu(monkeypatch):
