@@ -38,7 +38,12 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    its final fp32 state, at xlstm-1.3b's prefill (B = 1, H = 4, T = 2048,
    Dh = 1024, with and without state), four slots at T = 512, a ragged
    (2, 2, 1000, 128), and a right-padded scan whose state is taken below T
-   against the unpadded scan's.
+   against the unpadded scan's (bit for bit); each case prints its
+   schedule (chunk length, ring stages, grids) and its time at the other
+   chunk length, two launches are checked bit-identical, and each row
+   keeps three bounds apart: the function's (which the kernel is held
+   to), the work this design does (split-bf16 products, the Q K^T
+   scratch) and the step-by-step fp32 recurrence's.
 3. Serve llama3.2-3b at full width (28 layers, bf16, random weights from a
    seed) with ``ftl_mode='fused'`` on the ``h100`` planning target: 8
    requests, 4 slots, paged KV.  The launch counters are set to 0 just
@@ -269,8 +274,11 @@ def kernel_cases(dev, timer):
         for c in cases:
             lib = ("" if c["library_ms"] is None
                    else f", one PyTorch call {c['library_ms']} ms")
+            work = ("" if "work_bound_ms" not in c
+                    else f", the design's work {c['work_bound_ms']} ms "
+                         f"({c['work_bound_by']})")
             print(f"  {name} {c['shape']}: kernel {c['ms']} ms, bound "
-                  f"{c['bound_ms']} ms ({c['bound_by']}), plain "
+                  f"{c['bound_ms']} ms ({c['bound_by']}){work}, plain "
                   f"{c['plain_ms']} ms{lib}")
     return results
 
@@ -554,9 +562,19 @@ def mlstm_cases(dev, timer, randn):
     ragged case at the reduced config's head dim, and a scan padded on the
     right whose state is taken at a length below T (gates -inf / +inf
     past it, as ``mlstm_block(length=)`` masks them) against the unpadded
-    scan's.  The forget gate is shifted by 3, as the model shifts it.  No
-    single PyTorch call runs this recurrence, so there is no library
-    time."""
+    scan's.  The forget gate is shifted by 3, as the model shifts it.
+    Each case prints its schedule (chunk length, ring stages, grids) and
+    its time at the other chunk length (``other_chunk_ms``); two launches
+    of the first case are checked bit-identical.  Three bounds are kept
+    apart: ``bound_ms``, the function's own work, which the kernel is held
+    to: the chunkwise form's 4 Dh^2 + 4 L Dh operations a step and head at
+    the bf16 rate, or the bytes every input read once and every output
+    written once must move; ``work_bound_ms``, the work this design adds
+    on top: the split-bf16 products' 8 Dh^2 + 6 L Dh operations and the
+    Q K^T scratch written and read; and ``fp32_bound_ms``, the step-by-step
+    recurrence's 5 (Dh^2 + Dh) fp32 operations a step and head at the
+    fp32 rate, the bound of a step-by-step kernel.  No single PyTorch
+    call runs this recurrence, so there is no library time."""
     from repro_torch.kernels import mlstm, ref
 
     out = []
@@ -566,14 +584,27 @@ def mlstm_cases(dev, timer, randn):
         return (torch.randn((b, h, t), generator=gen, device=dev),
                 torch.randn((b, h, t), generator=gen, device=dev) + 3.0)
 
-    def bound(b, h, t, dh, state):
+    def bounds(b, h, t, dh, state, sched):
         # q, k, v read and h written in bf16, the gates read in fp32, the
-        # state written in fp32; per step and head 5 Dh^2 fp32 operations
-        # for C (update 3, C q~ 2) and 5 Dh for n
+        # state written in fp32
         nbytes = 8 * b * h * t * dh + 8 * b * h * t
         if state:
             nbytes += 4 * b * h * (dh * dh + dh + 1)
-        return bound_ms(nbytes, 5 * b * h * t * (dh * dh + dh), FP32_FLOPS)
+        steps, L = b * h * t, sched.chunk
+        fn = bound_ms(nbytes, steps * (4 * dh * dh + 4 * L * dh))
+        # the design's own: the split products, the scratch written and read
+        work = bound_ms(nbytes + 2 * sched.scratch_bytes,
+                        steps * (8 * dh * dh + 6 * L * dh))
+        fp32 = bound_ms(nbytes, 5 * steps * (dh * dh + dh), FP32_FLOPS)
+        return fn, work, fp32
+
+    def other_chunk_ms(args, state, sched, label):
+        other = mlstm.schedule(*args[0].shape, chunk=128 if
+                               sched.chunk == 64 else 64)
+        t = timer.ms(lambda: mlstm.run_schedule(*args, other,
+                                                return_state=state))
+        print(f"    at the other chunk length, {other.label}: {t} ms")
+        return t
 
     def state_err(got, want, label):
         return max(compare(got[n], want[n], f"{label} {n} (fp32)",
@@ -586,25 +617,42 @@ def mlstm_cases(dev, timer, randn):
                                (2, 2, 1000, 128, True)):
         q, k, v = randn(b, h, t, dh), randn(b, h, t, dh), randn(b, h, t, dh)
         ig, fg = gates(b, h, t)
+        args = (q, k, v, ig, fg)
         label = (f"mlstm_scan B={b} H={h} T={t} Dh={dh} "
                  f"{'with' if state else 'no'} state")
-        got = mlstm.mlstm_scan(q, k, v, ig, fg, return_state=state)
-        want = ref.mlstm_scan(q, k, v, ig, fg, return_state=state)
+        sched = mlstm.schedule(b, h, t, dh)
+        print(f"  {label}: schedule {sched.label}, {sched.smem_bytes} B of "
+              f"shared memory, {sched.scratch_bytes} B of Q K^T scratch")
+        got = mlstm.mlstm_scan(*args, return_state=state)
+        want = ref.mlstm_scan(*args, return_state=state)
         case = dict(path=XLSTM if dh == 1024 else "ragged",
-                    shape=[b, h, t, dh], state=state)
+                    shape=[b, h, t, dh], state=state, schedule=sched.label,
+                    chunk=sched.chunk, stages=sched.stages,
+                    grid=list(sched.grid), qk_grid=sched.qk_grid)
         if state:
             case["max_abs_err"] = compare(got[0], want[0], label + " h")
             case["state_max_abs_err"] = state_err(got[1], want[1], label)
         else:
             case["max_abs_err"] = compare(got, want, label + " h")
-        bd, why = bound(b, h, t, dh, state)
+        if not out:
+            again = mlstm.mlstm_scan(*args, return_state=state)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], again[0]) and all(
+                torch.equal(got[1][n], again[1][n]) for n in got[1]),
+                f"{label}: two launches differ")
+            print(f"  {label}: two launches bit-identical")
+        (bd, why), (wb, wwhy), (fb, fwhy) = bounds(b, h, t, dh, state,
+                                                   sched)
         out.append(dict(
             case, ms=timer.ms(lambda: mlstm.mlstm_scan(
-                q, k, v, ig, fg, return_state=state)),
+                *args, return_state=state)),
+            other_chunk_ms=other_chunk_ms(args, state, sched, label),
             # a Python loop over T: about 15 launches a step
             plain_ms=timer.ms(lambda: ref.mlstm_scan(
-                q, k, v, ig, fg, return_state=state), n=3),
-            library_ms=None, bound_ms=bd, bound_by=why))
+                *args, return_state=state), n=3),
+            library_ms=None, bound_ms=bd, bound_by=why,
+            work_bound_ms=wb, work_bound_by=wwhy,
+            fp32_bound_ms=fb, fp32_bound_by=fwhy))
 
     # padded: T = 600, the state taken at 437
     b, h, t, n, dh = 1, 4, 600, 437, 1024
@@ -614,6 +662,8 @@ def mlstm_cases(dev, timer, randn):
     igp = ig.masked_fill(pad, float("-inf"))
     fgp = fg.masked_fill(pad, float("inf"))
     label = f"mlstm_scan B={b} H={h} T={t} Dh={dh} padded past {n}"
+    sched = mlstm.schedule(b, h, t, dh)
+    print(f"  {label}: schedule {sched.label}")
     got_h, got = mlstm.mlstm_scan(q, k, v, igp, fgp, return_state=True)
     cut = [x[:, :, :n].contiguous() for x in (q, k, v, ig, fg)]
     kern_h, kern = mlstm.mlstm_scan(*cut, return_state=True)
@@ -628,15 +678,19 @@ def mlstm_cases(dev, timer, randn):
           f"bit for bit")
     err = compare(got_h[:, :, :n], want_h, label + " h")
     serr = state_err(got, want, label + " against the plain unpadded scan")
-    bd, why = bound(b, h, t, dh, True)
+    (bd, why), (wb, wwhy), (fb, fwhy) = bounds(b, h, t, dh, True, sched)
+    padded = (q, k, v, igp, fgp)
     out.append(dict(
         path=XLSTM, shape=[b, h, t, dh], state=True, padded_from=n,
+        schedule=sched.label, chunk=sched.chunk, stages=sched.stages,
+        grid=list(sched.grid), qk_grid=sched.qk_grid,
         max_abs_err=err, state_max_abs_err=serr,
-        ms=timer.ms(lambda: mlstm.mlstm_scan(q, k, v, igp, fgp,
-                                             return_state=True)),
-        plain_ms=timer.ms(lambda: ref.mlstm_scan(q, k, v, igp, fgp,
+        ms=timer.ms(lambda: mlstm.mlstm_scan(*padded, return_state=True)),
+        other_chunk_ms=other_chunk_ms(padded, True, sched, label),
+        plain_ms=timer.ms(lambda: ref.mlstm_scan(*padded,
                                                  return_state=True), n=3),
-        library_ms=None, bound_ms=bd, bound_by=why))
+        library_ms=None, bound_ms=bd, bound_by=why, work_bound_ms=wb,
+        work_bound_by=wwhy, fp32_bound_ms=fb, fp32_bound_by=fwhy))
     return out
 
 
@@ -649,7 +703,8 @@ KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "fused_mlp": r"(^|::)fused_mlp_kernel\b",
              "rg_lru_scan": r"(^|::)rg_lru_kernel\b",
              "gemm_act": r"(^|::)gemm_act_kernel\b",
-             "mlstm_scan": r"(^|::)mlstm_kernel\b"}
+             # one call: the Q K^T kernel, then the chunkwise scan
+             "mlstm_scan": r"(^|::)mlstm_(qk|scan)_kernel\b"}
 # the prefill plan's executors on each path: the gated MLPs are served
 # with ftl_mode="fused", granite's ungated one with "auto", where the
 # planner's partial schedule binds the partial-MLP kernels
@@ -1113,6 +1168,14 @@ def main() -> int:
             check(got == flash_attention.smem_bytes_for(dh, bq),
                   f"flash_attention footprint at D={dh}, BQ={bq}: Python "
                   f"{flash_attention.smem_bytes_for(dh, bq)}, CUDA {got}")
+    # and the mLSTM scan's, at both chunk lengths
+    for chunk in mlstm.CHUNKS:
+        st = mlstm.stages_for(chunk)
+        got = (_build.lib().rt_mlstm_smem_bytes(chunk, st),
+               _build.lib().rt_mlstm_qk_smem_bytes(chunk))
+        want = (mlstm.smem_bytes_for(chunk, st), mlstm.qk_smem_bytes(chunk))
+        check(got == want, f"mlstm_scan footprints at L={chunk}: Python "
+              f"{want}, CUDA {got}")
     for line in (lib.parent / "build.log").read_text().splitlines():
         if line.startswith("==") or "Compiling entry" in line \
                 or "Used" in line or "spill" in line:
@@ -1194,7 +1257,8 @@ def main() -> int:
                               if name in n},
          **{k: head[name][k] for k in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape", "tile_loop") if k in head[name]},
+             "work_bound_ms", "library_ms", "shape", "tile_loop")
+            if k in head[name]},
          "cases": results[name]}
         for name, (src, rep) in meta.items()]}
     print(json.dumps(line))

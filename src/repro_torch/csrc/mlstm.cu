@@ -1,49 +1,86 @@
-// Stabilised mLSTM matrix-memory recurrence (xLSTM), per (batch, head).
+// Stabilised mLSTM matrix-memory recurrence (xLSTM), chunkwise on the
+// tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/mlstm.py:mlstm_scan and computes
-// what it computes, from C = 0, n = 0, m = 0:
+// what it computes, per (batch, head), from C = 0, n = 0, m = 0:
 //
 //   m_t = max(log sigma(f_t) + m_{t-1}, i_t)
-//   i'_t = exp(i_t - m_t),  f'_t = exp(log sigma(f_t) + m_{t-1} - m_t)
 //   C_t = f'_t C_{t-1} + i'_t v_t k_t^T,   n_t = f'_t n_{t-1} + i'_t k_t
 //   h_t = C_t q~_t / max(|n_t . q~_t|, exp(-m_t)),   q~_t = q_t Dh^-0.5
 //
-// with C, n, m and every product in fp32, h_t rounded once to bf16, and
-// (optionally) the final C (Dh x Dh), n (Dh) and m written out in fp32:
-// the state serving's prefill hands to the decode steps, which the TPU
-// kernel does not return.
+// with C, n, m in fp32, h_t rounded once to bf16 and (optionally) the
+// final C, n and m written out in fp32 (what serving's prefill hands its
+// decode steps).
 //
-// Bound on an H100: 5 (Dh^2 + Dh) fp32 operations a step and head (three
-// for each element of C's update, two for C q~, the same for n), against
-// 8 Dh bytes of q, k, v and h; at Dh = 1024 that is 640 operations a byte,
-// so fp32 arithmetic bounds it: 0.64 ms at B = 1, H = 4, T = 2048 at
-// 67 TFLOP/s.
+// The chunkwise form.  Inside a chunk of L steps (chunks anchored at
+// t = 0), with b_t the in-chunk cumulative sum of log sigma(f) and m_t the
+// reference's own recurrence, the stabilised recurrence unrolls exactly to
+//   C_t = g_t C_prev + sum_{s<=t} D[t,s] v_s k_s^T,
+//   g_t = exp(b_t + m_prev - m_t),  D[t,s] = exp(b_t - b_s + i_s - m_t),
+// every weight <= 1.  So h's numerator is g_t (Q C_prev^T)[t] + ((S o D)
+// V)[t] with S = Q~ K^T, its denominator the same with n for C (n rides
+// along as one more row of C, V as one more column of ones), and the
+// state at the chunk's end is C^T <- g C^T + K^T (w o V), w_s = D[L-1, s].
+// Operations a step and head: 4 Dh^2 + 4 L Dh, all on the tensor cores.
 //
-// Design.  The TPU kernel keeps one head's C (4 MiB at Dh = 1024) in VMEM
-// for the whole sequence; a Hopper block has 227 KB of shared memory.  But
-// row i of C depends only on v_t[i], k_t, q_t and the scalar gates, so the
-// rows split across blocks that never talk to each other: block x owns
-// rows [32x, 32x + 32) of one head's C, each of its eight warps four of
-// them, and each lane those rows' Dh / 32 columns in registers (lane l
-// holds columns 128c + 4l .. 128c + 4l + 3), beside the same columns of n.
-// Every warp carries all of n and m itself (Dh and one value, against
-// 4 Dh of C), so no warp waits on another within a step: C q~ and n . q~
-// are reduced with warp shuffles and the warp's lanes 0..3 store its four
-// h values.  The gates are computed identically by every warp.  Time is
-// staged through shared memory in chunks of TC steps: a cp.async ring of
-// STAGES chunks of bf16 q and k rows, the block's 32 rows of v and the two
-// gates, converted once per chunk into fp32 (q scaled by Dh^-0.5, log
-// sigma(f) computed) so the step loop reads 16-byte fp32 vectors.  Grid:
-// (Dh / 32, B * H); at B = 1, H = 4, Dh = 1024 that is 128 blocks of 256
-// threads, one per SM.  Any T (a ragged last chunk is cut), any Dh that is
-// a multiple of 32 up to 1024: the register tile is 32 NC columns wide,
-// NC a power of two, and columns past Dh hold zeros in q~ and k, so they
-// stay zero in C and n and add nothing to the sums.  Steps whose gates are
-// i = -inf, f = +inf (a bucket's padding) carry C, n and m exactly:
-// i' = 0, f' = 1.  Every lane keeps 4 NC + NC state registers; at NC = 32
-// that is 160 of the 255 ptxas gives it, so one 256-thread block fills an
-// SM's register file.
-#include "common.cuh"
+// Precision.  q, k and v are bf16 already and enter the products as they
+// are.  Every fp32 operand -- the state C_prev (and n) in Q C_prev^T,
+// S o D in (S o D) V, w o V and w in the state update -- enters as a bf16
+// pair, hi = bf16(x), lo = bf16(x - hi), two products into one fp32
+// accumulator: rounded once to bf16 the state misses its 1e-3 tolerance
+// several times over (kernels/mlstm.py:chunkwise_model, split=False).
+// The function bounds it at 4 Dh^2 + 4 L Dh operations a step and head:
+// at B = 1, H = 4, T = 2048, Dh = 1024 37 GFLOP, 0.037 ms at 989 TFLOP/s
+// (its bytes, 84 MB, take 0.025 ms).  This design does more: the pairs
+// make 8 Dh^2 + 6 L Dh operations (0.073 ms), and the Q K^T scratch adds
+// 4 MB of traffic.  What holds it on the card is shared memory's bandwidth
+// and the products' latency, not the tensor cores: the products are 32
+// to 40 columns wide, so each re-reads its A operand for little work
+// (PERF.md).
+//
+// Design.  A call is two kernels.
+// * mlstm_qk_kernel: S = Q K^T of every chunk (fp32, L x L, 4 L^2 bytes a
+//   chunk and head into a scratch), one block per 64 rows of a chunk:
+//   a TMA ring of Q and K tiles 64 columns wide, wgmma m64nLk16.
+// * mlstm_scan_kernel: one block per 32 columns of one head's C (grid
+//   Dh / 32 x B * H: 128 blocks at B * H = 4, Dh = 1024), the chunks in
+//   order.  The block keeps its slice C^T[dk, dv0..dv0+32) as fp32 wgmma
+//   accumulators (M runs over dk) in four "owner" warpgroups, each holding
+//   the 64-row tiles j = owner + 4 i of C^T's Dh rows (padded to a
+//   multiple of 256; the rows past Dh stay zero), and n's matching rows
+//   as the column of an m64n8 accumulator.  Per chunk and 64-row tile j,
+//   through a TMA ring of (Q_j, K_j) tiles 64 columns wide:
+//   - the owner writes C^T's tile j (C_prev) as a bf16 pair into the
+//     ring slot (stmatrix.trans into wgmma's K-major B layout, n as row
+//     32), then runs the update C^T_j <- g C^T_j + K_j^T (w o V)_hi +
+//     K_j^T (w o V)_lo and n_j <- g n_j + K_j^T w_hi + K_j^T w_lo (wgmma
+//     m64n32k16 and m64n8k16, K_j^T read M-major through the descriptor's
+//     transpose bit);
+//   - the output warpgroup accumulates Q_j C_prev^T (hi and lo,
+//     m64n40k16: 32 columns and n) over the tiles, then, with the chunk's
+//     S from the scratch, forms S o D as a bf16 pair in registers and adds
+//     (S o D) [V | 1] (wgmma with A from registers), and writes h.
+//   - the aux warpgroup: one thread issues the TMA loads; three warps
+//     stage the gates and V with cp.async a chunk ahead and run the gate
+//     scan (m step by step, as the reference computes it, in every lane
+//     of one warp on values passed by shuffles; b; the weights; w o V and
+//     w split into their pairs; V with its ones row) into a chunk buffer:
+//     two at L = 64, one at L = 128, so that the ring keeps four stages.
+//     The ring must be at least as deep as the four owners: an owner
+//     waits on its slot's full barrier by phase parity, and before tile nt
+//     it knows only that its own tile nt - 4 has landed.  With fewer than
+//     four stages the slot's previous tile, nt - stages > nt - 4, may not
+//     have landed yet; the barrier is then one phase behind, its parity
+//     matches the wait's, and the wait passes on a slot TMA is still
+//     filling (this faulted on the card at two and three stages).
+//   Registers bound the slice: 64 accumulators a thread at Dh = 1024;
+//   setmaxnreg gives the owners 96, the output group 64 (72 at L = 128)
+//   and the aux 32 (24).
+// * Steps past T in the last chunk, like a bucket's padding (i = -inf,
+//   f = +inf), have zero weights and change no state: a padded scan's
+//   state and h equal the unpadded scan's bit for bit.  No atomics: two
+//   launches are bit-identical.
+#include "hopper.cuh"
 
 #include <math.h>
 
@@ -51,269 +88,775 @@ namespace {
 
 using rt::bf16;
 
-constexpr int R = 4;             // rows of C per warp
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int ROWS = R * WARPS;  // rows of C per block
-constexpr int TC = 8;            // time steps per staged chunk
-constexpr int STAGES = 3;        // chunks in the cp.async ring
+constexpr int OWNERS = 4;
+constexpr int THREADS = 128 * (OWNERS + 2);  // owners, output, aux
+constexpr int DV = 32;                       // columns of C a block owns
+constexpr int MAX_STAGES = 8;
+constexpr int QK_STAGES = 4;
+constexpr int PAIR_ROWS = 40;  // a pair tile: 32 columns of C, n, 7 zeros
+constexpr int PAIR_BYTES = PAIR_ROWS * 128;
+// registers a thread after setmaxnreg: the block's allocation at launch is
+// 80 a thread (768 threads), 61,440 in all, moved to where the state is
+constexpr int OWNER_REGS = 96;
+constexpr int PREP_THREADS = 96;  // the aux group's three gate-scan warps
 
-// bytes of dynamic shared memory for head dim ``dh`` and a register tile
-// ``dp`` columns wide
-size_t smem_bytes(int dh, int dp) {
-  const size_t staging = (size_t)STAGES * TC * (2 * dh + ROWS) * 2;
-  const size_t gates = (size_t)STAGES * 2 * TC * 4;
-  const size_t converted = (size_t)TC * (2 * dp + ROWS + 2) * 4;
-  return staging + gates + converted;
-}
+template <int L>
+struct Cfg {
+  static constexpr int BOXES = L / 64;          // 64-step boxes a chunk
+  static constexpr int TILE = L * 128;          // a Q or K tile (L x 64)
+  static constexpr int SLOT = 2 * TILE + 2 * PAIR_BYTES;
+  static constexpr int WV = BOXES * DV * 128;   // w o V's hi or lo
+  static constexpr int VX = BOXES * PAIR_BYTES; // V with its ones row
+  static constexpr int WP = BOXES * 1024;       // w's pair, 8 rows
+  static constexpr int CHUNK = 2 * WV + VX + WP;  // a chunk's operands
+  static constexpr int ARR = (5 * L + 2 + 2) * 4;  // ... its weights (16 B)
+  static constexpr int STG = 2 * L * 4 + L * DV * 2;  // staged i, f, V
+  // chunk buffers (and stages): two at L = 64, so that the gate scan runs a
+  // chunk ahead; one at L = 128, so that the ring keeps OWNERS stages (the
+  // owners' parity waits need them: see the source note)
+  static constexpr int NB = L == 64 ? 2 : 1;
+  // the output group holds 64 x L of h; what it gives up goes to the aux
+  static constexpr int OUT_REGS = L == 64 ? 64 : 72;
+  static constexpr int AUX_REGS = L == 64 ? 32 : 24;
+  static constexpr int smem_bytes(int stages) {
+    return 1024 + stages * SLOT + NB * (CHUNK + ARR + STG) + 256;
+  }
+  static constexpr int qk_smem_bytes() {
+    return 1024 + QK_STAGES * (64 * 128 + TILE) + 256;
+  }
+};
 
-// 4-byte asynchronous copy global -> shared, zero-filled when !pred
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  const int n = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   rt::smem_addr(dst)),
-               "l"(src), "r"(n));
-}
+struct Params {
+  CUtensorMap q, k;  // (Dh, T, B * H) bf16, boxes of L rows x 64, swizzled
+  const bf16* v;
+  const float* ig;
+  const float* fg;
+  const float* S;  // Q K^T of every chunk, (B * H, chunks, L, L) fp32
+  bf16* h;
+  float* c_out;  // final C (B * H, Dh, Dh), n (B * H, Dh), m (B * H), or
+  float* n_out;  // null
+  float* m_out;
+  int T, Dh, nchunks, stages;
+  float scale;
+};
+
+struct QkParams {
+  CUtensorMap q, k;  // boxes of 64 and of L rows x 64
+  float* S;
+  int T, Dh, nchunks;
+};
 
 // log sigma(x) = -softplus(-x), stable for either sign; 0 at x = +inf
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-__device__ __forceinline__ float bf_lo(uint32_t u) {
-  return __uint_as_float(u << 16);
+// (hi, lo) of two values, each pair packed as bf16x2: hi = bf16(x),
+// lo = bf16(x - hi)
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = rt::pack_bf16(x0 - hf.x, x1 - hf.y);
 }
-__device__ __forceinline__ float bf_hi(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
+
+// 4-byte asynchronous copy global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   rt::smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
-template <int NC>
-__global__ void __launch_bounds__(THREADS, 1)
-mlstm_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const float* __restrict__ ig,
-             const float* __restrict__ fg, bf16* __restrict__ h,
-             float* __restrict__ c_out, float* __restrict__ n_out,
-             float* __restrict__ m_out, int T, int Dh, float scale) {
-  constexpr int DP = 32 * NC;  // columns of the register tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);            // [STAGES][TC][Dh]
-  bf16* sk = sq + (size_t)STAGES * TC * Dh;            // [STAGES][TC][Dh]
-  bf16* sv = sk + (size_t)STAGES * TC * Dh;            // [STAGES][TC][ROWS]
-  float* sg = reinterpret_cast<float*>(sv + STAGES * TC * ROWS);
-  //                                                      [STAGES][2][TC]
-  float* fq = sg + STAGES * 2 * TC;                    // [TC][DP] q~
-  float* fk = fq + TC * DP;                            // [TC][DP] k
-  float* fv = fk + TC * DP;                            // [TC][ROWS] v
-  float* fi = fv + TC * ROWS;                          // [TC] i
-  float* flf = fi + TC;                                // [TC] log sigma(f)
+// Four 8x8 b16 matrices from mma fragments, stored transposed: the row
+// address given by lane 8 i + r receives column r of matrix i.
+__device__ __forceinline__ void stmatrix_x4_trans(void* p, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(rt::smem_addr(p)),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * ROWS;
-  const size_t base = (size_t)bh * T;  // row of (bh, t = 0)
-  const int nchunks = (T + TC - 1) / TC;
-  const int cpr = Dh / 8;              // 16-byte chunks in a q or k row
+#define ACC8(d, i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-  auto load = [&](int chunk, int st) {
-    const int t0 = chunk * TC;
-    for (int i = tid; i < TC * cpr; i += THREADS) {
-      const int r = i / cpr, cc = (i % cpr) * 8;
-      const bool ok = t0 + r < T;
-      const size_t off = (base + (ok ? t0 + r : 0)) * Dh + cc;
-      const size_t dst = ((size_t)st * TC + r) * Dh + cc;
-      rt::cp_async16(sq + dst, q + off, ok);
-      rt::cp_async16(sk + dst, k + off, ok);
-    }
-    constexpr int VCH = ROWS / 8;      // 16-byte chunks of the block's v
-    if (tid < TC * VCH) {
-      const int r = tid / VCH, cc = (tid % VCH) * 8;
-      const bool ok = t0 + r < T;
-      rt::cp_async16(sv + (st * TC + r) * ROWS + cc,
-                     v + (base + (ok ? t0 + r : 0)) * Dh + row0 + cc, ok);
-    } else if (tid < TC * VCH + 2 * TC) {
-      const int j = tid - TC * VCH, g = j / TC, r = j % TC;
-      const bool ok = t0 + r < T;
-      cp_async4(sg + (st * 2 + g) * TC + r,
-                (g ? fg : ig) + base + (ok ? t0 + r : 0), ok);
-    }
+// d (64 x 32) += A (64 x 16) @ B (16 x 32), A and B from shared memory; TA
+// the transpose bit of A (1: M-major), B K-major.
+template <int TA>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8)
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+}
+
+// d (64 x 8) += A (64 x 16) @ B (16 x 8), A and B from shared memory; TA
+// the transpose bit of A, B K-major.
+template <int TA>
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+}
+
+// d (64 x 40) (+)= A (64 x 16) @ B (16 x 40), A K-major and B K-major from
+// shared memory; d is overwritten where scale_d is 0.
+__device__ __forceinline__ void wgmma_n40_ss(float (&d)[20], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 40) += A (64 x 16, registers, mma.sync's A-fragment layout) @
+// B (16 x 40, K-major, shared memory).
+__device__ __forceinline__ void wgmma_n40_rs(float (&d)[20],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+
+// the Q K^T kernel: S[t, s] = sum_d q[t, d] k[s, d] of rows [64 half,
+// 64 half + 64) of one chunk, in fp32 (unscaled)
+template <int L>
+__global__ void __launch_bounds__(128, 1)
+    mlstm_qk_kernel(const __grid_constant__ QkParams p) {
+  using C = Cfg<L>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (rt::smem_addr(smem_raw) & 1023)) & 1023);
+  constexpr int STAGE = 64 * 128 + C::TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + QK_STAGES * STAGE);
+
+  const int half = blockIdx.x % C::BOXES;
+  const int rest = blockIdx.x / C::BOXES;
+  const int c = rest % p.nchunks, bh = rest / p.nchunks;
+  const int tiles = (p.Dh + 63) / 64;
+  const int tid = threadIdx.x;
+
+  auto load = [&](int j) {
+    uint8_t* st = smem + (j % QK_STAGES) * STAGE;
+    uint64_t* bar = &full[j % QK_STAGES];
+    rt::mbar_expect_tx(bar, STAGE);
+    rt::tma_load_3d(st, &p.q, 64 * j, c * L + 64 * half, bh, bar);
+    rt::tma_load_3d(st + 64 * 128, &p.k, 64 * j, c * L, bh, bar);
   };
+  if (tid == 0) {
+    for (int s = 0; s < QK_STAGES; ++s) rt::mbar_init(&full[s], 1);
+    rt::mbar_init_fence();
+    for (int j = 0; j < QK_STAGES && j < tiles; ++j) load(j);
+  }
+  __syncthreads();
 
-  // columns past Dh stay zero in q~ and k for the whole run
-  for (int i = tid; i < TC * (DP - Dh); i += THREADS) {
-    const int r = i / (DP - Dh), c = Dh + i % (DP - Dh);
-    fq[r * DP + c] = 0.f;
-    fk[r * DP + c] = 0.f;
+  float acc[L / 2];
+  for (int j = 0; j < tiles; ++j) {
+    rt::mbar_wait(&full[j % QK_STAGES], (j / QK_STAGES) & 1);
+    const uint8_t* st = smem + (j % QK_STAGES) * STAGE;
+    rt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      rt::Wgmma<L, 0>::ss(acc, rt::desc(st + kk * 32, 16, 1024),
+                          rt::desc(st + 64 * 128 + kk * 32, 16, 1024),
+                          (j | kk) != 0);
+    rt::wgmma_commit();
+    rt::wgmma_wait<0>();
+    rt::fence_regs(acc);
+    __syncthreads();  // every warp is done with the slot
+    if (tid == 0 && j + QK_STAGES < tiles) load(j + QK_STAGES);
   }
 
-  float C[R][NC], n[NC];
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
+  float* out = p.S + ((size_t)bh * p.nchunks + c) * L * L;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    n[c] = 0.f;
+  for (int jn = 0; jn < L / 8; ++jn)
 #pragma unroll
-    for (int r = 0; r < R; ++r) C[r][c] = 0.f;
-  }
-  float m = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) load(s, s);
-    rt::cp_async_commit();
-  }
-  for (int kc = 0; kc < nchunks; ++kc) {
-    rt::cp_async_wait<STAGES - 2>();  // chunk kc has landed
-    __syncthreads();                  // ... for all; every warp done with f*
-    const int next = kc + STAGES - 1;
-    if (next < nchunks) load(next, next % STAGES);
-    rt::cp_async_commit();
-    const int st = kc % STAGES;
-
-    // convert the chunk to fp32 once, for every warp's step loop
-    for (int i = tid; i < TC * cpr; i += THREADS) {
-      const int r = i / cpr, cc = (i % cpr) * 8;
-      const size_t src = ((size_t)st * TC + r) * Dh + cc;
-      const uint4 qa = *reinterpret_cast<const uint4*>(sq + src);
-      const uint4 ka = *reinterpret_cast<const uint4*>(sk + src);
-      float4* dq = reinterpret_cast<float4*>(fq + r * DP + cc);
-      float4* dk = reinterpret_cast<float4*>(fk + r * DP + cc);
-      dq[0] = make_float4(bf_lo(qa.x) * scale, bf_hi(qa.x) * scale,
-                          bf_lo(qa.y) * scale, bf_hi(qa.y) * scale);
-      dq[1] = make_float4(bf_lo(qa.z) * scale, bf_hi(qa.z) * scale,
-                          bf_lo(qa.w) * scale, bf_hi(qa.w) * scale);
-      dk[0] = make_float4(bf_lo(ka.x), bf_hi(ka.x), bf_lo(ka.y),
-                          bf_hi(ka.y));
-      dk[1] = make_float4(bf_lo(ka.z), bf_hi(ka.z), bf_lo(ka.w),
-                          bf_hi(ka.w));
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * half + 16 * warp + g + 8 * h;
+      *reinterpret_cast<float2*>(out + (size_t)r * L + 8 * jn + 2 * tq) =
+          make_float2(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]);
     }
-    for (int i = tid; i < TC * ROWS; i += THREADS)
-      fv[i] = __bfloat162float(sv[st * TC * ROWS + i]);
-    if (tid < TC) {
-      fi[tid] = sg[(st * 2) * TC + tid];
-      flf[tid] = log_sigmoid(sg[(st * 2 + 1) * TC + tid]);
-    }
-    __syncthreads();
+}
 
-    const int tn = min(TC, T - kc * TC);
-    for (int s = 0; s < tn; ++s) {
-      const float it = fi[s], lf = flf[s];
-      const float m_new = fmaxf(lf + m, it);
-      const float ip = expf(it - m_new);
-      const float fp = expf(lf + m - m_new);
-      const float floor_den = expf(-m_new);
-      m = m_new;
-      float a[R], acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        a[r] = ip * fv[s * ROWS + warp * R + r];
-        acc[r] = 0.f;
-      }
-      float accn = 0.f;
-      const float* qs = fq + s * DP;
-      const float* ks = fk + s * DP;
-#pragma unroll
-      for (int c4 = 0; c4 < NC / 4; ++c4) {
-        const float4 kv = *reinterpret_cast<const float4*>(
-            ks + c4 * 128 + 4 * lane);
-        const float4 qv = *reinterpret_cast<const float4*>(
-            qs + c4 * 128 + 4 * lane);
-        const float kk[4] = {kv.x, kv.y, kv.z, kv.w};
-        const float qq[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 4 * c4 + e;
-          n[c] = fmaf(fp, n[c], ip * kk[e]);
-          accn = fmaf(n[c], qq[e], accn);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            C[r][c] = fmaf(fp, C[r][c], a[r] * kk[e]);
-            acc[r] = fmaf(C[r][c], qq[e], acc[r]);
-          }
+template <int L, int MTO>
+__global__ void __launch_bounds__(THREADS, 1)
+    mlstm_scan_kernel(const __grid_constant__ Params p) {
+  using C = Cfg<L>;
+  constexpr int MTP = OWNERS * MTO;  // 64-row tiles of C^T
+  constexpr int NH = L / 64;         // 64-row halves of a chunk
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (rt::smem_addr(smem_raw) & 1023)) & 1023);
+  // 1 KB-aligned: the ring, the two chunk buffers (w o V's pair, V with its
+  // ones row, w's pair); then each chunk's weights, the staged gates and V
+  // of two chunks, and the mbarriers
+  uint8_t* ring = smem;
+  uint8_t* cbuf = ring + p.stages * C::SLOT;
+  float* arrs = reinterpret_cast<float*>(cbuf + C::NB * C::CHUNK);
+  uint8_t* stg = reinterpret_cast<uint8_t*>(arrs) + C::NB * C::ARR;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stg + C::NB * C::STG);
+  uint64_t* full = bars;                   // a slot's Q and K landed
+  uint64_t* empty = bars + MAX_STAGES;     // its owner and output are done
+  uint64_t* pairf = bars + 2 * MAX_STAGES; // its C_prev pair is written
+  uint64_t* pfull = bars + 3 * MAX_STAGES; // a chunk buffer is written
+  uint64_t* pempty = pfull + 2;            // ... and used
+
+  const int bh = blockIdx.y;
+  const int dv0 = blockIdx.x * DV;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = tid / 32 % 4, lane = tid % 32, g = lane >> 2,
+            tq = lane & 3;
+
+  // constant rows: the pair tiles' rows 33..39, V's rows 33..39 and w's
+  // rows 2..7 stay zero, V's row 32 stays one
+  for (int i = tid; i < p.stages * 2 * PAIR_BYTES / 16; i += THREADS) {
+    const int s = i / (2 * PAIR_BYTES / 16), o = i % (2 * PAIR_BYTES / 16);
+    reinterpret_cast<uint4*>(ring + s * C::SLOT + 2 * C::TILE)[o] =
+        make_uint4(0, 0, 0, 0);
+  }
+  for (int i = tid; i < C::NB * C::BOXES * 64; i += THREADS) {
+    const int b = i / (C::BOXES * 64), o = i % (C::BOXES * 64);
+    const uint32_t one = o % 64 < 8 ? 0x3f803f80u : 0u;  // row 32: 1.0
+    uint8_t* buf = cbuf + b * C::CHUNK;
+    reinterpret_cast<uint4*>(buf + 2 * C::WV + o / 64 * PAIR_BYTES +
+                             32 * 128)[o % 64] =
+        make_uint4(one, one, one, one);
+    reinterpret_cast<uint4*>(buf + 2 * C::WV + C::VX + o / 64 * 1024)
+        [o % 64] = make_uint4(0, 0, 0, 0);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      rt::mbar_init(&full[s], 1);
+      rt::mbar_init(&empty[s], 128 + 1);  // the owner's threads, output
+      rt::mbar_init(&pairf[s], 128);      // the owner's threads
+    }
+    for (int b = 0; b < C::NB; ++b) {
+      rt::mbar_init(&pfull[b], PREP_THREADS);
+      rt::mbar_init(&pempty[b], (OWNERS + 1) * 128);
+    }
+    rt::mbar_init_fence();
+  }
+  rt::fence_async_smem();
+  __syncthreads();
+
+  const int nt_total = p.nchunks * MTP;
+
+  if (wg == OWNERS + 1) {
+    // ---- aux: the producer thread and the gate scan ---------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::AUX_REGS));
+    if (warp == 0) {
+      if (lane == 0) {
+        for (int n = 0; n < nt_total; ++n) {
+          const int slot = n % p.stages, use = n / p.stages;
+          const int c = n / MTP, j = n % MTP;
+          rt::mbar_wait(&empty[slot], (use & 1) ^ 1);
+          uint8_t* st = ring + slot * C::SLOT;
+          rt::mbar_expect_tx(&full[slot], 2 * C::TILE);
+          rt::tma_load_3d(st, &p.q, 64 * j, c * L, bh, &full[slot]);
+          rt::tma_load_3d(st + C::TILE, &p.k, 64 * j, c * L, bh,
+                          &full[slot]);
         }
       }
-      // butterfly sums: every lane ends with the same bits
+    } else {
+      const int pt = tid - (OWNERS + 1) * 128 - 32;  // 0 .. 95
+      float m_run = 0.f;  // the running m, in every lane of the first warp
+      const size_t gbase = (size_t)bh * p.T;
+      // i, f and this block's 32 columns of V for chunk c, staged in
+      // shared memory a chunk ahead (zero past T)
+      auto stage = [&](int c) {
+        uint8_t* sb = stg + (c % C::NB) * C::STG;
+        const int t0 = c * L;
+        for (int u = pt; u < L; u += PREP_THREADS) {
+          const bool ok = t0 + u < p.T;
+          const size_t src = gbase + (ok ? t0 + u : 0);
+          cp_async4(sb + 4 * u, p.ig + src, ok);
+          cp_async4(sb + 4 * (L + u), p.fg + src, ok);
+        }
+        for (int u = pt; u < 4 * L; u += PREP_THREADS) {
+          const int r = u / 4, part = u % 4;
+          const bool ok = t0 + r < p.T;
+          rt::cp_async16(sb + 8 * L + r * DV * 2 + part * 16,
+                         p.v + (gbase + (ok ? t0 + r : 0)) * p.Dh + dv0 +
+                             8 * part,
+                         ok);
+        }
+        rt::cp_async_commit();
+      };
+      stage(0);
+      for (int c = 0; c < p.nchunks; ++c) {
+        const int cb = c % C::NB, t0 = c * L;
+        rt::mbar_wait(&pempty[cb], ((c / C::NB) & 1) ^ 1);
+        if (C::NB == 2) {  // stage the next chunk while this one is read
+          rt::named_barrier(1, PREP_THREADS);  // its buffer is read
+          if (c + 1 < p.nchunks)
+            stage(c + 1);
+          else
+            rt::cp_async_commit();
+        }
+        rt::cp_async_wait<C::NB - 1>();  // chunk c's stage has landed
+        rt::named_barrier(1, PREP_THREADS);
+        const uint8_t* sb = stg + cb * C::STG;
+        const float* si = reinterpret_cast<const float*>(sb);
+        const bf16* sv = reinterpret_cast<const bf16*>(sb + 8 * L);
+        uint8_t* buf = cbuf + cb * C::CHUNK;
+        float* arr = arrs + cb * (C::ARR / 4);
+        float* wts = arr + 4 * L;
+        if (pt < 32) {
+          // the gate scan: lane l holds steps l, l + 32, ...; every lane
+          // runs the chain (m step by step as the reference computes it,
+          // b the in-chunk sum) on values passed by shuffles, and keeps
+          // b and m at its own steps
+          constexpr int PER = L / 32;
+          float li[PER], ll[PER], mb[PER], mv[PER];
 #pragma unroll
-      for (int o = 16; o; o >>= 1) {
-        accn += __shfl_xor_sync(0xffffffffu, accn, o);
+          for (int r = 0; r < PER; ++r) {
+            const int u = 32 * r + lane;
+            const bool ok = t0 + u < p.T;
+            li[r] = ok ? si[u] : -INFINITY;
+            ll[r] = ok ? log_sigmoid(si[L + u]) : 0.f;
+          }
+          const float m_prev = m_run;
+          float bb = 0.f, mm = m_run;
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+          for (int r = 0; r < PER; ++r)
+#pragma unroll 4
+            for (int l = 0; l < 32; ++l) {
+              const float lf = __shfl_sync(0xffffffffu, ll[r], l);
+              const float iv = __shfl_sync(0xffffffffu, li[r], l);
+              bb += lf;
+              mm = fmaxf(lf + mm, iv);
+              if (l == lane) {
+                mb[r] = bb;
+                mv[r] = mm;
+              }
+            }
+          m_run = mm;
+          const float b_end = bb, m_end = mm;
+          uint8_t* wp = buf + 2 * C::WV + C::VX;
+#pragma unroll
+          for (int r = 0; r < PER; ++r) {
+            const int u = 32 * r + lane;
+            const float b = mb[r], m = mv[r], e = li[r] - b;
+            arr[u] = b - m;                                  // a_t
+            arr[L + u] = e;                                  // e_s
+            arr[2 * L + u] = p.scale * expf(b + m_prev - m); // scaled g_t
+            arr[3 * L + u] = expf(-m);                       // floor
+            const float w = expf(e + (b_end - m_end));       // w_s
+            wts[u] = w;
+            // w's pair: rows 0 (hi) and 1 (lo) of an 8-row K-major tile,
+            // 16-byte chunk u / 8 of row r at chunk (u / 8) ^ r
+            const bf16 wh = __float2bfloat16(w);
+            const int ch = u % 64 / 8, at = u / 64 * 1024 + u % 8 * 2;
+            *reinterpret_cast<bf16*>(wp + at + (ch << 4)) = wh;
+            *reinterpret_cast<bf16*>(wp + at + 128 + ((ch ^ 1) << 4)) =
+                __float2bfloat16(w - __bfloat162float(wh));
+          }
+          if (pt == 0) arr[5 * L] = expf(b_end + m_prev - m_end);  // g
+        }
+        rt::named_barrier(1, PREP_THREADS);
+        // w o V as a bf16 pair and V itself, K-major [dv][s]: lane = dv,
+        // eight steps a 16-byte store
+        for (int sg = pt / 32; sg < L / 8; sg += PREP_THREADS / 32) {
+          uint32_t hi[4], lo[4], vx[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int s0 = 8 * sg + 2 * r;
+            const float v0 = __bfloat162float(sv[s0 * DV + lane]);
+            const float v1 = __bfloat162float(sv[(s0 + 1) * DV + lane]);
+            split2(wts[s0] * v0, wts[s0 + 1] * v1, hi[r], lo[r]);
+            vx[r] = rt::pack_bf16(v0, v1);
+          }
+          const int box = sg / 8, ch = (sg % 8) ^ (lane & 7);
+          const int off = lane * 128 + ch * 16;
+          *reinterpret_cast<uint4*>(buf + box * DV * 128 + off) =
+              make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(buf + C::WV + box * DV * 128 + off) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          *reinterpret_cast<uint4*>(buf + 2 * C::WV + box * PAIR_BYTES +
+                                    off) = make_uint4(vx[0], vx[1], vx[2],
+                                                      vx[3]);
+        }
+        rt::fence_async_smem();
+        rt::mbar_arrive(&pfull[cb]);
+        if (C::NB == 1 && c + 1 < p.nchunks) {  // the stage is read: refill
+          rt::named_barrier(1, PREP_THREADS);
+          stage(c + 1);
+        }
       }
-      const float den = fmaxf(fabsf(accn), floor_den);
-      float mine = acc[0];
-#pragma unroll
-      for (int r = 1; r < R; ++r)
-        if (lane == r) mine = acc[r];
-      if (lane < R)
-        h[(base + kc * TC + s) * Dh + row0 + warp * R + lane] =
-            __float2bfloat16(mine / den);
+      if (pt == 0 && p.c_out != nullptr && blockIdx.x == 0)
+        p.m_out[bh] = m_run;
     }
-  }
-  rt::cp_async_wait<0>();
+  } else if (wg < OWNERS) {
+    // ---- owners: C^T's tiles j = wg + 4 i, n beside them -----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(OWNER_REGS));
+    float acc[MTO][16];
+    // n at rows 64 j + 16 warp + g and + 8 (the m64n8 accumulator's column
+    // 0, in the lanes with tq == 0; zero in the others)
+    float nr[MTO][2];
+#pragma unroll
+    for (int i = 0; i < MTO; ++i) {
+      nr[i][0] = nr[i][1] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
+    }
+    for (int c = 0; c < p.nchunks; ++c) {
+      const int cb = c % C::NB;
+      rt::mbar_wait(&pfull[cb], (c / C::NB) & 1);
+      const uint8_t* buf = cbuf + cb * C::CHUNK;
+      const uint8_t* wp = buf + 2 * C::WV + C::VX;
+      const float gc = arrs[cb * (C::ARR / 4) + 5 * L];
+#pragma unroll
+      for (int i = 0; i < MTO; ++i) {
+        const int nt = c * MTP + wg + OWNERS * i;
+        const int slot = nt % p.stages;
+        // sound only with stages >= OWNERS: tile nt - stages, the slot's
+        // previous use, must have landed (this owner's nt - 4 has), or a
+        // barrier one phase behind shows the parity waited for
+        rt::mbar_wait(&full[slot], (nt / p.stages) & 1);
+        uint8_t* st = ring + slot * C::SLOT;
+        uint8_t* phi = st + 2 * C::TILE;
+        uint8_t* plo = phi + PAIR_BYTES;
+        // C_prev's tile as a bf16 pair, transposed into [dv][dk] rows
+#pragma unroll
+        for (int q2 = 0; q2 < 2; ++q2) {
+          uint32_t hi[4], lo[4];
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            const int h = mi & 1, jj = 2 * q2 + (mi >> 1);
+            split2(acc[i][4 * jj + 2 * h], acc[i][4 * jj + 2 * h + 1],
+                   hi[mi], lo[mi]);
+          }
+          const int ml = lane >> 3, r = lane & 7;
+          const int dv = 8 * (2 * q2 + (ml >> 1)) + r;
+          const int off = dv * 128 + (((2 * warp + (ml & 1)) ^ r) << 4);
+          stmatrix_x4_trans(phi + off, hi[0], hi[1], hi[2], hi[3]);
+          stmatrix_x4_trans(plo + off, lo[0], lo[1], lo[2], lo[3]);
+        }
+        // ... and n_prev as row 32
+        if (tq == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int dk = 16 * warp + g + 8 * h;
+            const int off = 32 * 128 + (dk >> 3) * 16 + (dk & 7) * 2;
+            const bf16 nh = __float2bfloat16(nr[i][h]);
+            *reinterpret_cast<bf16*>(phi + off) = nh;
+            *reinterpret_cast<bf16*>(plo + off) =
+                __float2bfloat16(nr[i][h] - __bfloat162float(nh));
+          }
+        }
+        rt::fence_async_smem();
+        rt::mbar_arrive(&pairf[slot]);
+        // C^T_j <- g C^T_j + K_j^T (w o V)_hi + K_j^T (w o V)_lo, and
+        // n_j <- g n_j + K_j^T w_hi + K_j^T w_lo (columns 0 and 1)
+        float na[4] = {gc * nr[i][0], 0.f, gc * nr[i][1], 0.f};
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[i][e] *= gc;
+        rt::wgmma_fence();
+        const uint8_t* kt = st + C::TILE;
+#pragma unroll
+        for (int kk = 0; kk < L / 16; ++kk) {
+          const uint64_t da = rt::desc(kt + kk * 16 * 128, C::TILE, 1024);
+          const int wo = kk / 4 * DV * 128 + kk % 4 * 32;
+          wgmma_n32<1>(acc[i], da, rt::desc(buf + wo, 16, 1024));
+          wgmma_n32<1>(acc[i], da, rt::desc(buf + C::WV + wo, 16, 1024));
+          wgmma_n8<1>(na, da,
+                      rt::desc(wp + kk / 4 * 1024 + kk % 4 * 32, 16, 1024));
+        }
+        rt::wgmma_commit();
+        rt::wgmma_wait<0>();
+        rt::fence_regs(acc[i]);
+        rt::fence_regs(na);
+        nr[i][0] = na[0] + na[1];
+        nr[i][1] = na[2] + na[3];
+        rt::mbar_arrive(&empty[slot]);
+      }
+      rt::mbar_arrive(&pempty[cb]);
+    }
+    if (p.c_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < MTO; ++i) {
+        const int j = wg + OWNERS * i;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int dk = 64 * j + 16 * warp + g + 8 * h;
+              const int dv = dv0 + 8 * jj + 2 * tq + e;
+              if (dk < p.Dh)
+                p.c_out[((size_t)bh * p.Dh + dv) * p.Dh + dk] =
+                    acc[i][4 * jj + 2 * h + e];
+            }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int dk = 64 * j + 16 * warp + g + 8 * h;
+          if (blockIdx.x == 0 && tq == 0 && dk < p.Dh)
+            p.n_out[(size_t)bh * p.Dh + dk] = nr[i][h];
+        }
+      }
+    }
+  } else {
+    // ---- output: h of the chunk's L rows, this block's 32 columns -------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::OUT_REGS));
+    const bool leader = tid % 128 == 0;
+    float H[NH][20];
+#pragma unroll
+    for (int mh = 0; mh < NH; ++mh)
+#pragma unroll
+      for (int i = 0; i < 20; ++i) H[mh][i] = 0.f;
+    for (int c = 0; c < p.nchunks; ++c) {
+      const int cb = c % C::NB;
+      // inter-chunk: H = Q C_prev^T (hi + lo), n's column 32 beside it
+      auto issue = [&](int nt, bool first) {
+        const int slot = nt % p.stages, ph = (nt / p.stages) & 1;
+        rt::mbar_wait(&full[slot], ph);
+        rt::mbar_wait(&pairf[slot], ph);
+        const uint8_t* st = ring + slot * C::SLOT;
+        const uint8_t* phi = st + 2 * C::TILE;
+#pragma unroll
+        for (int mh = 0; mh < NH; ++mh)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t da =
+                rt::desc(st + mh * 64 * 128 + kk * 32, 16, 1024);
+            wgmma_n40_ss(H[mh], da, rt::desc(phi + kk * 32, 16, 1024),
+                         !first || kk > 0);
+            wgmma_n40_ss(H[mh], da,
+                         rt::desc(phi + PAIR_BYTES + kk * 32, 16, 1024), 1);
+          }
+        rt::wgmma_commit();
+      };
+      const int nt0 = c * MTP;
+      rt::wgmma_fence();
+      issue(nt0, true);
+#pragma unroll 1
+      for (int j = 1; j < MTP; ++j) {
+        issue(nt0 + j, false);
+        rt::wgmma_wait<1>();
+        if (leader) rt::mbar_arrive(&empty[(nt0 + j - 1) % p.stages]);
+      }
+      rt::wgmma_wait<0>();
+#pragma unroll
+      for (int mh = 0; mh < NH; ++mh) rt::fence_regs(H[mh]);
+      if (leader) rt::mbar_arrive(&empty[(nt0 + MTP - 1) % p.stages]);
 
-  if (c_out != nullptr) {
-    float* crow = c_out + ((size_t)bh * Dh + row0 + warp * R) * Dh;
+      // intra-chunk: H = g~_t H + (S o D) [V | 1], S o D as a bf16 pair
+      rt::mbar_wait(&pfull[cb], (c / C::NB) & 1);
+      const uint8_t* vx = cbuf + cb * C::CHUNK + 2 * C::WV;
+      const float* arr = arrs + cb * (C::ARR / 4);
+      const float* S = p.S + ((size_t)bh * p.nchunks + c) * L * L;
 #pragma unroll
-    for (int c4 = 0; c4 < NC / 4; ++c4) {
-      const int j = c4 * 128 + 4 * lane;
-      if (j < Dh) {
+      for (int mh = 0; mh < NH; ++mh) {
+        const int r0 = 64 * mh + 16 * warp + g, r1 = r0 + 8;
+        const float a0 = arr[r0], a1 = arr[r1];
+        const float gq0 = arr[2 * L + r0], gq1 = arr[2 * L + r1];
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          *reinterpret_cast<float4*>(crow + (size_t)r * Dh + j) =
-              make_float4(C[r][4 * c4], C[r][4 * c4 + 1], C[r][4 * c4 + 2],
-                          C[r][4 * c4 + 3]);
-        if (blockIdx.x == 0 && warp == 0)
-          *reinterpret_cast<float4*>(n_out + (size_t)bh * Dh + j) =
-              make_float4(n[4 * c4], n[4 * c4 + 1], n[4 * c4 + 2],
-                          n[4 * c4 + 3]);
+        for (int i = 0; i < 20; ++i) H[mh][i] *= (i & 2) ? gq1 : gq0;
+        // KG k16 steps at a time (fewer registers where H is two tiles)
+        constexpr int KG = NH == 1 ? 2 : 1;
+#pragma unroll
+        for (int k2 = 0; k2 < L / (16 * KG); ++k2) {
+          uint32_t ph[KG][4], pl[KG][4];
+#pragma unroll
+          for (int u = 0; u < KG; ++u) {
+            const int kk = KG * k2 + u;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int r = (q & 1) ? r1 : r0;
+              const int s = 16 * kk + 2 * tq + 8 * (q >> 1);
+              const float2 sv =
+                  *reinterpret_cast<const float2*>(S + (size_t)r * L + s);
+              const float ar = (q & 1) ? a1 : a0;
+              // exponents <= 0 up to rounding: the fast exponential's
+              // relative error (about 1e-6 here) is far inside h's
+              const float d0 =
+                  s <= r ? p.scale * __expf(ar + arr[L + s]) : 0.f;
+              const float d1 =
+                  s + 1 <= r ? p.scale * __expf(ar + arr[L + s + 1]) : 0.f;
+              split2(sv.x * d0, sv.y * d1, ph[u][q], pl[u][q]);
+            }
+          }
+          rt::wgmma_fence();
+#pragma unroll
+          for (int u = 0; u < KG; ++u) {
+            const int kk = KG * k2 + u;
+            const uint64_t db = rt::desc(
+                vx + kk / 4 * PAIR_BYTES + kk % 4 * 32, 16, 1024);
+            wgmma_n40_rs(H[mh], ph[u], db);
+            wgmma_n40_rs(H[mh], pl[u], db);
+          }
+          rt::wgmma_commit();
+          rt::wgmma_wait<0>();
+          rt::fence_regs(H[mh]);
+          rt::fence_regs(ph);
+          rt::fence_regs(pl);
+        }
       }
+      // h = H[:, :32] / max(|H[:, 32]|, exp(-m_t)), rounded to bf16
+#pragma unroll
+      for (int mh = 0; mh < NH; ++mh)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 64 * mh + 16 * warp + g + 8 * h;
+          const float nq =
+              __shfl_sync(0xffffffffu, H[mh][16 + 2 * h], lane & ~3);
+          const float den = fmaxf(fabsf(nq), arr[3 * L + r]);
+          const int t = c * L + r;
+          if (t < p.T) {
+            bf16* dst = p.h + ((size_t)bh * p.T + t) * p.Dh + dv0 + 2 * tq;
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              *reinterpret_cast<uint32_t*>(dst + 8 * jj) = rt::pack_bf16(
+                  H[mh][4 * jj + 2 * h] / den,
+                  H[mh][4 * jj + 2 * h + 1] / den);
+          }
+        }
+      rt::mbar_arrive(&pempty[cb]);  // done with the chunk's buffer
     }
-    if (blockIdx.x == 0 && tid == 0) m_out[bh] = m;
   }
 }
 
-template <int NC>
-int launch(const bf16* q, const bf16* k, const bf16* v, const float* ig,
-           const float* fg, bf16* h, float* c, float* n, float* m, int BH,
-           int T, int Dh, cudaStream_t s) {
-  const size_t smem = smem_bytes(Dh, 32 * NC);
-  cudaError_t e = cudaFuncSetAttribute(
-      mlstm_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const float scale = static_cast<float>(pow(static_cast<double>(Dh), -0.5));
-  const dim3 grid(Dh / ROWS, BH);
-  mlstm_kernel<NC><<<grid, THREADS, smem, s>>>(q, k, v, ig, fg, h, c, n, m,
-                                               T, Dh, scale);
-  return static_cast<int>(cudaGetLastError());
+template <int L, int MTO>
+int launch_scan(Params& p, int BH, cudaStream_t stream) {
+  const void* fn =
+      reinterpret_cast<const void*>(&mlstm_scan_kernel<L, MTO>);
+  // setmaxnreg moves registers within the block's allocation: refuse to
+  // launch a build whose allocation cannot cover what the groups ask for
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (attr.numRegs * THREADS <
+      128 * (OWNERS * OWNER_REGS + Cfg<L>::OUT_REGS + Cfg<L>::AUX_REGS))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int smem = Cfg<L>::smem_bytes(p.stages);
+  rc = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            smem);
+  void* args[] = {&p};
+  if (rc == cudaSuccess)
+    rc = cudaLaunchKernel(fn, dim3(p.Dh / DV, BH), dim3(THREADS), args, smem,
+                          stream);
+  return static_cast<int>(rc);
+}
+
+template <int L>
+int launch(const void* q, const void* k, Params& p, int BH,
+           cudaStream_t stream) {
+  const rt::Encode enc = rt::encode_fn();
+  if (!enc) return static_cast<int>(cudaErrorSymbolNotFound);
+  QkParams qp{};
+  CUresult cr = rt::make_map_3d(enc, &qp.q, q, BH, p.T, p.Dh, 64);
+  if (cr == CUDA_SUCCESS)
+    cr = rt::make_map_3d(enc, &qp.k, k, BH, p.T, p.Dh, L);
+  if (cr == CUDA_SUCCESS)
+    cr = rt::make_map_3d(enc, &p.q, q, BH, p.T, p.Dh, L);
+  if (cr == CUDA_SUCCESS) p.k = qp.k;
+  if (cr != CUDA_SUCCESS) return 1000 + static_cast<int>(cr);
+  qp.S = const_cast<float*>(p.S);
+  qp.T = p.T, qp.Dh = p.Dh, qp.nchunks = p.nchunks;
+
+  const void* qk = reinterpret_cast<const void*>(&mlstm_qk_kernel<L>);
+  const int qk_smem = Cfg<L>::qk_smem_bytes();
+  cudaError_t rc = cudaFuncSetAttribute(
+      qk, cudaFuncAttributeMaxDynamicSharedMemorySize, qk_smem);
+  void* qargs[] = {&qp};
+  if (rc == cudaSuccess)
+    rc = cudaLaunchKernel(qk, dim3(L / 64 * p.nchunks * BH), dim3(128),
+                          qargs, qk_smem, stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int mto = (p.Dh + 255) / 256;
+  switch (mto) {
+    case 1:
+      return launch_scan<L, 1>(p, BH, stream);
+    case 2:
+      return launch_scan<L, 2>(p, BH, stream);
+    case 3:
+      return launch_scan<L, 3>(p, BH, stream);
+    default:
+      return launch_scan<L, 4>(p, BH, stream);
+  }
 }
 
 }  // namespace
 
-// q, k, v, h: (B*H, T, Dh) bf16, 16-byte aligned; ig, fg: (B*H, T) fp32.
-// c (B*H, Dh, Dh), n (B*H, Dh), m (B*H) fp32: the final state, written
-// when c is not null (then n and m must not be null either).
+// q, k, v, h: (B*H, T, Dh) bf16, 16-byte aligned; ig, fg: (B*H, T) fp32;
+// scratch: (B*H, ceil(T / chunk), chunk, chunk) fp32.  c (B*H, Dh, Dh),
+// n (B*H, Dh), m (B*H) fp32: the final state, written when c is not null
+// (then n and m must not be null either).  ``chunk`` and ``stages`` as
+// kernels/mlstm.py:schedule picks them.  Returns the first cudaError_t; a
+// tensor map the driver refuses returns 1000 + its CUresult.
 extern "C" int rt_mlstm_scan(const void* q, const void* k, const void* v,
                              const void* ig, const void* fg, void* h,
-                             void* c, void* n, void* m, int BH, int T,
-                             int Dh, void* stream) {
-  if (BH <= 0 || BH > 65535 || T <= 0 || Dh <= 0 || Dh % ROWS ||
-      Dh > 1024 || (c != nullptr && (n == nullptr || m == nullptr)))
+                             void* c, void* n, void* m, void* scratch,
+                             int BH, int T, int Dh, int chunk, int stages,
+                             void* stream) {
+  if (BH <= 0 || BH > 65535 || T <= 0 || Dh <= 0 || Dh % DV ||
+      Dh > 1024 || (chunk != 64 && chunk != 128) ||
+      stages < OWNERS ||  // the owners' parity waits (see the source note)
+      stages > MAX_STAGES ||
+      (chunk == 64 ? Cfg<64>::smem_bytes(stages)
+                   : Cfg<128>::smem_bytes(stages)) > 232448 ||
+      (c != nullptr && (n == nullptr || m == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.v = static_cast<const bf16*>(v);
+  p.ig = static_cast<const float*>(ig);
+  p.fg = static_cast<const float*>(fg);
+  p.S = static_cast<const float*>(scratch);
+  p.h = static_cast<bf16*>(h);
+  p.c_out = static_cast<float*>(c);
+  p.n_out = static_cast<float*>(n);
+  p.m_out = static_cast<float*>(m);
+  p.T = T, p.Dh = Dh, p.nchunks = (T + chunk - 1) / chunk,
+  p.stages = stages;
+  p.scale = static_cast<float>(pow(static_cast<double>(Dh), -0.5));
   auto s = static_cast<cudaStream_t>(stream);
-  auto* qq = static_cast<const bf16*>(q);
-  auto* kk = static_cast<const bf16*>(k);
-  auto* vv = static_cast<const bf16*>(v);
-  auto* ii = static_cast<const float*>(ig);
-  auto* ff = static_cast<const float*>(fg);
-  auto* hh = static_cast<bf16*>(h);
-  auto* cc = static_cast<float*>(c);
-  auto* nn = static_cast<float*>(n);
-  auto* mm = static_cast<float*>(m);
-  if (Dh <= 128)
-    return launch<4>(qq, kk, vv, ii, ff, hh, cc, nn, mm, BH, T, Dh, s);
-  if (Dh <= 256)
-    return launch<8>(qq, kk, vv, ii, ff, hh, cc, nn, mm, BH, T, Dh, s);
-  if (Dh <= 512)
-    return launch<16>(qq, kk, vv, ii, ff, hh, cc, nn, mm, BH, T, Dh, s);
-  return launch<32>(qq, kk, vv, ii, ff, hh, cc, nn, mm, BH, T, Dh, s);
+  return chunk == 64 ? launch<64>(q, k, p, BH, s)
+                     : launch<128>(q, k, p, BH, s);
+}
+
+// Dynamic shared memory of one scan block (kernels/mlstm.py:
+// smem_bytes_for must agree), or -1 for a chunk the kernel does not take.
+extern "C" int rt_mlstm_smem_bytes(int chunk, int stages) {
+  if (chunk == 64) return Cfg<64>::smem_bytes(stages);
+  if (chunk == 128) return Cfg<128>::smem_bytes(stages);
+  return -1;
+}
+
+// ... and of one Q K^T block (kernels/mlstm.py:qk_smem_bytes).
+extern "C" int rt_mlstm_qk_smem_bytes(int chunk) {
+  if (chunk == 64) return Cfg<64>::qk_smem_bytes();
+  if (chunk == 128) return Cfg<128>::qk_smem_bytes();
+  return -1;
 }

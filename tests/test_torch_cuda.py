@@ -421,19 +421,39 @@ def _state_close(got, want):
                                    atol=1e-3)
 
 
+def _nan_buffers(dev, sched, b, h, dh, with_state):
+    """The state and the Q Kᵀ scratch filled with NaN (the callers fill
+    h too), so that a check cannot pass on what an earlier launch left
+    in memory."""
+    nan = float("nan")
+    state = None
+    if with_state:
+        state = {"C": torch.full((b, h, dh, dh), nan, device=dev),
+                 "n": torch.full((b, h, dh), nan, device=dev),
+                 "m": torch.full((b, h), nan, device=dev)}
+    scratch = torch.full((sched.scratch_bytes // 4,), nan, device=dev)
+    return state, scratch
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("b,h,t,dh", [
     (1, 4, 300, 1024),           # xlstm-1.3b's head dim, a ragged chunk
+    (1, 4, 2048, 1024),          # its prefill at the largest bucket
     (2, 2, 1000, 128),           # the reduced config's head dim
     (1, 1, 7, 32),               # one partial chunk, a padded tile
-    (3, 2, 64, 96),              # a head dim that is no power of two
+    (3, 2, 64, 96),              # one whole chunk, no power of two
+    (1, 2, 65, 256),             # one step past a chunk
     (1, 2, 129, 160),
     (2, 1, 40, 512),
 ])
 def test_mlstm_scan(dev, b, h, t, dh, with_state):
     args = _mlstm_inputs(dev, 21, b, h, t, dh)
+    sched = mlstm.schedule(b, h, t, dh)
+    state, scratch = _nan_buffers(dev, sched, b, h, dh, with_state)
+    out = torch.full_like(args[0], float("nan"))
     before = mlstm.launches
-    got = mlstm.mlstm_scan(*args, return_state=with_state)
+    got = mlstm.run_schedule(*args, sched, return_state=with_state, out=out,
+                             state=state, scratch=scratch)
     assert mlstm.launches == before + 1
     want = ref.mlstm_scan(*args, return_state=with_state)
     if with_state:
@@ -441,6 +461,41 @@ def test_mlstm_scan(dev, b, h, t, dh, with_state):
         _state_close(got[1], want[1])
     else:
         _close(got, want)
+
+
+@pytest.mark.parametrize("b,h,t,dh", [(1, 2, 300, 1024), (2, 2, 200, 128),
+                                      (1, 1, 129, 96)])
+def test_mlstm_scan_at_the_other_chunk_length(dev, b, h, t, dh):
+    """Chunks of 128 (the length the schedule does not pick), with
+    state."""
+    args = _mlstm_inputs(dev, 27, b, h, t, dh)
+    sched = mlstm.schedule(b, h, t, dh, 128)
+    state, scratch = _nan_buffers(dev, sched, b, h, dh, True)
+    got = mlstm.run_schedule(*args, sched, return_state=True,
+                             out=torch.full_like(args[0], float("nan")),
+                             state=state, scratch=scratch)
+    want = ref.mlstm_scan(*args, return_state=True)
+    _close(got[0], want[0])
+    _state_close(got[1], want[1])
+
+
+def test_mlstm_scan_two_launches_are_bit_identical(dev):
+    args = _mlstm_inputs(dev, 29, 1, 4, 600, 1024)
+    h1, s1 = mlstm.mlstm_scan(*args, return_state=True)
+    h2, s2 = mlstm.mlstm_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2)
+    assert all(torch.equal(s1[n], s2[n]) for n in ("C", "n", "m"))
+
+
+def test_mlstm_footprints_agree_with_the_launcher(dev):
+    from repro_torch.kernels import _build
+    for chunk in mlstm.CHUNKS:
+        st = mlstm.stages_for(chunk)
+        assert _build.lib().rt_mlstm_smem_bytes(chunk, st) == \
+            mlstm.smem_bytes_for(chunk, st)
+        assert _build.lib().rt_mlstm_qk_smem_bytes(chunk) == \
+            mlstm.qk_smem_bytes(chunk)
 
 
 def test_mlstm_scan_carries_state_through_padding(dev):

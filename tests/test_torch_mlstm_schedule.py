@@ -1,0 +1,95 @@
+"""The chunkwise mLSTM kernel's schedule (``repro_torch.kernels.mlstm``),
+on the CPU.
+
+``mlstm_scan`` launches what :func:`mlstm.schedule` picks from the shape
+alone: the chunk length, the 64-row tiles of Cᵀ its four owner
+warpgroups hold, the Q/K ring's depth, the scan's grid (32 columns of
+one head's C a block), the ``Q Kᵀ`` kernel's blocks, both footprints and
+the fp32 ``Q Kᵀ`` scratch passed between the two kernels.  These tests
+hold it at xlstm-1.3b's served shapes (B·H = 4, Dh = 1024, every prefill
+bucket from 128 to 2048) and at every head dim the kernel takes.  The
+kernel runs only on the card (``tests/test_torch_cuda.py``), which also
+checks the footprints against the CUDA launcher's.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import mlstm  # noqa: E402
+
+HEAD_DIMS = list(range(32, mlstm.MAX_HEAD_DIM + 1, 32))
+BUCKETS = [128, 256, 512, 1024, 2048]
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("chunk", mlstm.CHUNKS)
+def test_every_footprint_fits_a_block(dh, chunk):
+    s = mlstm.schedule(1, 4, 2048, dh, chunk)
+    assert s.smem_bytes <= mlstm.SMEM_LIMIT == 232_448
+    assert s.qk_smem_bytes <= mlstm.SMEM_LIMIT
+    assert s.smem_bytes == mlstm.smem_bytes_for(chunk, s.stages)
+
+
+@pytest.mark.parametrize("chunk,stages", [(64, 7), (128, 4)])
+def test_the_ring_is_as_deep_as_shared_memory_allows(chunk, stages):
+    """As deep as fits, and never shallower than the four owner
+    warpgroups (an owner's parity wait is sound only then; see
+    ``stages_for``): one chunk buffer
+    at L = 128 buys its fourth stage."""
+    assert mlstm.stages_for(chunk) == stages >= mlstm.OWNERS
+    assert mlstm.chunk_buffers(chunk) == {64: 2, 128: 1}[chunk]
+    assert mlstm.smem_bytes_for(chunk, stages) <= mlstm.SMEM_LIMIT
+    assert mlstm.smem_bytes_for(chunk, stages + 1) > mlstm.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("t", BUCKETS)
+@pytest.mark.parametrize("b,h", [(1, 4), (4, 4)])
+def test_grid_at_the_served_shapes(b, h, t):
+    """xlstm-1.3b: 4 heads of Dh = 1024; one slot's prefill (B = 1) and
+    four slots: one block per 32 columns of a head's C, chunks of 64."""
+    s = mlstm.schedule(b, h, t, 1024)
+    assert s.chunk == 64 and s.n_chunks == t // 64
+    assert s.grid == (32, b * h)
+    assert s.qk_grid == s.n_chunks * b * h
+    assert (s.dk_tiles, s.tiles_per_owner) == (16, 4)
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 437, 2048])
+@pytest.mark.parametrize("chunk", mlstm.CHUNKS)
+def test_chunks_cover_t_and_the_scratch_holds_one_q_kt_each(t, chunk):
+    s = mlstm.schedule(2, 3, t, 128, chunk)
+    assert (s.n_chunks - 1) * chunk < t <= s.n_chunks * chunk
+    assert s.qk_grid == chunk // 64 * s.n_chunks * 6
+    assert s.scratch_bytes == 4 * 6 * s.n_chunks * chunk * chunk
+
+
+def test_scratch_at_the_headline_shape():
+    # (1, 4, 2048, 1024): 32 chunks of 64 x 64 fp32 a head, 2 MiB
+    assert mlstm.schedule(1, 4, 2048, 1024).scratch_bytes == 2 << 20
+    assert mlstm.schedule(1, 4, 2048, 1024, 128).scratch_bytes == 4 << 20
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_dk_tiles_cover_the_head_dim_in_whole_owner_rounds(dh):
+    n = mlstm.dk_tiles(dh)
+    assert n % mlstm.OWNERS == 0 and 64 * n >= dh
+    assert 64 * (n - mlstm.OWNERS) < dh
+    assert mlstm.schedule(1, 1, 10, dh).tiles_per_owner == n // 4 <= 4
+
+
+@pytest.mark.parametrize("b,h,t,dh,chunk", [
+    (1, 4, 64, 48, None),          # not a multiple of 32
+    (1, 4, 64, 1056, None),        # above 1024
+    (1, 4, 64, 0, None),
+    (1, 4, 64, 128, 32),           # a chunk the kernel does not take
+    (1, 4, 0, 128, None),          # no step
+    (65536, 1, 64, 128, None),     # more (batch, head) pairs than grid.y
+])
+def test_schedule_refuses_what_the_kernel_does_not_take(b, h, t, dh, chunk):
+    with pytest.raises(ValueError):
+        mlstm.schedule(b, h, t, dh, chunk)
+
+
+def test_label_names_the_chunk_stages_and_grids():
+    assert mlstm.schedule(1, 4, 2048, 1024).label == \
+        "L=64, 7 stages, grid 32x4 + qk 128"
