@@ -34,7 +34,13 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    4096 and 1024) and whisper-base's cross-attention (head_dim 64, 448
    queries over 1500 keys, not causal), each case printing its schedule
    (tile height, key tile, ring stages, grid) and its time at the other
-   tile height.  The mLSTM scan is held, h and
+   tile height.  The RG-LRU scan is held, h and its fp32 h_T, at
+   recurrentgemma-9b's widest prefill (1, 4096, 4096), four slots at T =
+   1024, a ragged (2, 1000, 4000) and the served buckets 128 and 2048,
+   each with and without h0: each case prints its schedule (channel tile,
+   chunk, grid) and its time at the other chunk length, and is checked
+   bit for bit against ``chunked_model`` (the kernel's arithmetic in
+   plain PyTorch) and against a second launch.  The mLSTM scan is held, h and
    its final fp32 state, at xlstm-1.3b's prefill (B = 1, H = 4, T = 2048,
    Dh = 1024, with and without state), four slots at T = 512, a ragged
    (2, 2, 1000, 128), and a right-padded scan whose state is taken below T
@@ -55,7 +61,8 @@ Phases, in order (any failure ends the run with a non-zero exit code):
 5. Serve recurrentgemma-9b at full width (38 layers, bf16, random weights
    from a seed) the same way: 8 requests of 128-3072 tokens, 4 slots,
    dense per-slot cache, ``max_seq`` 4096.  Its path runs four kernels:
-   the RG-LRU scan in every recurrent layer's prefill, flash attention at
+   the RG-LRU scan in every recurrent layer's prefill (26 launches a
+   prefill, checked), flash attention at
    head_dim 256 in every local layer's prefill, the fused MLP in both
    phases, and the GEMM in ``execute_block_plan``.
 6. recurrentgemma-9b's served path against the plain path (a 2,500-token
@@ -440,29 +447,59 @@ def fused_mlp_cases(dev, timer, randn, k_, f_, n_, act, ms, path):
 
 def rg_lru_cases(dev, timer, randn):
     """The RG-LRU scan against its plain version: recurrentgemma-9b's
-    prefill shape (B=1, T=W=4096), four slots, and a ragged shape, each
-    with and without h0."""
+    widest prefill (B=1, T=W=4096), four slots, a ragged shape and the
+    served buckets 128 and 2048, each with and without h0.  Each case
+    prints its schedule (channel tile, chunk, grid, from
+    ``kernels/rg_lru.py:schedule``) and its time at the other chunk length
+    (``other_chunk_ms``); h and h_T are checked bit for bit against
+    ``chunked_model`` (the kernel's arithmetic in plain PyTorch) and two
+    launches bit-identical.  No single PyTorch call runs a recurrence with
+    a per-step decay, so there is no library time."""
     from repro_torch.kernels import ref, rg_lru
 
     out = []
     gen = torch.Generator(device=dev).manual_seed(99)
-    for b, t, w in ((1, 4096, 4096), (4, 1024, 4096), (2, 1000, 4000)):
+    for b, t, w in ((1, 4096, 4096), (4, 1024, 4096), (2, 1000, 4000),
+                    (1, 128, 4096), (1, 2048, 4096)):
         x = randn(b, t, w, scale=0.5)
         a = (0.79 + 0.2 * torch.rand((b, t, w), generator=gen, device=dev)
              ).to(torch.bfloat16)
+        sched = rg_lru.schedule(b, t, w)
+        other_chunk = sched.chunk // 2 if sched.chunk > rg_lru.UNIT \
+            else 2 * sched.chunk
+        other = rg_lru.schedule(b, t, w, other_chunk, sched.channel_tile)
         for h0 in (None, torch.randn((b, w), generator=gen, device=dev)):
             label = (f"rg_lru_scan B={b} T={t} W={w} "
                      f"{'h0' if h0 is not None else 'no h0'}")
+            print(f"  {label}: schedule {sched.label}, {sched.smem_bytes} B "
+                  f"of shared memory, {sched.scratch_bytes} B of scratch")
             h, h_t = rg_lru.rg_lru_scan(x, a, h0)
             want, want_t = ref.rg_lru_scan(x, a, h0)
             err = max(compare(h, want, label + " h"),
-                      compare(h_t, want_t, label + " h_T (fp32)"))
+                      compare(h_t, want_t, label + " h_T (fp32)",
+                              atol=1e-4, rtol=1e-4))
+            again, again_t = rg_lru.rg_lru_scan(x, a, h0)
+            model, model_t = rg_lru.chunked_model(x, a, h0, sched=sched)
+            torch.cuda.synchronize()
+            check(torch.equal(h, again) and torch.equal(h_t, again_t),
+                  f"{label}: two launches differ")
+            check(torch.equal(h, model) and torch.equal(h_t, model_t),
+                  f"{label}: not the chunked model's bits")
+            print(f"  {label}: two launches bit-identical, and equal to "
+                  f"chunked_model bit for bit")
             # x, a read and h written in bf16, h_T written (h0 read) in fp32
             nbytes = 6 * b * t * w + 4 * b * w * (2 if h0 is not None else 1)
             bd, why = bound_ms(nbytes, 2 * b * t * w, FP32_FLOPS)
+            t_other = timer.ms(lambda: rg_lru.run_schedule(x, a, h0, other))
+            print(f"    at the other chunk length, {other.label}: "
+                  f"{t_other} ms")
             out.append(dict(
-                path=RG, shape=[b, t, w], h0=h0 is not None, max_abs_err=err,
+                path=RG if w == 4096 else "ragged", shape=[b, t, w],
+                h0=h0 is not None, schedule=sched.label,
+                channel_tile=sched.channel_tile, chunk=sched.chunk,
+                grid=sched.grid, max_abs_err=err,
                 ms=timer.ms(lambda: rg_lru.rg_lru_scan(x, a, h0)),
+                other_chunk_ms=t_other,
                 # a Python loop over T: three launches a step
                 plain_ms=timer.ms(lambda: ref.rg_lru_scan(x, a, h0), n=3),
                 library_ms=None, bound_ms=bd, bound_by=why))
@@ -714,9 +751,10 @@ WANT_EXECUTORS = {LLAMA: {**_PREFILL, "mlp": "cuda_fused_mlp"},
                   RG: {**_PREFILL, "mlp": "cuda_fused_mlp"},
                   GRANITE: {**_PREFILL, "mlp": "cuda_partial_mlp"},
                   XLSTM: None}
-# launches a prefill must make, where the path fixes the count: one mLSTM
-# scan in each of xlstm-1.3b's 42 mLSTM layers
-PER_PREFILL = {XLSTM: {"mlstm_scan": 42}}
+# launches a prefill must make, where the path fixes the count: one RG-LRU
+# scan in each of recurrentgemma-9b's 26 recurrent layers, one mLSTM scan in
+# each of xlstm-1.3b's 42 mLSTM layers
+PER_PREFILL = {RG: {"rg_lru_scan": 26}, XLSTM: {"mlstm_scan": 42}}
 
 
 def requests(cfg, lens_range, seed: int = 0):
@@ -1176,6 +1214,12 @@ def main() -> int:
         want = (mlstm.smem_bytes_for(chunk, st), mlstm.qk_smem_bytes(chunk))
         check(got == want, f"mlstm_scan footprints at L={chunk}: Python "
               f"{want}, CUDA {got}")
+    # and the RG-LRU scan's, at every tile and chunk its schedule picks
+    for ct, chunk in rg_lru.LADDER:
+        got = _build.lib().rt_rg_lru_smem_bytes(ct, chunk)
+        check(got == rg_lru.smem_bytes(ct, chunk), f"rg_lru_scan footprint "
+              f"at tile {ct}, chunk {chunk}: Python "
+              f"{rg_lru.smem_bytes(ct, chunk)}, CUDA {got}")
     for line in (lib.parent / "build.log").read_text().splitlines():
         if line.startswith("==") or "Compiling entry" in line \
                 or "Used" in line or "spill" in line:

@@ -8,20 +8,192 @@ Every recurrent layer's prefill runs it
 (``models/recurrent.py:rec_block``), at (B, T, W) = (1, prefill bucket,
 lru_width).  It moves 6 bytes per element and does 2 FLOPs, so bytes
 bound it: ``6·B·T·W + 8·B·W`` over the card's memory rate, about 30 µs
-at B = 1, T = W = 4096 on an H100.  The kernel (``csrc/rg_lru.cu``)
-gives each lane of a one-warp block one channel's carry in a register
-and walks time through a four-stage ``cp.async`` ring of 64-step chunks
-in shared memory; unlike the TPU kernel it takes any T and W.  The plain
-version is :func:`repro_torch.kernels.ref.rg_lru_scan`.
+at B = 1, T = W = 4096 on an H100.  A kernel that walks all T steps of a
+channel in one thread is bound instead by the latency of that serial
+chain, one chain per channel.
+
+The kernel (``csrc/rg_lru.cu``) spreads time across blocks in one pass.
+A block owns ``channel_tile`` channels and ``chunk`` steps of one batch
+row; its publisher warp puts the tile of x and a in flight by TMA (64
+steps a box and barrier), each compute thread folds 8 channels of a
+16-step segment into the segment's aggregate (Π a, and the scan from 0),
+and every 64 steps anchored at t = 0 make a unit whose aggregate the
+block writes to a global scratch and the publisher releases with a flag.
+Meanwhile its fold warps take the carry-in as the fold from ``h0`` over
+every earlier unit, in order, once every earlier chunk has released its
+units; the compute threads carry it through the block's own units and
+segments and re-scan their steps from shared memory.  ``h_T`` is the fold
+over all units.  Blocks take their chunks from an atomic ticket in launch
+order, so a block waits only on blocks already running.  Every value is
+fixed by the 16-step segments, the 64-step units and that order, never by
+the schedule or the timing, and every product and sum is rounded on its
+own as :func:`repro_torch.kernels.ref.rg_lru_scan` rounds them:
+:func:`chunked_model` reproduces the kernel's bits on the CPU.
+:func:`schedule` picks the tile and the chunk so that the grid fills the
+card.  The plain version is :func:`repro_torch.kernels.ref.rg_lru_scan`.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.nn.functional as F
 
 from . import _build, ref
+from .gemm import H100_SMS
 
 # kernel launches since the last reset (``chip_smoke.py`` reads it)
 launches = 0
+
+SEGMENT = 16                      # steps a thread scans
+UNIT = 64                         # steps a published aggregate covers
+CHANNELS = 8                      # channels a thread owns (16 bytes)
+CHANNEL_TILES = (8, 16, 32, 64, 128)
+MAX_CHUNK = 1024
+MAX_THREADS = 384
+SMEM_LIMIT = 232_448              # dynamic shared memory a block may use
+MAX_B = 65535
+SYNC_HEADER = 4                   # 32-bit words before the flags
+MIN_BLOCKS = 2 * H100_SMS         # the grid the schedule aims to reach
+# (channel tile, chunk) in the order the schedule tries them: the largest
+# tile whose grid reaches MIN_BLOCKS, else the last
+LADDER = ((64, 256), (64, 128), (64, 64), (32, 64), (16, 64), (8, 64))
+
+
+def compute_threads(channel_tile: int, chunk: int) -> int:
+    """Threads that stage and scan: 8 channels x one 16-step segment
+    each."""
+    return channel_tile // CHANNELS * (chunk // SEGMENT)
+
+
+def threads_for(channel_tile: int, chunk: int) -> int:
+    """A block's threads (csrc/rg_lru.cu: Shape::threads): the compute
+    threads in whole warps, a fold warp per 32 channels of the tile and
+    one publisher warp."""
+    return 32 * (-(-compute_threads(channel_tile, chunk) // 32)
+                 + (2 if channel_tile > 32 else 1) + 1)
+
+
+def smem_bytes(channel_tile: int, chunk: int) -> int:
+    """One block's dynamic shared memory (csrc/rg_lru.cu: Shape::smem_bytes
+    must agree): 128 bytes of alignment slack for TMA, x and a of its tile
+    in bf16, the segments' and the units' aggregates (two fp32 a channel)
+    and the carry-in (one)."""
+    return (128 + 4 * chunk * channel_tile
+            + chunk // SEGMENT * channel_tile * 8
+            + chunk // UNIT * channel_tile * 8 + channel_tile * 4)
+
+
+def takes(channel_tile: int, chunk: int) -> bool:
+    """The tiles and chunks the kernel takes (csrc/rg_lru.cu: takes)."""
+    return (channel_tile in CHANNEL_TILES and UNIT <= chunk <= MAX_CHUNK
+            and chunk % UNIT == 0
+            and threads_for(channel_tile, chunk) <= MAX_THREADS
+            and smem_bytes(channel_tile, chunk) <= SMEM_LIMIT)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """What a call launches: the channel tile and chunk length of a
+    block, its threads (compute warps of 8 channels x one 16-step segment
+    a thread, a fold warp per 32 channels up to two, a publisher warp),
+    the grid (one block a batch row, chunk and tile, in ticket order), a
+    block's shared memory, the unit aggregates' scratch and the sync
+    buffer's 32-bit words (a header, then one flag a block).  A block's
+    tile arrives as TMA boxes of 64 steps, each on its own barrier: no
+    ring (a block runs one chunk)."""
+    channel_tile: int
+    chunk: int
+    n_chunks: int
+    n_tiles: int
+    threads: int
+    grid: int
+    smem_bytes: int
+    scratch_bytes: int
+    sync_words: int
+    segment: int = SEGMENT
+    unit: int = UNIT
+
+    @property
+    def warps(self) -> int:
+        return -(-self.threads // 32)
+
+    @property
+    def label(self) -> str:
+        return (f"tile {self.channel_tile} ch, chunk {self.chunk}, "
+                f"{self.threads} threads, grid {self.grid}")
+
+
+def _blocks(b: int, t: int, w: int, channel_tile: int, chunk: int) -> int:
+    return b * -(-t // chunk) * -(-w // channel_tile)
+
+
+def schedule(b: int, t: int, w: int, chunk: int | None = None,
+             channel_tile: int | None = None) -> Schedule:
+    """The launch for (B, T, W): the first (tile, chunk) of
+    :data:`LADDER` whose grid reaches :data:`MIN_BLOCKS`, two blocks an
+    SM of an H100 (a chunk longer than T rounded up to a unit is
+    skipped), else the ladder's last.  ``chunk`` or ``channel_tile`` may
+    override either.  Refuses B outside 1 to 65535, T < 1, W < 1 and a
+    tile and chunk the kernel does not take."""
+    if not 0 < b <= MAX_B:
+        raise ValueError(f"rg_lru_scan kernel takes 1 to {MAX_B} batch "
+                         f"rows, got {b}")
+    if t < 1 or w < 1:
+        raise ValueError(f"rg_lru_scan kernel takes T, W >= 1, got "
+                         f"T={t}, W={w}")
+    t_units = -(-t // UNIT) * UNIT
+    picks = [(ct, ck) for ct, ck in LADDER if ck <= t_units]
+    pick = next((p for p in picks if _blocks(b, t, w, *p) >= MIN_BLOCKS),
+                LADDER[-1])
+    ct = pick[0] if channel_tile is None else channel_tile
+    ck = pick[1] if chunk is None else chunk
+    if not takes(ct, ck):
+        raise ValueError(f"rg_lru_scan kernel takes a tile of "
+                         f"{CHANNEL_TILES} channels and a chunk of whole "
+                         f"{UNIT}-step units up to {MAX_CHUNK} within "
+                         f"{MAX_THREADS} threads and {SMEM_LIMIT} B, got "
+                         f"tile {ct}, chunk {ck}")
+    n_chunks, n_tiles = -(-t // ck), -(-w // ct)
+    grid = b * n_chunks * n_tiles
+    return Schedule(
+        channel_tile=ct, chunk=ck, n_chunks=n_chunks, n_tiles=n_tiles,
+        threads=threads_for(ct, ck), grid=grid,
+        smem_bytes=smem_bytes(ct, ck),
+        scratch_bytes=8 * b * (n_chunks - 1) * (ck // UNIT) * w,
+        sync_words=SYNC_HEADER + grid)
+
+
+# the sync buffer of each (device, stream): a ticket and generation word
+# and one flag a block, zeroed once; each launch leaves it for the next
+_SYNC: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _sync(dev: torch.device, stream: int, words: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    s = _SYNC.get(key)
+    if s is None or s.numel() < words:
+        s = torch.zeros(words, dtype=torch.int32, device=dev)
+        _SYNC[key] = s
+    return s
+
+
+def _check(x, a, h0) -> None:
+    ts = [t for t in (x, a, h0) if t is not None]
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("rg_lru_scan: x, a, h0 must be on one CUDA device")
+    if x.dtype != torch.bfloat16 or a.dtype != torch.bfloat16:
+        raise TypeError(f"rg_lru_scan kernel takes bfloat16 x and a, got "
+                        f"{x.dtype}/{a.dtype}")
+    if x.dim() != 3 or a.shape != x.shape:
+        raise ValueError(f"rg_lru_scan: x {tuple(x.shape)} and a "
+                         f"{tuple(a.shape)} must be one (B, T, W) shape")
+    b, _, w = x.shape
+    if h0 is not None and (h0.shape != (b, w) or h0.dtype != torch.float32):
+        raise ValueError(f"rg_lru_scan: h0 must be ({b}, {w}) float32, got "
+                         f"{tuple(h0.shape)} {h0.dtype}")
+    if not all(u.is_contiguous() for u in ts):
+        raise ValueError("rg_lru_scan kernel takes contiguous operands")
 
 
 def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
@@ -32,37 +204,143 @@ def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel or raises."""
-    global launches
     ts = [t for t in (x, a, h0) if t is not None]
     if all(t.device.type == "cpu" for t in ts):
         return ref.rg_lru_scan(x, a, h0)
-    if not all(t.is_cuda and t.device == x.device for t in ts):
-        raise ValueError("rg_lru_scan: x, a, h0 must be on one CUDA device")
-    if x.dtype != torch.bfloat16 or a.dtype != torch.bfloat16:
-        raise TypeError(f"rg_lru_scan kernel takes bfloat16 x and a, got "
-                        f"{x.dtype}/{a.dtype}")
-    if x.dim() != 3 or a.shape != x.shape:
-        raise ValueError(f"rg_lru_scan: x {tuple(x.shape)} and a "
-                         f"{tuple(a.shape)} must be one (B, T, W) shape")
+    _check(x, a, h0)
     b, t, w = x.shape
-    if h0 is not None and (h0.shape != (b, w) or h0.dtype != torch.float32):
-        raise ValueError(f"rg_lru_scan: h0 must be ({b}, {w}) float32, got "
-                         f"{tuple(h0.shape)} {h0.dtype}")
-    if not all(u.is_contiguous() for u in ts):
-        raise ValueError("rg_lru_scan kernel takes contiguous operands")
-    h = torch.empty_like(x)
     if t == 0 or b == 0 or w == 0:
-        return h, (torch.zeros((b, w), dtype=torch.float32, device=x.device)
-                   if h0 is None else h0.clone())
-    h_t = torch.empty((b, w), dtype=torch.float32, device=x.device)
-    vec = int(w % 8 == 0 and x.data_ptr() % 16 == 0
-              and a.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
+        return torch.empty_like(x), (
+            torch.zeros((b, w), dtype=torch.float32, device=x.device)
+            if h0 is None else h0.clone())
+    return _launch(x, a, h0, schedule(b, t, w), None, None, None)
+
+
+def run_schedule(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
+                 sched: Schedule, *, out: torch.Tensor | None = None,
+                 h_t: torch.Tensor | None = None,
+                 scratch: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on ``sched`` (CUDA tensors, checked as
+    :func:`rg_lru_scan` checks them; ``sched`` must be the shape's
+    schedule at its tile and chunk).  ``out``, ``h_t`` and ``scratch``
+    (``sched.scratch_bytes`` of fp32) may be handed in, as the card tests
+    do to fill them with NaN first; otherwise they are allocated here."""
+    _check(x, a, h0)
+    b, t, w = x.shape
+    if sched != schedule(b, t, w, sched.chunk, sched.channel_tile):
+        raise ValueError(f"rg_lru_scan: schedule {sched} is not the one "
+                         f"for {tuple(x.shape)}")
+    if scratch is not None and \
+            scratch.numel() * scratch.element_size() < sched.scratch_bytes:
+        raise ValueError(f"rg_lru_scan: scratch of "
+                         f"{scratch.numel() * scratch.element_size()} B, "
+                         f"the schedule needs {sched.scratch_bytes}")
+    return _launch(x, a, h0, sched, out, h_t, scratch)
+
+
+def _launch(x, a, h0, sched: Schedule, out, h_t, scratch):
+    global launches
+    b, t, w = x.shape
+    dev = x.device
+    if out is None:
+        out = torch.empty_like(x)
+    if h_t is None:
+        h_t = torch.empty((b, w), dtype=torch.float32, device=dev)
+    if scratch is None:
+        scratch = torch.empty(sched.scratch_bytes // 4, dtype=torch.float32,
+                              device=dev)
+    vec = int(w % 8 == 0 and all(u.data_ptr() % 16 == 0
+                                 for u in (x, a, out)))
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        sync = _sync(dev, stream, sched.sync_words)
         rc = _build.lib().rt_rg_lru_scan(
             x.data_ptr(), a.data_ptr(),
-            None if h0 is None else h0.data_ptr(), h.data_ptr(),
-            h_t.data_ptr(), b, t, w, vec, stream)
+            None if h0 is None else h0.data_ptr(), out.data_ptr(),
+            h_t.data_ptr(), scratch.data_ptr(), sync.data_ptr(), b, t, w,
+            sched.channel_tile, sched.chunk, vec, stream)
     _build.check(rc, "rg_lru_scan")
     launches += 1
-    return h, h_t
+    return out, h_t
+
+
+# ---------------------------------------------------------------------------
+# the kernel's arithmetic, in plain PyTorch (tests only)
+# ---------------------------------------------------------------------------
+
+def _staged(x: torch.Tensor, a: torch.Tensor, sched: Schedule):
+    """x and a in fp32 as the kernel stages them: padded past T with
+    a = 1, x = 0 up to a whole unit, as (B, segments, segment, W)."""
+    b, t, w = x.shape
+    n_u = -(-t // sched.unit)
+    pad = n_u * sched.unit - t
+    shape = (b, n_u * sched.unit // sched.segment, sched.segment, w)
+    return (F.pad(x.float(), (0, 0, 0, pad)).view(shape),
+            F.pad(a.float(), (0, 0, 0, pad), value=1.0).view(shape))
+
+
+def _fold(av: torch.Tensor, xv: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A, X) of the steps along dimension 2, in order, from (1, 0):
+    X ← a·X + x, A ← a·A."""
+    A = torch.ones_like(av.select(2, 0))
+    X = torch.zeros_like(A)
+    for r in range(av.shape[2]):
+        X = av[:, :, r] * X + xv[:, :, r]
+        A = av[:, :, r] * A
+    return A, X
+
+
+def aggregates(x: torch.Tensor, a: torch.Tensor, *, sched: Schedule):
+    """The kernel's aggregates: each segment's (A, X), (B, units,
+    segments a unit, W), and each unit's, (B, units, W), in fp32; the
+    units the kernel publishes are the first ``(n_chunks - 1) · chunk /
+    unit``.  For the tests only."""
+    xs, as_ = _staged(x, a, sched)
+    b, n_s, _, w = xs.shape
+    per = sched.unit // sched.segment
+    sA, sX = (v.view(b, n_s // per, per, w) for v in _fold(as_, xs))
+    return (sA, sX), _fold(sA, sX)
+
+
+def chunked_model(x: torch.Tensor, a: torch.Tensor,
+                  h0: torch.Tensor | None = None, *, sched: Schedule
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/rg_lru.cu``'s decomposition and rounding points, in plain
+    PyTorch on any device, for any float dtype (fp32 carry).
+
+    Steps past T are padded as a = 1, x = 0 up to a whole unit.  Each
+    segment of ``sched.segment`` steps anchored at t = 0 folds its steps
+    from (A, X) = (1, 0): X ← a·X + x, A ← a·A; each unit of
+    ``sched.unit`` steps folds its segments' aggregates in time order the
+    same way (:func:`aggregates`); the carry at each unit's start is the
+    fold from ``h0`` (or 0) over every earlier unit, ``K ← A_u·K + X_u``;
+    the carry at each segment's start continues from its unit's through
+    the unit's earlier segments; each step is re-scanned from there,
+    ``h ← a·h + x``, and rounded once to ``x.dtype``; h_T is the carry
+    past the last unit.  Every product and sum is a separate fp32
+    operation, as the kernel's ``__fmul_rn`` and ``__fadd_rn`` are.
+    Nothing here depends on the schedule's tile or chunk, nor does the
+    kernel's result.  Returns what :func:`rg_lru_scan` returns.  For the
+    tests only: nothing on the served path calls it."""
+    b, t, w = x.shape
+    xs, as_ = _staged(x, a, sched)
+    (sA, sX), (uA, uX) = aggregates(x, a, sched=sched)
+    k = (torch.zeros((b, w), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    carries = []
+    for u in range(uA.shape[1]):
+        carries.append(k)
+        k = uA[:, u] * k + uX[:, u]
+    H = torch.stack(carries, 1)                      # (B, units, W)
+    starts = []
+    for q in range(sA.shape[2]):
+        starts.append(H)
+        H = sA[:, :, q] * H + sX[:, :, q]
+    H = torch.stack(starts, 2).view(b, -1, w)        # (B, segments, W)
+    out = torch.empty_like(xs)
+    for r in range(sched.segment):
+        H = as_[:, :, r] * H + xs[:, :, r]
+        out[:, :, r] = H
+    return out.view(b, -1, w)[:, :t].to(x.dtype), k

@@ -404,6 +404,107 @@ def test_rg_lru_scan_carries_state_through_padding(dev):
     assert torch.equal(h_t, h_n)
 
 
+def _rg_lru_inputs(dev, seed, b, t, w):
+    x = _rand(dev, seed, b, t, w, scale=0.5)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    a = (0.79 + 0.2 * torch.rand((b, t, w), generator=g, device=dev)).to(
+        torch.bfloat16)
+    h0 = torch.randn((b, w), generator=g, device=dev)
+    return x, a, h0
+
+
+def _rg_lru_nan(x, sched):
+    """h, h_T and the unit aggregates' scratch filled with NaN, so that a
+    check cannot pass on what an earlier launch left in memory."""
+    b, _, w = x.shape
+    nan = float("nan")
+    return dict(out=torch.full_like(x, nan),
+                h_t=torch.full((b, w), nan, device=x.device),
+                scratch=torch.full((max(1, sched.scratch_bytes // 4),), nan,
+                                   device=x.device))
+
+
+@pytest.mark.parametrize("b,t,w", [
+    (1, 4096, 4096),             # recurrentgemma-9b's widest prefill
+    (1, 128, 4096),              # its shortest served bucket
+    (2, 1000, 4000),             # ragged T and W
+    (2, 37, 13),                 # W % 8 != 0: element copies
+    (3, 200, 256),
+])
+def test_rg_lru_scan_is_the_chunked_model_bit_for_bit(dev, b, t, w):
+    """Every rounding point of ``chunked_model`` is the kernel's: h and
+    h_T equal it bit for bit, with and without h0."""
+    x, a, h0 = _rg_lru_inputs(dev, 31, b, t, w)
+    sched = rg_lru.schedule(b, t, w)
+    for init in (None, h0):
+        h, h_t = rg_lru.run_schedule(x, a, init, sched,
+                                     **_rg_lru_nan(x, sched))
+        want, want_t = rg_lru.chunked_model(x, a, init, sched=sched)
+        torch.cuda.synchronize()
+        assert torch.equal(h, want) and torch.equal(h_t, want_t)
+
+
+def test_rg_lru_scan_grid_many_waves_deep(dev):
+    """(4, 4096, 4096) with h0: 4096 blocks, about ten waves of the
+    card's resident blocks, each waiting on earlier tickets only."""
+    x, a, h0 = _rg_lru_inputs(dev, 33, 4, 4096, 4096)
+    sched = rg_lru.schedule(4, 4096, 4096)
+    assert sched.grid == 4096
+    h, h_t = rg_lru.run_schedule(x, a, h0, sched, **_rg_lru_nan(x, sched))
+    want, want_t = ref.rg_lru_scan(x, a, h0)
+    _close(h, want)
+    torch.testing.assert_close(h_t, want_t, rtol=1e-4, atol=1e-4)
+    model, model_t = rg_lru.chunked_model(x, a, h0, sched=sched)
+    assert torch.equal(h, model) and torch.equal(h_t, model_t)
+
+
+def test_rg_lru_scan_two_launches_are_bit_identical(dev):
+    x, a, h0 = _rg_lru_inputs(dev, 35, 2, 3000, 4096)
+    h1, t1 = rg_lru.rg_lru_scan(x, a, h0)
+    h2, t2 = rg_lru.rg_lru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2) and torch.equal(t1, t2)
+
+
+@pytest.mark.parametrize("b,t,w", [(1, 2048, 4096), (2, 700, 264)])
+def test_rg_lru_scan_every_schedule_gives_the_same_bits(dev, b, t, w):
+    """The values are fixed by the 16-step segments and 64-step units,
+    not by the tile or the chunk: other schedules give the default's
+    bits."""
+    x, a, h0 = _rg_lru_inputs(dev, 37, b, t, w)
+    want = rg_lru.rg_lru_scan(x, a, h0)
+    for ct, ck in [(64, 128), (128, 64), (32, 256), (8, 64)]:
+        sched = rg_lru.schedule(b, t, w, ck, ct)
+        got = rg_lru.run_schedule(x, a, h0, sched, **_rg_lru_nan(x, sched))
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_rg_lru_footprints_agree_with_the_launcher(dev):
+    from repro_torch.kernels import _build
+    for ct in rg_lru.CHANNEL_TILES + (24,):
+        for chunk in range(32, 1025, 32):
+            want = rg_lru.smem_bytes(ct, chunk) if rg_lru.takes(ct, chunk) \
+                else -1
+            assert _build.lib().rt_rg_lru_smem_bytes(ct, chunk) == want
+
+
+def test_rg_lru_launcher_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels import _build
+    x, a, _ = _rg_lru_inputs(dev, 39, 1, 64, 64)
+    h, h_t = torch.empty_like(x), torch.empty((1, 64), device=dev)
+    sync = torch.zeros(64, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for ct, chunk, b in [(24, 64, 1), (64, 96, 1), (64, 2048, 1),
+                         (64, 64, 0), (64, 64, 65536)]:
+        rc = _build.lib().rt_rg_lru_scan(
+            x.data_ptr(), a.data_ptr(), None, h.data_ptr(), h_t.data_ptr(),
+            None, sync.data_ptr(), b, 64, 64, ct, chunk, 1, stream)
+        assert rc != 0
+    with pytest.raises(ValueError):             # not the shape's schedule
+        rg_lru.run_schedule(x, a, None, rg_lru.schedule(1, 128, 64))
+
+
 def _mlstm_inputs(dev, seed, b, h, t, dh):
     """bf16 q, k, v and fp32 gates, the forget gate shifted by 3 as the
     model shifts it."""
