@@ -49,7 +49,13 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    chunk length, two launches are checked bit-identical, and each row
    keeps three bounds apart: the function's (which the kernel is held
    to), the work this design does (split-bf16 products, the Q K^T
-   scratch) and the step-by-step fp32 recurrence's.
+   scratch) and the step-by-step fp32 recurrence's.  The flash forward
+   rows are timed again with the row logsumexp a training forward writes
+   (``lse_ms``).  The flash backward kernels are held against
+   ``ref.attention_bwd`` (dQ, dK, dV; dO ~ N(0, 1)) at llama's 24/8 at
+   the train path's 2 x 1024 and at T = 2048, granite's MQA 48/1 at T =
+   2048, a ragged (2, 24/8, 1000) and whisper-base's cross-attention,
+   two launches bit-identical, each beside SDPA's backward.
 3. Serve llama3.2-3b at full width (28 layers, bf16, random weights from a
    seed) with ``ftl_mode='fused'`` on the ``h100`` planning target: 8
    requests, 4 slots, paged KV.  The launch counters are set to 0 just
@@ -101,7 +107,21 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    further each layer, in the JAX reference as in the port
    (``tests/test_torch_xlstm_growth.py``), so GEMMs of other shapes part
    by O(1) logits after 48 layers.
-11. One JSON line for the kernels, then the result line.
+11. Train llama3.2-3b at full width (3,212,749,824 parameters, bf16
+   weights, fp32 AdamW moments, random weights from a seed, loaded after
+   xlstm-1.3b's are freed) through ``repro_torch.launch.train.build``: 4
+   steps of 4 x 1024 bigram tokens in 2 microbatches, ``cfg.remat`` on,
+   ``ftl_mode='off'`` (projections and MLP are ``torch.matmul``; the
+   attention core is the flash kernel and its backward).  The launch
+   counters are set to 0 just before the run and read just after: 2 x 28
+   x 2 forward launches a step (remat runs each layer's forward again),
+   28 x 2 backward launches, no other kernel.  Losses and gradient norms
+   must be finite.  Then one profiled step (device busy share), one
+   microbatch's gradients through the kernels against the plain
+   Function's (``backend='ref'``), leaf by leaf within
+   2e-2 relative, and a step under ``ftl_mode='fused'``, which must raise
+   (the fused MLP and the GEMM have no backward kernel yet).
+12. One JSON line for the kernels, then the result line.
 
 It exits non-zero, printing no result, when no CUDA device is visible,
 and when it stands alone without the rest of the repository.
@@ -109,6 +129,7 @@ and when it stands alone without the rest of the repository.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -116,6 +137,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -153,6 +175,15 @@ VIT_B = "vit-b (paper op)"
 # whisper-base's cross-attention (head_dim 64, Tq != Tk, not causal); the
 # encoder-decoder family is not served yet
 WHISPER_X = "whisper-base (cross-attention)"
+# the training path: llama3.2-3b at full width through the trainer
+TRAIN = "llama3.2-3b (train)"
+# repro.models.model.count_params of llama3.2-3b
+LLAMA_PARAMS = 3_212_749_824
+# the train path's gradients through the kernels against the plain
+# Function's, leaf by leaf: |g_kernel - g_plain| / |g_plain| (norms over
+# the leaf).  Both take bf16 products in another order, and the kernel
+# rounds P and dS to bf16 before its products
+GRAD_RTOL = 2e-2
 
 N_TIMED = 20
 
@@ -237,7 +268,8 @@ def kernel_cases(dev, timer):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             torch.bfloat16)
 
-    results = {"gemm": [], "flash_attention": [], "fused_mlp": [],
+    results = {"gemm": [], "flash_attention": [],
+               "flash_attention_bwd": [], "fused_mlp": [],
                "rg_lru_scan": [], "gemm_act": [], "mlstm_scan": []}
 
     # execute_block_plan's projections: llama's at m=1024, and
@@ -268,6 +300,7 @@ def kernel_cases(dev, timer):
             bound_ms=b, bound_by=why))
 
     results["flash_attention"] = flash_cases(dev, timer, randn)
+    results["flash_attention_bwd"] = flash_bwd_cases(dev, timer, randn)
     results["fused_mlp"] += fused_mlp_cases(
         dev, timer, randn, 3072, 8192, 3072, "silu", (1024, 256, 4), LLAMA)
     results["fused_mlp"] += fused_mlp_cases(
@@ -284,6 +317,8 @@ def kernel_cases(dev, timer):
             work = ("" if "work_bound_ms" not in c
                     else f", the design's work {c['work_bound_ms']} ms "
                          f"({c['work_bound_by']})")
+            if c.get("lse_ms") is not None:
+                work += f", with the row logsumexp {c['lse_ms']} ms"
             print(f"  {name} {c['shape']}: kernel {c['ms']} ms, bound "
                   f"{c['bound_ms']} ms ({c['bound_by']}){work}, plain "
                   f"{c['plain_ms']} ms{lib}")
@@ -359,9 +394,73 @@ def flash_cases(dev, timer, randn):
             ms=timer.ms(lambda: flash_attention.flash_attention(
                 q, kk, v, **kw)),
             other_height_ms=other_ms,
+            # with the row logsumexp a training forward writes (the
+            # backward takes head_dim <= 128 only)
+            lse_ms=(timer.ms(lambda: flash_attention._forward(
+                q, kk, v, with_lse=True, **kw))
+                if dh in flash_attention.BWD_HEAD_DIMS else None),
             plain_ms=timer.ms(lambda: ref.attention(q, kk, v, **kw)),
             library=lib_name, library_ms=timer.ms(lib),
             bound_ms=bd, bound_by=why))
+    return out
+
+
+def flash_bwd_cases(dev, timer, randn):
+    """The flash backward kernels against ``ref.attention_bwd`` on the
+    forward kernel's o and lse, dO ~ N(0, 1), in bf16 with phase 2's
+    rule: llama's GQA 24/8 at the train path's microbatch (2 x 1024) and
+    at T = 2048, granite-20b's MQA 48/1 at T = 2048, a ragged (2, 24/8,
+    1000) and whisper-base's cross-attention (8/8, 448 over 1500 keys,
+    head_dim 64, not causal).  Two launches must give the same bits.  The
+    one PyTorch call is SDPA's backward, through ``torch.autograd.grad``
+    on a saved graph; the bound counts 10 Dh operations for each
+    unmasked (query, key) pair of each head."""
+    from repro_torch.kernels import flash_attention, ref
+
+    out = []
+    rows = [(TRAIN, (2, 24, 8, 1024, 1024, 128), True),
+            (LLAMA, (1, 24, 8, 2048, 2048, 128), True),
+            (GRANITE, (1, 48, 1, 2048, 2048, 128), True),
+            (LLAMA, (2, 24, 8, 1000, 1000, 128), True),
+            (WHISPER_X, (1, 8, 8, 448, 1500, 64), False)]
+    for path, (b_, hq, hk, tq, tk, dh), causal in rows:
+        q, kk, v = (randn(b_, hq, tq, dh), randn(b_, hk, tk, dh),
+                    randn(b_, hk, tk, dh))
+        do = randn(b_, hq, tq, dh)
+        kw = dict(causal=causal, window=None, q_offset=0)
+        label = (f"flash_attention_bwd B={b_} Hq={hq} Hk={hk} Tq={tq} "
+                 f"Tk={tk} D={dh} {'causal' if causal else 'not causal'}")
+        o, lse = flash_attention._forward(q, kk, v, with_lse=True, **kw)
+        got = flash_attention.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
+        want = ref.attention_bwd(q, kk, v, o, lse, do, **kw)
+        err = max(compare(g, w, f"{label} {n}")
+                  for n, g, w in zip(("dq", "dk", "dv"), got, want))
+        again = flash_attention.flash_attention_bwd(q, kk, v, o, lse, do,
+                                                    **kw)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        print(f"  {label}: two launches bit-identical: {same}")
+        check(same, f"{label}: two launches differ")
+        del got, want, again
+        pairs = (tq * (tq + 1) // 2 if causal else tq * tk)
+        nbytes = (2 * 4 * q.numel() + 2 * 4 * kk.numel()
+                  + 4 * lse.numel())
+        bd, why = bound_ms(nbytes, 10 * b_ * hq * dh * pairs)
+        ts = [t.detach().clone().requires_grad_() for t in (q, kk, v)]
+        sdpa = F.scaled_dot_product_attention(*ts, is_causal=causal,
+                                              enable_gqa=True)
+        out.append(dict(
+            path=path, shape=[b_, hq, hk, tq, tk, dh], causal=causal,
+            max_abs_err=err, bit_identical=same,
+            ms=timer.ms(lambda: flash_attention.flash_attention_bwd(
+                q, kk, v, o, lse, do, **kw)),
+            plain_ms=timer.ms(lambda: ref.attention_bwd(
+                q, kk, v, o, lse, do, **kw)),
+            library=f"SDPA backward, is_causal={causal}",
+            library_ms=timer.ms(lambda: torch.autograd.grad(
+                sdpa, ts, do, retain_graph=True)),
+            bound_ms=bd, bound_by=why))
+        del sdpa, ts
+        torch.cuda.empty_cache()
     return out
 
 
@@ -737,6 +836,8 @@ def mlstm_cases(dev, timer, randn):
 
 KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "flash_attention": r"(^|::)flash_kernel\b",
+             # one call: D = rowsum(dO o), then dK/dV, then dQ
+             "flash_attention_bwd": r"(^|::)(dsum|dkdv|dq)_kernel\b",
              "fused_mlp": r"(^|::)fused_mlp_kernel\b",
              "rg_lru_scan": r"(^|::)rg_lru_kernel\b",
              "gemm_act": r"(^|::)gemm_act_kernel\b",
@@ -1157,6 +1258,181 @@ def forward_timed(cfg, params, dev, b: int = 2, s: int = 2048):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: train llama3.2-3b at full width through the trainer
+# ---------------------------------------------------------------------------
+
+def _device_kernels(prof) -> dict:
+    """{kernel name: [launches, device ms]} from the profiler's raw
+    events."""
+    kern = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kern.setdefault(ev.name(), [0, 0.0])
+            k[0] += 1
+            k[1] += ev.duration_ns() / 1e6
+    return kern
+
+
+def train_phase(dev, card: str, modules: dict) -> dict:
+    """llama3.2-3b at full width (28 layers, bf16, random weights from a
+    seed) through ``repro_torch.launch.train.build``: 4 steps of 4 x 1024
+    bigram tokens in 2 microbatches, ``cfg.remat`` on, ``ftl_mode='off'``,
+    no checkpoint directory.  Every launch counter is set to 0 just before
+    the run and read just after: the flash forward must have launched
+    2 x 28 x 2 times a step (remat runs each layer's forward again in the
+    backward pass), its backward 28 x 2 times, and no other kernel.  Then
+    one profiled step for the device's busy share, one microbatch's
+    gradients through the kernels against the plain Function's, and a
+    step under ``ftl_mode='fused'``, which must raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import steps as S
+
+    steps, batch, seq, accum = 4, 4, 1024, 2
+    args = train.parser().parse_args([
+        "--arch", LLAMA, "--steps", str(steps), "--batch", str(batch),
+        "--seq", str(seq), "--accum", str(accum), "--data", "bigram",
+        "--log-every", "1"])
+    cfg = get_config(LLAMA)
+    check(cfg.remat and cfg.ftl_mode == "off",
+          f"llama3.2-3b trains with remat on and ftl_mode 'off', got "
+          f"{cfg.remat}, {cfg.ftl_mode!r}")
+    t0 = time.perf_counter()
+    loop = train.build(args)
+    torch.cuda.synchronize()
+    leaves = M.tree_leaves(loop.state.params)
+    n_params = sum(t.numel() for t in leaves)
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   M.tree_leaves(loop.state.params)
+                   + M.tree_leaves(loop.state.opt)) / 1e9
+    print(f"  {LLAMA}: {cfg.n_layers} layers, {n_params} parameters, "
+          f"{state_gb} GB of bf16 weights and fp32 moments, built in "
+          f"{time.perf_counter() - t0} s")
+    check(n_params == LLAMA_PARAMS, f"{n_params} parameters, the "
+          f"reference counts {LLAMA_PARAMS}")
+
+    # --- the main path: counters from 0 ----------------------------------
+    for mod in modules.values():
+        mod.launches = 0
+    flash_attention.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: mod.launches for n, mod in modules.items()}
+    launches["flash_attention_bwd"] = flash_attention.bwd_launches
+    print(f"  main path launches: {launches}")
+    layers = cfg.n_layers
+    check(launches["flash_attention"] == 2 * layers * accum * steps,
+          f"flash forward launched {launches['flash_attention']} times, "
+          f"not 2 x {layers} x {accum} a step")
+    check(launches["flash_attention_bwd"] == layers * accum * steps,
+          f"flash backward launched {launches['flash_attention_bwd']} "
+          f"times, not {layers} x {accum} a step")
+    check(all(v == 0 for n, v in launches.items()
+              if not n.startswith("flash_attention")),
+          f"a kernel off the train path launched: {launches}")
+    log = loop.metrics_log
+    check(len(log) == steps and all(
+        np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+        for m in log), f"non-finite loss or grad norm: {log}")
+    secs = [st.seconds for st in loop.monitor.history]
+    step_s = statistics.median(secs[1:])
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    mem = torch.cuda.memory_stats(dev)
+    print(f"  {steps} steps in {wall} s, step seconds {secs}; steady step "
+          f"(median of steps 2-{steps}) {step_s} s: {batch * seq / step_s} "
+          f"training tokens/s; peak device memory {peak} GB; the caching "
+          f"allocator's retries {mem['num_alloc_retries']}, device "
+          f"allocations {mem['num_device_alloc']} and frees "
+          f"{mem['num_device_free']} [{card}]")
+
+    # --- one profiled step: the device's busy share ------------------------
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    data = loop.make_batch(steps)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        loop.state, m = loop.step_fn(loop.state, data)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kern = _device_kernels(prof)
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    print("  profiler: top operators by their own device time (ms, calls): "
+          + "; ".join(f"{e.key} {e.self_device_time_total / 1e3} ms "
+                      f"x{e.count}" for e in top[:10]))
+    del prof
+    for name in ("flash_attention", "flash_attention_bwd"):
+        hits = [n for n in kern if re.search(KERNEL_RE[name], n)]
+        check(bool(hits), f"{name} kernel missing from the profiler's "
+              f"device-kernel list")
+        print(f"  profiler: {name}: {sum(kern[h][0] for h in hits)} "
+              f"launches, {sum(kern[h][1] for h in hits)} ms on the device")
+    busy = sum(v[1] for v in kern.values())
+    print("  profiler: top device kernels (ms, count): " + "; ".join(
+        f"{n[:60]} {v[1]} ms x{v[0]}" for n, v in
+        sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]))
+    print(f"  profiler: one train step, device kernel time {busy} ms of "
+          f"{prof_ms} ms wall: device busy {busy / prof_ms} [{card}]")
+
+    # --- gradients through the kernels against the plain Function ---------
+    mb = {"tokens": data["tokens"][:batch // accum]}
+    loss_fn = S.make_loss_fn(cfg)
+
+    def grads():
+        loss, _ = loss_fn(loop.state.params, mb)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    lk, gk = grads()
+    # the model's attention core (models/layers.py:_attend) through the
+    # plain Function: the same autograd Function, its plain passes
+    with mock.patch.object(ops, "attention", functools.partial(
+            ops.attention, backend="ref")):
+        lp, gp = grads()
+    names = [n for n, _ in _flat_names(loop.state.params)]
+    rel = {}
+    for name, a, b in zip(names, gk, gp):
+        rel[name] = float(torch.linalg.vector_norm(a.float() - b.float())
+                          / torch.linalg.vector_norm(b.float()))
+    del gk, gp
+    worst = max(rel, key=rel.get)
+    print(f"  gradients, kernels against the plain Function on one "
+          f"microbatch: loss {lk} against {lp}; worst leaf {worst} "
+          f"|g_kernel - g_plain| / |g_plain| = {rel[worst]} (tolerance "
+          f"{GRAD_RTOL}); every leaf: {rel}")
+    check(all(np.isfinite(v) for v in rel.values())
+          and rel[worst] <= GRAD_RTOL, "gradients through the kernels "
+          "disagree with the plain Function's")
+
+    # --- a kernel with no backward refuses to train -----------------------
+    step = S.make_train_step(dataclasses.replace(cfg, ftl_mode="fused"),
+                             None, OptConfig())
+    try:
+        step(loop.state, mb)
+    except NotImplementedError as e:
+        print(f"  a step under ftl_mode='fused' raises: {e}")
+        check("no backward kernel yet" in str(e), f"unexpected error: {e}")
+    else:
+        check(False, "a CUDA step under ftl_mode='fused' did not raise")
+    del loop, leaves
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _flat_names(tree, pre=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_names(v, f"{pre}{k}/")
+        else:
+            yield pre + k, v
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1269,6 +1545,9 @@ def main() -> int:
             engine_vs_model(cfg, params, dev, n_plain)
         del params
         torch.cuda.empty_cache()
+    print(f"== train {LLAMA}, full width, through the trainer (at "
+          f"{time.perf_counter() - t_start} s)")
+    launches[TRAIN] = train_phase(dev, card, kernels)
     print(f"  total {time.perf_counter() - t_start} s")
 
     meta = {
@@ -1276,6 +1555,9 @@ def main() -> int:
                  "src/repro/kernels/gemm.py:34"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:82"),
+        "flash_attention_bwd": (
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "the gradient of src/repro/kernels/flash_attention.py:82"),
         "fused_mlp": ("src/repro_torch/csrc/fused_mlp.cu",
                       "src/repro/kernels/fused_mlp.py:75"),
         "rg_lru_scan": ("src/repro_torch/csrc/rg_lru.cu",
@@ -1291,6 +1573,7 @@ def main() -> int:
     # "cases" every shape
     head_path = {n: arch for arch, (names, _, _) in paths.items()
                  for n in names}
+    head_path["flash_attention_bwd"] = TRAIN
     head = {name: next(c for c in cases if c["path"] == head_path[name])
             for name, cases in results.items()}
     line = {"kernels": [
@@ -1301,7 +1584,7 @@ def main() -> int:
                               if name in n},
          **{k: head[name][k] for k in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "work_bound_ms", "library_ms", "shape", "tile_loop")
+             "work_bound_ms", "library_ms", "lse_ms", "shape", "tile_loop")
             if k in head[name]},
          "cases": results[name]}
         for name, (src, rep) in meta.items()]}

@@ -55,9 +55,11 @@ constexpr int MAX_STAGES = 4;
 constexpr int MAX_TILES = 1024;  // query tiles the launch order can list
 constexpr int BAR_BYTES = 256;   // the Q, full and empty mbarriers
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   CUtensorMap q, k, v, o;  // (Dh, T, B * H) bf16, 128-byte swizzle
+  float* lse;              // (B * Hq, Tq) row logsumexp, written if LSE
   int B, Hq, Hk, Tq, Tk, causal, window, q_offset, stages;
   float scale_log2;            // Dh^-0.5 * log2(e)
   uint16_t order[MAX_TILES];   // query tiles, heaviest first
@@ -163,7 +165,11 @@ __device__ __forceinline__ void softmax(float (&s)[SN], float (&m)[2],
   for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
 }
 
-template <int D, int BQ>
+// LSE: also write each row's logsumexp of its scaled scores, m * scale +
+// ln(l) (+inf for a row that saw no key), which the backward reads.  A
+// template flag, not a run-time branch: it is read only in the epilogue,
+// after the last wgmma wait, and serving's kernel holds no trace of it.
+template <int D, int BQ, bool LSE>
 __global__ void __launch_bounds__(Cfg<D, BQ>::THREADS, 1)
     flash_kernel(const __grid_constant__ Params p) {
   using C = Cfg<D, BQ>;
@@ -379,6 +385,18 @@ __global__ void __launch_bounds__(Cfg<D, BQ>::THREADS, 1)
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
       inv[h] = l[h] == 0.f ? 1.f : 1.f / l[h];
     }
+    if constexpr (LSE) {
+      if (t == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = q0 + cw * 64 + warp * 16 + g + 8 * h;
+          if (r < p.Tq)
+            p.lse[static_cast<size_t>(bh) * p.Tq + r] =
+                l[h] == 0.f ? __int_as_float(0x7f800000)
+                            : (m[h] * p.scale_log2 + __log2f(l[h])) * kLn2;
+        }
+      }
+    }
 #pragma unroll
     for (int jn = 0; jn < D / 8; ++jn)
 #pragma unroll
@@ -401,7 +419,7 @@ __global__ void __launch_bounds__(Cfg<D, BQ>::THREADS, 1)
   }
 }
 
-template <int D, int BQ>
+template <int D, int BQ, bool LSE>
 int launch(Params& p, const void* q, const void* k, const void* v, void* o,
            int n_tiles, cudaStream_t stream) {
   using C = Cfg<D, BQ>;
@@ -416,7 +434,7 @@ int launch(Params& p, const void* q, const void* k, const void* v, void* o,
     cr = rt::make_map_3d(enc, &p.o, o, p.B * p.Hq, p.Tq, D, 64);
   if (cr != CUDA_SUCCESS) return 1000 + static_cast<int>(cr);
   const int smem = C::smem_bytes(p.stages);
-  const void* fn = reinterpret_cast<const void*>(&flash_kernel<D, BQ>);
+  const void* fn = reinterpret_cast<const void*>(&flash_kernel<D, BQ, LSE>);
   cudaError_t rc = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   void* args[] = {&p};
@@ -424,6 +442,25 @@ int launch(Params& p, const void* q, const void* k, const void* v, void* o,
     rc = cudaLaunchKernel(fn, dim3(n_tiles * p.B * p.Hq), dim3(C::THREADS),
                           args, smem, stream);
   return static_cast<int>(rc);
+}
+
+template <bool LSE>
+int dispatch(Params& p, const void* q, const void* k, const void* v, void* o,
+             int D, int block_q, int n_tiles, cudaStream_t s) {
+  const bool tall = block_q == 128;
+  // the backward takes Dh <= 128, so there is no LSE build at 256
+  if constexpr (!LSE) {
+    if (D == 256)
+      return tall ? launch<256, 128, LSE>(p, q, k, v, o, n_tiles, s)
+                  : launch<256, 64, LSE>(p, q, k, v, o, n_tiles, s);
+  }
+  if (D == 128)
+    return tall ? launch<128, 128, LSE>(p, q, k, v, o, n_tiles, s)
+                : launch<128, 64, LSE>(p, q, k, v, o, n_tiles, s);
+  if (D == 64)
+    return tall ? launch<64, 128, LSE>(p, q, k, v, o, n_tiles, s)
+                : launch<64, 64, LSE>(p, q, k, v, o, n_tiles, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
@@ -436,13 +473,14 @@ int smem_of(int block_q, int stages) {
 
 // Launch on ``stream`` what kernels/flash_attention.py:schedule chose: the
 // tile height ``block_q``, the ring's ``stages`` and the launch order of
-// the ``n_tiles`` query tiles.  Returns the first cudaError_t; a tensor
-// map the driver refuses returns 1000 + its CUresult.
+// the ``n_tiles`` query tiles.  ``lse``: null, or a (B, Hq, Tq) fp32 buffer
+// for the rows' logsumexp (training).  Returns the first cudaError_t; a
+// tensor map the driver refuses returns 1000 + its CUresult.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* o, int B, int Hq, int Hk, int Tq,
-                                  int Tk, int D, int causal, int window,
-                                  int q_offset, int block_q, int stages,
-                                  const void* order, int n_tiles,
+                                  void* o, void* lse, int B, int Hq, int Hk,
+                                  int Tq, int Tk, int D, int causal,
+                                  int window, int q_offset, int block_q,
+                                  int stages, const void* order, int n_tiles,
                                   void* stream) {
   if ((block_q != 64 && block_q != 128) || stages < 2 ||
       stages > MAX_STAGES || n_tiles < 1 || n_tiles > MAX_TILES ||
@@ -453,21 +491,13 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
   p.B = B, p.Hq = Hq, p.Hk = Hk, p.Tq = Tq, p.Tk = Tk;
   p.causal = causal, p.window = window, p.q_offset = q_offset;
   p.stages = stages;
+  p.lse = static_cast<float*>(lse);
   p.scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
   const auto* ord = static_cast<const uint16_t*>(order);
   for (int i = 0; i < n_tiles; ++i) p.order[i] = ord[i];
   auto s = static_cast<cudaStream_t>(stream);
-  const bool tall = block_q == 128;
-  if (D == 256)
-    return tall ? launch<256, 128>(p, q, k, v, o, n_tiles, s)
-                : launch<256, 64>(p, q, k, v, o, n_tiles, s);
-  if (D == 128)
-    return tall ? launch<128, 128>(p, q, k, v, o, n_tiles, s)
-                : launch<128, 64>(p, q, k, v, o, n_tiles, s);
-  if (D == 64)
-    return tall ? launch<64, 128>(p, q, k, v, o, n_tiles, s)
-                : launch<64, 64>(p, q, k, v, o, n_tiles, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (lse) return dispatch<true>(p, q, k, v, o, D, block_q, n_tiles, s);
+  return dispatch<false>(p, q, k, v, o, D, block_q, n_tiles, s);
 }
 
 // Dynamic shared memory of one block (kernels/flash_attention.py:

@@ -1,8 +1,10 @@
 """Where the port's entry points run.
 
-``init_params``, ``ServeEngine`` and the serve CLI run on the CUDA card
-unless the caller names another device; with no card and no device named
-they raise instead of carrying on quietly on the CPU.
+``init_params``, ``ServeEngine`` and the serve and train CLIs run on the
+CUDA card unless the caller names another device; with no card and no
+device named they raise instead of carrying on quietly on the CPU.
+:func:`process_rank` says which process of a job this is (the data
+pipeline's host shard, the checkpoint's file).
 """
 from __future__ import annotations
 
@@ -27,3 +29,13 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def process_rank() -> tuple[int, int]:
+    """(rank, world size) of this process: ``torch.distributed``'s when a
+    process group is up, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -34,8 +36,11 @@ SIGNATURES = {
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     "rt_gemm_smem_bytes": ((), _I),
     "rt_flash_attention": (
-        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-         _P), _I),
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+         _I, _P), _I),
+    "rt_flash_attention_bwd": (
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+         _I, _I, _P), _I),
     "rt_flash_smem_bytes": ((_I, _I, _I), _I),
     "rt_fused_mlp": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -140,6 +145,17 @@ def lib() -> ctypes.CDLL:
             fn.restype = restype
         _LIB.append(handle)
     return _LIB[0]
+
+
+def no_backward(what: str, *tensors) -> None:
+    """Raise where autograd would need the gradient of a kernel that has
+    no backward: grad mode on and some operand requiring a gradient.  A
+    kernel's output has no ``grad_fn``, so the gradient would otherwise
+    stop there without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{what}: no backward kernel yet; train "
+                                  f"with ftl_mode='off'")
 
 
 def check(rc: int, what: str) -> None:

@@ -21,6 +21,23 @@ the launch order of the query tiles, heaviest first; :func:`key_tiles`
 gives each tile's span of key tiles and the ones that need no mask, as the
 kernel computes them.  The plain version is
 :func:`repro_torch.kernels.ref.attention`.
+
+Training goes through :func:`attention`, a ``torch.autograd.Function``.
+Its forward launches the same kernel built with a template flag that
+also writes each row's fp32 logsumexp (+inf for a row that sees no key),
+in the epilogue after the last ``wgmma`` wait, so serving's build holds
+no trace of it.  Its backward launches ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd`): D = rowsum(dO ∘ O), then one block per
+(key tile, kv head, batch) for dK and dV, walking the group's q heads in
+a fixed order so that GQA's sum needs no atomics, then one block per
+(query tile, head, batch) for dQ; P is recomputed from the logsumexp.
+It is compute-bound like the forward (10·Tq·Tk·Dh FLOP a head, halved
+by the causal mask) and, for now, the simple design on ``mma.sync`` and
+``cp.async``; it takes head dims 64 and 128, and a head dim of 256
+under autograd raises.  The plain versions are
+:func:`repro_torch.kernels.ref.attention_lse` and
+:func:`repro_torch.kernels.ref.attention_bwd`; on CPU tensors the same
+Function runs them.
 """
 from __future__ import annotations
 
@@ -29,11 +46,13 @@ import dataclasses
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build, ref
 from .gemm import H100_SMS, sm_count
 
 HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)         # head dims the backward kernels take
 BLOCK_Q = (128, 64)               # query tile heights, the taller preferred
 MAX_STAGES = 4                    # K/V ring stages the kernel can hold
 MAX_TILES = 1024                  # query tiles the launch order can list
@@ -178,11 +197,13 @@ def _order_array(order: tuple[int, ...]):
 
 def run_schedule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  s: Schedule, *, causal: bool, window: int | None,
-                 q_offset: int) -> torch.Tensor:
+                 q_offset: int, lse: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """Attention by the kernel on schedule ``s``, for checked CUDA
     operands with ``k.shape[2] > 0`` (what :func:`flash_attention` launches
     with :func:`plan`; ``chip_smoke.py`` times other schedules with it).
-    Counts no launch."""
+    ``lse``, where given, is a (B, Hq, Tq) fp32 tensor the kernel fills
+    with each row's logsumexp.  Counts no launch."""
     b, hq, tq, dh = q.shape
     _, hk, tk, _ = k.shape
     o = torch.empty_like(q)
@@ -190,6 +211,7 @@ def run_schedule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = _build.lib().rt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            0 if lse is None else lse.data_ptr(),
             b, hq, hk, tq, tk, dh, int(causal),
             0 if window is None else int(window), int(q_offset),
             s.block_q, s.stages, _order_array(s.order), len(s.order),
@@ -198,28 +220,27 @@ def run_schedule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-# kernel launches since the last reset (``chip_smoke.py`` reads it)
+# kernel launches since the last reset (``chip_smoke.py`` reads them): the
+# forward kernel's, and the backward's (one for each call of
+# :func:`flash_attention_bwd`, which runs its three kernels)
 launches = 0
+bwd_launches = 0
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q (B, Hq, Tq, Dh), k/v (B, Hk, Tk, Dh) → (B, Hq, Tq, Dh).
+def _check(what: str, *ts: torch.Tensor) -> None:
+    q = ts[0]
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError(f"{what}: every operand must be on one CUDA "
+                         f"device")
+    if any(t.dtype != torch.bfloat16 for t in ts):
+        raise TypeError(f"{what} kernel takes bfloat16, got "
+                        f"{[str(t.dtype) for t in ts]}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
+        raise ValueError(f"{what} kernel takes contiguous, 16-byte aligned "
+                         f"operands")
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel or raises."""
-    global launches
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return ref.attention(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
-    if not all(t.is_cuda and t.device == q.device for t in (k, v)) \
-            or not q.is_cuda:
-        raise ValueError("flash_attention: q, k, v must be on one CUDA "
-                         "device")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"flash_attention kernel takes bfloat16, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+
+def _check_shapes(q, k, v, window, q_offset) -> None:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -237,15 +258,128 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v)):
-        raise ValueError("flash_attention kernel takes contiguous, "
-                         "16-byte aligned q, k, v")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool, window: int | None, q_offset: int,
+             with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The forward kernel on CUDA q, k, v: (o, lse or None)."""
+    global launches
+    _check("flash_attention", q, k, v)
+    _check_shapes(q, k, v, window, q_offset)
+    b, hq, tq, _ = q.shape
+    lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if q.numel() == 0:
-        return torch.empty_like(q)
-    if tk == 0:                      # no key: every row gives zeros
-        return torch.zeros_like(q)
+        return torch.empty_like(q), lse
+    if k.shape[2] == 0:              # no key: every row gives zeros
+        if lse is not None:
+            lse.fill_(float("inf"))
+        return torch.zeros_like(q), lse
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    o = run_schedule(q, k, v, plan(q, k, **kw), **kw)
+    o = run_schedule(q, k, v, plan(q, k, **kw), lse=lse, **kw)
     launches += 1
-    return o
+    return o, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """(dq, dk, dv) in bf16 by the backward kernels
+    (``csrc/flash_attention_bwd.cu``), for CUDA q, k, v, the forward's
+    output o and row logsumexp ``lse``, and the output gradient ``do``.
+    :func:`repro_torch.kernels.ref.attention_bwd` is the plain version.
+    Head dims 64 and 128."""
+    global bwd_launches
+    _check("flash_attention_bwd", q, k, v, o, do)
+    _check_shapes(q, k, v, window, q_offset)
+    b, hq, tq, dh = q.shape
+    _, hk, tk, _ = k.shape
+    if dh not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention backward: head_dim {dh} is not supported yet "
+            f"(the kernel takes {BWD_HEAD_DIMS})")
+    if o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (b, hq, tq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} "
+                         f"{lse.dtype} for q {tuple(q.shape)}")
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    if q.numel() == 0 or tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _build.lib().rt_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dsum.data_ptr(), b, hq, hk, tq, tk, dh,
+            int(causal), 0 if window is None else int(window),
+            int(q_offset), stream)
+    _build.check(rc, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def _plain(plain: bool, *ts: torch.Tensor) -> bool:
+    return plain or all(t.device.type == "cpu" for t in ts)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention with its gradient: the forward keeps o and the row
+    logsumexp, the backward recomputes P from them.  On the CPU, or with
+    ``plain``, both passes run the plain versions (``ref.attention_lse``,
+    ``ref.attention_bwd``); on a CUDA tensor they launch the kernels or
+    raise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, plain):
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        ctx.kw, ctx.plain = kw, _plain(plain, q, k, v)
+        if not ctx.plain and q.shape[-1] not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention backward: head_dim {q.shape[-1]} is not "
+                f"supported yet (the kernel takes {BWD_HEAD_DIMS})")
+        o, lse = (ref.attention_lse(q, k, v, **kw) if ctx.plain
+                  else _forward(q, k, v, with_lse=True, **kw))
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = ref.attention_bwd if ctx.plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              q_offset: int = 0, plain: bool = False) -> torch.Tensor:
+    """q (B, Hq, Tq, Dh), k/v (B, Hk, Tk, Dh) → (B, Hq, Tq, Dh), with its
+    gradient where autograd asks for one.  A CPU tensor, or ``plain``,
+    runs the plain versions; a CUDA tensor launches the forward kernel
+    (and, in the backward pass, the backward kernels) or raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, causal, window, q_offset, plain)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if _plain(plain, q, k, v):
+        return ref.attention(q, k, v, **kw)
+    return _forward(q, k, v, with_lse=False, **kw)[0]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q (B, Hq, Tq, Dh), k/v (B, Hk, Tk, Dh) → (B, Hq, Tq, Dh).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel or raises.  Differentiable: see :func:`attention`."""
+    return attention(q, k, v, causal=causal, window=window,
+                     q_offset=q_offset)

@@ -311,6 +311,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     ts = [t for t in (x, w1, w2, wg, b1, b2) if t is not None]
     if all(t.device.type == "cpu" for t in ts):
         return ref.mlp(x, w1, w2, wg, b1, b2, act=act)
+    _build.no_backward("fused_mlp", *ts)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("fused_mlp: every operand must be on one CUDA "
                          "device")

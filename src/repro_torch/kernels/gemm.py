@@ -184,6 +184,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     global launches
     if x.device.type == "cpu" and w.device.type == "cpu":
         return ref.gemm(x, w)
+    _build.no_backward("gemm", x, w)
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError(f"gemm: x on {x.device}, w on {w.device}; both "
                          f"must be on one CUDA device")

@@ -44,6 +44,7 @@ def gemm_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     ts = (x, w) if b is None else (x, w, b)
     if all(t.device.type == "cpu" for t in ts):
         return ref.gemm_act(x, w, b, act=act)
+    _build.no_backward("gemm_act", *ts)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError(f"gemm_act: x on {x.device}, w on {w.device}"
                          f"{'' if b is None else f', b on {b.device}'}; "

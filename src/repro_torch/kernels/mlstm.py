@@ -213,6 +213,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if all(t.device.type == "cpu" for t in ts):
         return ref.mlstm_scan(q, k, v, i_pre, f_pre,
                               return_state=return_state)
+    _build.no_backward("mlstm_scan", *ts)
     _check(q, k, v, i_pre, f_pre)
     b, h, t, dh = q.shape
     if t == 0 or b * h == 0:

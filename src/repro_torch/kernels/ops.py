@@ -8,13 +8,21 @@ the first: no caller asks for their plain versions on the card):
   * with ``backend='ref'`` runs the plain PyTorch version
     (:mod:`repro_torch.kernels.ref`): the layer-per-layer baseline.
 
-Each kernel's block sizes come from its own shared-memory footprint
-against the planning target's fast level: fixed tiles for ``gemm``,
-``gemm_act``, ``flash_attention``, ``rg_lru`` and ``mlstm`` (the
-registry qualifies the first three on that footprint), and for the fused
-MLP a schedule (:func:`repro_torch.kernels.fused_mlp.schedule`: M tile,
-F slice, hidden chunk and ring depth within ``target``'s fast level) of
-one kernel that sums its F-slice partials itself, in a fixed order.
+``attention`` is differentiable either way: both backends go through one
+``torch.autograd.Function`` (:func:`repro_torch.kernels.flash_attention.
+attention`), whose backward is the backward kernel on the card and the
+plain softmax-gradient equations with ``'ref'`` or on the CPU.  The
+other kernels have no backward yet: on a CUDA tensor that needs a
+gradient their wrappers raise.
+
+Each kernel picks its launch from its shapes in pure Python, its
+``schedule``: the tile widths and the split-K of ``gemm`` and
+``gemm_act`` (one tile loop, whose shared-memory footprint the registry
+qualifies them on), the query tile height and ring depth of
+``flash_attention``, the M tile, F slice, hidden chunk and ring depth of
+the fused MLP within ``target``'s fast level (one kernel that sums its
+F-slice partials itself, in a fixed order), the channel tile and chunk
+of the RG-LRU scan and the chunk length of the mLSTM scan.
 """
 from __future__ import annotations
 
@@ -67,12 +75,9 @@ def fused_mlp(x, w1, w2, wg=None, b1=None, b2=None, *, act: str = "gelu",
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               q_offset: int = 0, backend: Backend = "auto"):
     _check_backend(backend)
-    if backend == "ref":
-        return _ref.attention(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset)
-    return _flash.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal,
-                                  window=window, q_offset=q_offset)
+    return _flash.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=causal, window=window, q_offset=q_offset,
+                            plain=backend == "ref")
 
 
 def rg_lru(x, a, h0=None):

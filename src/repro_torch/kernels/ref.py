@@ -68,18 +68,16 @@ def mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 # attention (GQA + causal + local window)
 # ---------------------------------------------------------------------------
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int | None = None,
-              q_offset: int = 0) -> torch.Tensor:
-    """q (B, Hq, Tq, Dh), k/v (B, Hk, Tk, Dh) → (B, Hq, Tq, Dh).
-
-    A row with every key masked (a local window) gives zeros, not NaN."""
+def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+            window: int | None, q_offset: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scaled scores (B, Hk, group, Tq, Tk) in fp32 and the (Tq, Tk)
+    mask of the keys each query sees."""
     b, hq, tq, dh = q.shape
     hk, tk = k.shape[1], k.shape[2]
     if hq % hk:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hk}")
-    group = hq // hk
-    qg = q.reshape(b, hk, group, tq, dh).float()
+    qg = q.reshape(b, hk, hq // hk, tq, dh).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * dh ** -0.5
     qpos = torch.arange(tq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(tk, device=q.device)[None, :]
@@ -88,11 +86,71 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
+    return s, mask
+
+
+def _attend(s: torch.Tensor, mask: torch.Tensor, q: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
     s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
-    return o.reshape(b, hq, tq, dh).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """q (B, Hq, Tq, Dh), k/v (B, Hk, Tk, Dh) → (B, Hq, Tq, Dh).
+
+    A row with every key masked (a local window) gives zeros, not NaN."""
+    s, mask = _scores(q, k, causal=causal, window=window, q_offset=q_offset)
+    return _attend(s, mask, q, v)
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention` and the fp32 logsumexp of each row's scaled,
+    masked scores (B, Hq, Tq), which the backward pass reads.  A row that
+    sees no key has lse = +inf, so that exp(s - lse) is 0 on it."""
+    s, mask = _scores(q, k, causal=causal, window=window, q_offset=q_offset)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    lse = lse.masked_fill(torch.isneginf(lse), float("inf"))
+    return _attend(s, mask, q, v), lse.reshape(q.shape[:3])
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  q_offset: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention` for the output gradient ``do``,
+    from the softmax-gradient equations in fp32 (P recomputed from
+    ``lse``, masked entries 0)::
+
+        P = exp(S - lse),  dV = Pᵀ dO,  dP = dO Vᵀ,
+        D = rowsum(dO ∘ O),  dS = P ∘ (dP - D),
+        dQ = dS K · Dh^-0.5,  dK = dSᵀ Q · Dh^-0.5
+
+    summed over the q heads of each kv head (GQA); each in its input's
+    dtype.  A row that sees no key gives zero gradients."""
+    b, hq, tq, dh = q.shape
+    hk = k.shape[1]
+    s, mask = _scores(q, k, causal=causal, window=window, q_offset=q_offset)
+    shape = (b, hk, hq // hk, tq)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(shape)[..., None]),
+                    torch.zeros((), device=s.device))
+    dog = do.reshape(*shape, dh).float()
+    qg = q.reshape(*shape, dh).float()
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.float())
+    dsum = (dog * o.reshape(*shape, dh).float()).sum(-1)
+    ds = p * (dp - dsum[..., None])
+    scale = dh ** -0.5
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -207,6 +207,7 @@ def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
     ts = [t for t in (x, a, h0) if t is not None]
     if all(t.device.type == "cpu" for t in ts):
         return ref.rg_lru_scan(x, a, h0)
+    _build.no_backward("rg_lru_scan", *ts)
     _check(x, a, h0)
     b, t, w = x.shape
     if t == 0 or b == 0 or w == 0:

@@ -27,6 +27,7 @@ import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import hw
 from repro_torch.core.ftl import registry as ftl_registry
@@ -188,10 +189,15 @@ def _init_stack(cfg, gen: torch.Generator, kinds: list[str], n: int,
 
 
 def _periods(stack: Params):
-    """The stacked tree's period slices (views), in order."""
+    """The stacked tree's period slices (views), in order.  Each leaf is
+    unbound once, so that autograd stacks a leaf's gradient once a pass,
+    as the transpose of the reference's ``lax.scan`` does (indexing
+    ``a[i]`` would add a full-stack zero-filled gradient for every
+    period)."""
     n = tree_leaves(stack)[0].shape[0]
+    slices = tree_map(lambda a: a.unbind(0), stack)
     for i in range(n):
-        yield tree_map(lambda a, i=i: a[i], stack)
+        yield tree_map(lambda t, i=i: t[i], slices)
 
 
 @functools.lru_cache(maxsize=256)
@@ -328,8 +334,14 @@ def layer_stream(cfg, params: Params, tokens: torch.Tensor, plan=None):
     through the final norm and the unembedding."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, tokens)
+    # cfg.remat under autograd: each layer keeps only its input and runs
+    # its forward again in the backward pass (the reference's
+    # jax.checkpoint with nothing_saveable around each period)
+    remat = cfg.remat and torch.is_grad_enabled()
     for kind, p in _layers(cfg, params):
-        y = _apply_layer(cfg, p, kind, x, positions=positions, plan=plan)
+        layer = functools.partial(_apply_layer, cfg, p, kind,
+                                  positions=positions, plan=plan)
+        y = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
         yield kind, p, x, y
         x = y
 

@@ -1,1 +1,1 @@
-"""Serving steps of the port (the training half is not ported yet)."""
+"""Training and serving steps of the port, and the loss."""

@@ -222,6 +222,76 @@ def test_flash_attention_schedules(dev, case, want_block_q, block_q):
            ref.attention(q, k, v, **kw))
 
 
+@pytest.mark.parametrize("b,hq,hk,tq,tk,dh,causal,window,q_offset", [
+    (2, 24, 8, 300, 333, 128, True, None, 0),
+    (1, 8, 8, 448, 500, 64, False, None, 0),
+    (2, 4, 2, 70, 100, 128, True, 16, 30),
+    (1, 2, 2, 8, 8, 64, True, 2, 20),           # every row fully masked
+])
+def test_flash_attention_lse(dev, b, hq, hk, tq, tk, dh, causal, window,
+                             q_offset):
+    """The forward kernel with its row logsumexp (training) against
+    ``ref.attention_lse``: o in the bf16 rule, lse within 1e-3 + 1e-3
+    |lse| (the kernel's exp2 is the approximate one), +inf alike."""
+    q = _rand(dev, 20, b, hq, tq, dh)
+    k, v = _rand(dev, 21, b, hk, tk, dh), _rand(dev, 22, b, hk, tk, dh)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_attention._forward(q, k, v, with_lse=True, **kw)
+    want_o, want_lse = ref.attention_lse(q, k, v, **kw)
+    _close(o, want_o)
+    inf = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), inf)
+    d = (lse - want_lse)[~inf].abs()
+    assert bool((d <= 1e-3 + 1e-3 * want_lse[~inf].abs()).all()), \
+        float(d.max()) if d.numel() else 0.0
+    # and the lse flag leaves the output's bits alone
+    assert torch.equal(o, flash_attention._forward(
+        q, k, v, with_lse=False, **kw)[0])
+
+
+@pytest.mark.parametrize("b,hq,hk,tq,tk,dh,causal,window,q_offset", [
+    (1, 24, 8, 200, 200, 128, True, None, 0),   # llama's GQA
+    (2, 4, 1, 70, 130, 64, True, 16, 60),       # MQA, window, q_offset
+    (1, 8, 8, 100, 150, 64, False, None, 0),    # cross-attention
+    (1, 2, 2, 8, 8, 64, True, 2, 20),           # every row fully masked
+])
+def test_flash_attention_backward(dev, b, hq, hk, tq, tk, dh, causal,
+                                  window, q_offset):
+    """The backward kernels against ``ref.attention_bwd`` on the same o
+    and lse, dO ~ N(0, 1), in the bf16 rule; two launches give the same
+    bits; the autograd Function launches the forward and backward kernels
+    once each."""
+    q = _rand(dev, 30, b, hq, tq, dh)
+    k, v = _rand(dev, 31, b, hk, tk, dh), _rand(dev, 32, b, hk, tk, dh)
+    do = _rand(dev, 33, b, hq, tq, dh)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_attention._forward(q, k, v, with_lse=True, **kw)
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.attention_bwd(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = flash_attention.launches, flash_attention.bwd_launches
+    out = ops.attention(*ts, **kw)
+    grads = torch.autograd.grad(out, ts, do)
+    assert (flash_attention.launches, flash_attention.bwd_launches) == \
+        (f0 + 1, b0 + 1)
+    assert all(torch.equal(x, y) for x, y in zip(grads, got))
+
+
+def test_kernels_without_backward_raise_under_grad(dev):
+    x = _rand(dev, 40, 64, 64).requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        gemm.gemm(x, _rand(dev, 41, 64, 64))
+    with torch.no_grad():
+        _close(gemm.gemm(x, x), ref.gemm(x, x))
+    q = _rand(dev, 42, 1, 2, 8, 256).requires_grad_()
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        flash_attention.flash_attention(q, q, q)
+
+
 def test_flash_smem_bytes_match_the_launcher(dev):
     from repro_torch.kernels import _build
 
