@@ -10,8 +10,11 @@ Phases, in order (any failure ends the run with a non-zero exit code):
 
 1. Set-up: build the CUDA kernels from ``src/repro_torch/csrc`` into
    ``build/kernels`` (one ``nvcc`` per source, all started together),
-   print the card's name and power limit, and check that the footprints
-   the planner and the schedules read agree with the launchers'.
+   print the card's name and power limit, check that the footprints
+   the planner and the schedules read agree with the launchers', and
+   that ``ptxas`` reports no spills and no serialised ``wgmma`` for the
+   builds that train recurrentgemma-9b (the RG-LRU scan's anchors and
+   backward, flash attention's logsumexp and backward at head_dim 256).
 2. Kernels against their plain PyTorch versions, in bf16 at the serving
    paths' shapes: max |difference| against the stated tolerance, and each
    kernel's time (CUDA events, median of 20 launches, L2 flushed before
@@ -40,7 +43,13 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    each with and without h0: each case prints its schedule (channel tile,
    chunk, grid) and its time at the other chunk length, and is checked
    bit for bit against ``chunked_model`` (the kernel's arithmetic in
-   plain PyTorch) and against a second launch.  The mLSTM scan is held, h and
+   plain PyTorch) and against a second launch, and timed again in its
+   training build, which also writes the unit anchors (``anchors_ms``).
+   The RG-LRU backward is held (dx, da, dh0; dh ~ N(0, 1)) against
+   ``ref.rg_lru_bwd`` at the train path's (1, 3072, 4096), (1, 4096,
+   4096), (4, 1024, 4096), the ragged (2, 1000, 4000) and once with h0
+   and a cotangent on h_T, each bit for bit against
+   ``chunked_bwd_model`` and a second launch.  The mLSTM scan is held, h and
    its final fp32 state, at xlstm-1.3b's prefill (B = 1, H = 4, T = 2048,
    Dh = 1024, with and without state), four slots at T = 512, a ragged
    (2, 2, 1000, 128), and a right-padded scan whose state is taken below T
@@ -53,9 +62,12 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    rows are timed again with the row logsumexp a training forward writes
    (``lse_ms``).  The flash backward kernels are held against
    ``ref.attention_bwd`` (dQ, dK, dV; dO ~ N(0, 1)) at llama's 24/8 at
-   the train path's 2 x 1024 and at T = 2048, granite's MQA 48/1 at T =
-   2048, a ragged (2, 24/8, 1000) and whisper-base's cross-attention,
-   two launches bit-identical, each beside SDPA's backward.
+   the train path's 2 x 1024, at T = 2048 with and without a 512 window,
+   granite's MQA 48/1 at T = 2048, a ragged (2, 24/8, 1000),
+   whisper-base's cross-attention and recurrentgemma-9b's MQA 16/1 at
+   head_dim 256 (the train path's T = 3072 and T = 4096 with the 2048
+   window, T = 1024 causal, a ragged T = 1000 with a 256 window), two
+   launches bit-identical, each beside SDPA's backward.
 3. Serve llama3.2-3b at full width (28 layers, bf16, random weights from a
    seed) with ``ftl_mode='fused'`` on the ``h100`` planning target: 8
    requests, 4 slots, paged KV.  The launch counters are set to 0 just
@@ -121,13 +133,22 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    Function's (``backend='ref'``), leaf by leaf within
    2e-2 relative, and a step under ``ftl_mode='fused'``, which must raise
    (the fused MLP and the GEMM have no backward kernel yet).
-12. One JSON line for the kernels, then the result line.
+12. Train recurrentgemma-9b at full width the same way, after llama's
+   state is freed, its depth cut to 6 layers (two periods of rec, rec,
+   local; 3,410,153,472 parameters): 4 steps of 2 x 3072 tokens in 2
+   microbatches.  A step launches the flash forward 2 x 2 x 2 times and
+   its backward 2 x 2 times (head_dim 256, MQA 16/1, window 2048), the
+   RG-LRU forward 2 x 4 x 2 times and its backward 4 x 2 times, and no
+   other kernel; the gradient check forces both ``ops.attention`` and
+   ``ops.rg_lru`` to ``backend='ref'``.
+13. One JSON line for the kernels, then the result line.
 
 It exits non-zero, printing no result, when no CUDA device is visible,
 and when it stands alone without the rest of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -179,10 +200,17 @@ WHISPER_X = "whisper-base (cross-attention)"
 TRAIN = "llama3.2-3b (train)"
 # repro.models.model.count_params of llama3.2-3b
 LLAMA_PARAMS = 3_212_749_824
+# the second training path: recurrentgemma-9b at full width, its depth cut
+# to two periods of (rec, rec, local) so that the bf16 weights, fp32
+# moments and gradients fit one 80 GB card (38 layers would need about
+# 188 GB); repro.models.model.count_params of that config
+RG_TRAIN = "recurrentgemma-9b (train)"
+RG_TRAIN_LAYERS = 6
+RG_TRAIN_PARAMS = 3_410_153_472
 # the train path's gradients through the kernels against the plain
-# Function's, leaf by leaf: |g_kernel - g_plain| / |g_plain| (norms over
-# the leaf).  Both take bf16 products in another order, and the kernel
-# rounds P and dS to bf16 before its products
+# Functions', leaf by leaf: |g_kernel - g_plain| / |g_plain| (norms over
+# the leaf).  Both take bf16 products in another order, and the flash
+# backward rounds dS to bf16 before dQ's product
 GRAD_RTOL = 2e-2
 
 N_TIMED = 20
@@ -236,6 +264,48 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS
 
 
 # ---------------------------------------------------------------------------
+# phase 1: the builds this slice added
+# ---------------------------------------------------------------------------
+
+# entries (mangled names) of the builds added for training recurrentgemma-
+# 9b: the RG-LRU forward with its anchors and its backward, the flash
+# forward with its row logsumexp at head_dim 256 (both tile heights) and
+# the flash backward at head_dim 256 and its splits' sum
+NEW_BUILDS = {
+    "rg_lru_scan, anchors": r"rg_lru_kernelILb[01]ELb1E",
+    "rg_lru_scan_bwd": r"rg_lru_bwd_kernel",
+    "flash_attention, lse, D=256": r"flash_kernelILi256ELi(64|128)ELb1E",
+    "flash_attention_bwd, every head dim": r"(dkdv|dq)_kernelILi",
+    "flash_attention_bwd, splits' sum": r"split_sum_kernel",
+}
+
+
+def check_new_builds(log: str) -> None:
+    """``ptxas``'s report on :data:`NEW_BUILDS`: each has an entry, none
+    spills, and none has its ``wgmma`` serialised (C7515/C7520)."""
+    spills, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            spills[entry] = int(m.group(1)) + int(m.group(2))
+    serialised = " ".join(line for line in log.splitlines()
+                          if "C7515" in line or "C7520" in line)
+    for what, pattern in NEW_BUILDS.items():
+        hits = {e: n for e, n in spills.items() if re.search(pattern, e)}
+        check(bool(hits), f"no ptxas report for {what}")
+        check(all(n == 0 for n in hits.values()),
+              f"{what} spills: {hits}")
+        check(not any(e in serialised for e in hits),
+              f"{what}: ptxas serialised its wgmma")
+        print(f"  ptxas: {what}: {len(hits)} build(s), no spills, no "
+              f"serialised wgmma")
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -270,7 +340,8 @@ def kernel_cases(dev, timer):
 
     results = {"gemm": [], "flash_attention": [],
                "flash_attention_bwd": [], "fused_mlp": [],
-               "rg_lru_scan": [], "gemm_act": [], "mlstm_scan": []}
+               "rg_lru_scan": [], "rg_lru_scan_bwd": [], "gemm_act": [],
+               "mlstm_scan": []}
 
     # execute_block_plan's projections: llama's at m=1024, and
     # recurrentgemma-9b's (wq/wo 4096 wide, MQA wk/wv 256 wide) at m=4096;
@@ -306,6 +377,7 @@ def kernel_cases(dev, timer):
     results["fused_mlp"] += fused_mlp_cases(
         dev, timer, randn, 4096, 12288, 4096, "gelu", (4096, 1024, 4), RG)
     results["rg_lru_scan"] = rg_lru_cases(dev, timer, randn)
+    results["rg_lru_scan_bwd"] = rg_lru_bwd_cases(dev, timer, randn)
     results["gemm_act"] = gemm_act_cases(dev, timer, randn)
     partial_vs_fused(dev, timer, randn)
     results["mlstm_scan"] = mlstm_cases(dev, timer, randn)
@@ -319,6 +391,8 @@ def kernel_cases(dev, timer):
                          f"({c['work_bound_by']})")
             if c.get("lse_ms") is not None:
                 work += f", with the row logsumexp {c['lse_ms']} ms"
+            if c.get("anchors_ms") is not None:
+                work += f", with the unit anchors {c['anchors_ms']} ms"
             print(f"  {name} {c['shape']}: kernel {c['ms']} ms, bound "
                   f"{c['bound_ms']} ms ({c['bound_by']}){work}, plain "
                   f"{c['plain_ms']} ms{lib}")
@@ -362,13 +436,7 @@ def flash_cases(dev, timer, randn):
               f"memory")
         err = compare(flash_attention.flash_attention(q, kk, v, **kw),
                       ref.attention(q, kk, v, **kw), label)
-        qi = torch.arange(tq, device=dev)[:, None]
-        ki = torch.arange(tk, device=dev)[None, :]
-        mask = torch.ones((tq, tk), dtype=torch.bool, device=dev)
-        if kw["causal"]:
-            mask &= ki <= qi
-        if kw["window"] is not None:
-            mask &= ki > qi - win
+        mask = window_mask(dev, tq, tk, kw["causal"], kw["window"])
         pairs = int(mask.sum())           # unmasked (query, key) pairs
         bd, why = bound_ms(2 * (2 * q.numel() + 2 * kk.numel()),
                            4 * b_ * hq * dh * pairs)
@@ -394,42 +462,82 @@ def flash_cases(dev, timer, randn):
             ms=timer.ms(lambda: flash_attention.flash_attention(
                 q, kk, v, **kw)),
             other_height_ms=other_ms,
-            # with the row logsumexp a training forward writes (the
-            # backward takes head_dim <= 128 only)
-            lse_ms=(timer.ms(lambda: flash_attention._forward(
-                q, kk, v, with_lse=True, **kw))
-                if dh in flash_attention.BWD_HEAD_DIMS else None),
+            # with the row logsumexp a training forward writes
+            lse_ms=timer.ms(lambda: flash_attention._forward(
+                q, kk, v, with_lse=True, **kw)),
             plain_ms=timer.ms(lambda: ref.attention(q, kk, v, **kw)),
             library=lib_name, library_ms=timer.ms(lib),
             bound_ms=bd, bound_by=why))
     return out
 
 
+def window_mask(dev, tq: int, tk: int, causal: bool,
+                window: int | None) -> torch.Tensor:
+    """The (Tq, Tk) boolean mask of the keys each query sees."""
+    qi = torch.arange(tq, device=dev)[:, None]
+    ki = torch.arange(tk, device=dev)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    return mask
+
+
+def sdpa_backend(q, k, v, mask, causal: bool) -> str:
+    """The backend SDPA picks for these operands (PyTorch's own choice
+    function, where this PyTorch has it)."""
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "not reported by this PyTorch"
+    code = choose(q, k, v, attn_mask=mask,
+                  is_causal=causal and mask is None, enable_gqa=True)
+    return {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}.get(
+        int(code), f"backend {int(code)}")
+
+
 def flash_bwd_cases(dev, timer, randn):
     """The flash backward kernels against ``ref.attention_bwd`` on the
     forward kernel's o and lse, dO ~ N(0, 1), in bf16 with phase 2's
-    rule: llama's GQA 24/8 at the train path's microbatch (2 x 1024) and
-    at T = 2048, granite-20b's MQA 48/1 at T = 2048, a ragged (2, 24/8,
-    1000) and whisper-base's cross-attention (8/8, 448 over 1500 keys,
-    head_dim 64, not causal).  Two launches must give the same bits.  The
-    one PyTorch call is SDPA's backward, through ``torch.autograd.grad``
-    on a saved graph; the bound counts 10 Dh operations for each
-    unmasked (query, key) pair of each head."""
+    rule: llama's GQA 24/8 at the train path's microbatch (2 x 1024), at
+    T = 2048, and at T = 2048 with a 512 window; granite-20b's MQA 48/1 at
+    T = 2048; a ragged (2, 24/8, 1000); whisper-base's cross-attention
+    (8/8, 448 over 1500 keys, head_dim 64, not causal); and
+    recurrentgemma-9b's local attention at head_dim 256, MQA 16/1: the
+    train path's (1, 3072) with its 2048 window, (1, 4096) with the
+    window, (1, 1024) causal, and a ragged (1, 1000) with a 256 window.
+    Each row prints the backward's split of a group's q heads across
+    blocks.  Two launches must give the same bits.  The one PyTorch call
+    is SDPA's backward, through ``torch.autograd.grad`` on a saved graph,
+    with ``is_causal`` where the window does not bind and the window as a
+    boolean mask where it does (the backend it lands on is printed); the
+    bound counts 10 Dh operations for each unmasked (query, key) pair of
+    each head."""
     from repro_torch.kernels import flash_attention, ref
 
     out = []
-    rows = [(TRAIN, (2, 24, 8, 1024, 1024, 128), True),
-            (LLAMA, (1, 24, 8, 2048, 2048, 128), True),
-            (GRANITE, (1, 48, 1, 2048, 2048, 128), True),
-            (LLAMA, (2, 24, 8, 1000, 1000, 128), True),
-            (WHISPER_X, (1, 8, 8, 448, 1500, 64), False)]
-    for path, (b_, hq, hk, tq, tk, dh), causal in rows:
-        q, kk, v = (randn(b_, hq, tq, dh), randn(b_, hk, tk, dh),
-                    randn(b_, hk, tk, dh))
+    rows = [(TRAIN, (2, 24, 8, 1024, 1024, 128), True, None, 1.0),
+            (LLAMA, (1, 24, 8, 2048, 2048, 128), True, None, 1.0),
+            (GRANITE, (1, 48, 1, 2048, 2048, 128), True, None, 1.0),
+            (LLAMA, (2, 24, 8, 1000, 1000, 128), True, None, 1.0),
+            (WHISPER_X, (1, 8, 8, 448, 1500, 64), False, None, 1.0),
+            (LLAMA, (1, 24, 8, 2048, 2048, 128), True, 512, 1.0),
+            # q and k at 1.5, as in the forward rows at head_dim 256
+            (RG_TRAIN, (1, 16, 1, 3072, 3072, 256), True, 2048, 1.5),
+            (RG, (1, 16, 1, 4096, 4096, 256), True, 2048, 1.5),
+            (RG, (1, 16, 1, 1024, 1024, 256), True, None, 1.5),
+            ("ragged", (1, 16, 1, 1000, 1000, 256), True, 256, 1.5)]
+    for path, (b_, hq, hk, tq, tk, dh), causal, win, sc in rows:
+        q, kk, v = (randn(b_, hq, tq, dh, scale=sc),
+                    randn(b_, hk, tk, dh, scale=sc), randn(b_, hk, tk, dh))
         do = randn(b_, hq, tq, dh)
-        kw = dict(causal=causal, window=None, q_offset=0)
+        kw = dict(causal=causal, window=win, q_offset=0)
+        splits = flash_attention.bwd_splits(
+            b_, hq, hk, tk, flash_attention.sm_count(dev.index))
         label = (f"flash_attention_bwd B={b_} Hq={hq} Hk={hk} Tq={tq} "
-                 f"Tk={tk} D={dh} {'causal' if causal else 'not causal'}")
+                 f"Tk={tk} D={dh} {'causal' if causal else 'not causal'}"
+                 f"{'' if win is None else ' window=%d' % win}")
+        print(f"  {label}: {splits} split(s) of the group's q heads")
         o, lse = flash_attention._forward(q, kk, v, with_lse=True, **kw)
         got = flash_attention.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
         want = ref.attention_bwd(q, kk, v, o, lse, do, **kw)
@@ -441,25 +549,32 @@ def flash_bwd_cases(dev, timer, randn):
         print(f"  {label}: two launches bit-identical: {same}")
         check(same, f"{label}: two launches differ")
         del got, want, again
-        pairs = (tq * (tq + 1) // 2 if causal else tq * tk)
+        mask = window_mask(dev, tq, tk, causal, win)
+        pairs = int(mask.sum())           # unmasked (query, key) pairs
         nbytes = (2 * 4 * q.numel() + 2 * 4 * kk.numel()
                   + 4 * lse.numel())
         bd, why = bound_ms(nbytes, 10 * b_ * hq * dh * pairs)
+        binds = win is not None and win < tk
+        lib_mask = mask if binds else None
         ts = [t.detach().clone().requires_grad_() for t in (q, kk, v)]
-        sdpa = F.scaled_dot_product_attention(*ts, is_causal=causal,
-                                              enable_gqa=True)
+        sdpa = F.scaled_dot_product_attention(
+            *ts, attn_mask=lib_mask, is_causal=causal and not binds,
+            enable_gqa=True)
+        backend = sdpa_backend(*ts, lib_mask, causal)
         out.append(dict(
             path=path, shape=[b_, hq, hk, tq, tk, dh], causal=causal,
-            max_abs_err=err, bit_identical=same,
+            window=win, splits=splits, max_abs_err=err, bit_identical=same,
             ms=timer.ms(lambda: flash_attention.flash_attention_bwd(
                 q, kk, v, o, lse, do, **kw)),
             plain_ms=timer.ms(lambda: ref.attention_bwd(
                 q, kk, v, o, lse, do, **kw)),
-            library=f"SDPA backward, is_causal={causal}",
+            library=(f"SDPA backward ({backend}), "
+                     + ("boolean window mask" if binds
+                        else f"is_causal={causal}")),
             library_ms=timer.ms(lambda: torch.autograd.grad(
                 sdpa, ts, do, retain_graph=True)),
             bound_ms=bd, bound_by=why))
-        del sdpa, ts
+        del sdpa, ts, mask
         torch.cuda.empty_cache()
     return out
 
@@ -598,10 +713,81 @@ def rg_lru_cases(dev, timer, randn):
                 channel_tile=sched.channel_tile, chunk=sched.chunk,
                 grid=sched.grid, max_abs_err=err,
                 ms=timer.ms(lambda: rg_lru.rg_lru_scan(x, a, h0)),
+                # the training build, which also writes the unit anchors
+                anchors_ms=timer.ms(lambda: rg_lru._forward(
+                    x, a, h0, with_anchors=True)),
                 other_chunk_ms=t_other,
                 # a Python loop over T: three launches a step
                 plain_ms=timer.ms(lambda: ref.rg_lru_scan(x, a, h0), n=3),
                 library_ms=None, bound_ms=bd, bound_by=why))
+    return out
+
+
+def rg_lru_bwd_cases(dev, timer, randn):
+    """The RG-LRU backward kernel against ``ref.rg_lru_bwd`` (dx, da in
+    bf16 by phase 2's rule, dh0 in fp32 within 1e-4 + 1e-4·|dh0|), dh ~
+    N(0, 1), on the anchors of the forward kernel's training build: the
+    train path's (1, 3072, 4096), (1, 4096, 4096), four rows at T = 1024,
+    the ragged (2, 1000, 4000), and (1, 3072, 4096) again with h0 and a
+    cotangent on h_T.  Each case is checked bit for bit against
+    ``chunked_bwd_model`` (the kernel's arithmetic in plain PyTorch) and
+    against a second launch.  The bound counts what the function must
+    move: dh, a and x read and dx, da written in bf16, the anchors (and
+    h0's, dh_T's and dh0's fp32) once; 5 fp32 operations an element.  No
+    single PyTorch call computes this function."""
+    from repro_torch.kernels import ref, rg_lru
+
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(98)
+    for path, (b, t, w), state in ((RG_TRAIN, (1, 3072, 4096), False),
+                                   (RG, (1, 4096, 4096), False),
+                                   (RG, (4, 1024, 4096), False),
+                                   ("ragged", (2, 1000, 4000), False),
+                                   (RG_TRAIN, (1, 3072, 4096), True)):
+        x = randn(b, t, w, scale=0.5)
+        a = (0.79 + 0.2 * torch.rand((b, t, w), generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        dh = randn(b, t, w)
+        h0 = torch.randn((b, w), generator=gen, device=dev) if state \
+            else None
+        dh_t = torch.randn((b, w), generator=gen, device=dev) if state \
+            else None
+        sched = rg_lru.schedule(b, t, w, backward=True)
+        label = (f"rg_lru_scan_bwd B={b} T={t} W={w} "
+                 f"{'h0, dh_T' if state else 'no h0, no dh_T'}")
+        print(f"  {label}: schedule {sched.label}, {sched.smem_bytes} B "
+              f"of shared memory, {sched.scratch_bytes} B of scratch")
+        _, _, anchors = rg_lru._forward(x, a, h0, with_anchors=True)
+        got = rg_lru.rg_lru_scan_bwd(x, a, anchors, dh, dh_t)
+        want = ref.rg_lru_bwd(x, a, h0, dh, dh_t)
+        err = max(compare(got[0], want[0], label + " dx"),
+                  compare(got[1], want[1], label + " da"),
+                  compare(got[2], want[2], label + " dh0 (fp32)",
+                          atol=1e-4, rtol=1e-4))
+        again = rg_lru.rg_lru_scan_bwd(x, a, anchors, dh, dh_t)
+        model = rg_lru.chunked_bwd_model(x, a, dh, dh_t, h0, sched=sched)
+        torch.cuda.synchronize()
+        check(all(torch.equal(p, q) for p, q in zip(got, again)),
+              f"{label}: two launches differ")
+        check(all(torch.equal(p, q) for p, q in zip(got, model)),
+              f"{label}: not the chunked model's bits")
+        print(f"  {label}: two launches bit-identical, and equal to "
+              f"chunked_bwd_model bit for bit")
+        del got, want, again, model
+        fp32 = 4 * b * w * (1 + 2 * state)      # dh0, and h0 and dh_T
+        nbytes = 10 * b * t * w + 4 * anchors.numel() + fp32
+        bd, why = bound_ms(nbytes, 5 * b * t * w, FP32_FLOPS)
+        out.append(dict(
+            path=path, shape=[b, t, w], h0=state, dh_t=state,
+            schedule=sched.label, channel_tile=sched.channel_tile,
+            chunk=sched.chunk, grid=sched.grid, max_abs_err=err,
+            ms=timer.ms(lambda: rg_lru.rg_lru_scan_bwd(
+                x, a, anchors, dh, dh_t)),
+            # a Python loop over T: about six launches a step
+            plain_ms=timer.ms(lambda: ref.rg_lru_bwd(x, a, h0, dh, dh_t),
+                              n=3),
+            library="none: no one call runs this recurrence's gradient",
+            library_ms=None, bound_ms=bd, bound_by=why))
     return out
 
 
@@ -836,10 +1022,13 @@ def mlstm_cases(dev, timer, randn):
 
 KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "flash_attention": r"(^|::)flash_kernel\b",
-             # one call: D = rowsum(dO o), then dK/dV, then dQ
-             "flash_attention_bwd": r"(^|::)(dsum|dkdv|dq)_kernel\b",
+             # one call: D = rowsum(dO o), then dK/dV, the splits' sum
+             # (MQA), then dQ
+             "flash_attention_bwd":
+                 r"(^|::)(dsum|dkdv|split_sum|dq)_kernel\b",
              "fused_mlp": r"(^|::)fused_mlp_kernel\b",
              "rg_lru_scan": r"(^|::)rg_lru_kernel\b",
+             "rg_lru_scan_bwd": r"(^|::)rg_lru_bwd_kernel\b",
              "gemm_act": r"(^|::)gemm_act_kernel\b",
              # one call: the Q K^T kernel, then the chunkwise scan
              "mlstm_scan": r"(^|::)mlstm_(qk|scan)_kernel\b"}
@@ -1273,69 +1462,97 @@ def _device_kernels(prof) -> dict:
     return kern
 
 
-def train_phase(dev, card: str, modules: dict) -> dict:
-    """llama3.2-3b at full width (28 layers, bf16, random weights from a
-    seed) through ``repro_torch.launch.train.build``: 4 steps of 4 x 1024
-    bigram tokens in 2 microbatches, ``cfg.remat`` on, ``ftl_mode='off'``,
-    no checkpoint directory.  Every launch counter is set to 0 just before
-    the run and read just after: the flash forward must have launched
-    2 x 28 x 2 times a step (remat runs each layer's forward again in the
-    backward pass), its backward 28 x 2 times, and no other kernel.  Then
-    one profiled step for the device's busy share, one microbatch's
-    gradients through the kernels against the plain Function's, and a
-    step under ``ftl_mode='fused'``, which must raise."""
+@dataclasses.dataclass(frozen=True)
+class TrainPath:
+    """One training run through the trainer: the model, the trainer's
+    flags, the depth cut (None: the published depth), the reference's
+    parameter count, the launches each step must make (every other counter
+    stays 0) and the ops forced to ``backend='ref'`` for the gradient
+    check."""
+    arch: str
+    label: str
+    argv: tuple[str, ...]
+    n_layers: int | None
+    n_params: int
+    per_step: dict
+    plain: tuple[str, ...]
+
+
+TRAIN_PATHS = (
+    # 4 x 1024 tokens a step in 2 microbatches; remat runs each layer's
+    # forward again in the backward pass
+    TrainPath(LLAMA, TRAIN, ("--arch", LLAMA, "--steps", "4", "--batch", "4",
+                             "--seq", "1024", "--accum", "2"),
+              None, LLAMA_PARAMS,
+              {"flash_attention": 2 * 28 * 2, "flash_attention_bwd": 28 * 2},
+              ("attention",)),
+    # 2 x 3072 tokens in 2 microbatches; 6 layers, two periods of (rec,
+    # rec, local): 4 recurrent and 2 local-attention layers
+    TrainPath(RG, RG_TRAIN, ("--arch", RG, "--steps", "4", "--batch", "2",
+                             "--seq", "3072", "--accum", "2"),
+              RG_TRAIN_LAYERS, RG_TRAIN_PARAMS,
+              {"flash_attention": 2 * 2 * 2, "flash_attention_bwd": 2 * 2,
+               "rg_lru_scan": 2 * 4 * 2, "rg_lru_scan_bwd": 4 * 2},
+              ("attention", "rg_lru")),
+)
+
+
+def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
+    """``path``'s model at full width (bf16, random weights from a seed;
+    its depth cut where ``path`` says) through
+    ``repro_torch.launch.train.build``: the steps and microbatches of
+    ``path.argv``, bigram data, ``cfg.remat`` on, ``ftl_mode='off'``, no
+    checkpoint directory.  Every launch counter is set to 0 just before
+    the run and read just after: each kernel must have launched
+    ``path.per_step`` times a step, and no other kernel.  Then one
+    profiled step for the device's busy share, one microbatch's gradients
+    through the kernels against the plain Functions' (``path.plain`` ops
+    with ``backend='ref'``), and a step under ``ftl_mode='fused'``, which
+    must raise."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.optim import OptConfig
     from repro_torch.train import steps as S
 
-    steps, batch, seq, accum = 4, 4, 1024, 2
-    args = train.parser().parse_args([
-        "--arch", LLAMA, "--steps", str(steps), "--batch", str(batch),
-        "--seq", str(seq), "--accum", str(accum), "--data", "bigram",
-        "--log-every", "1"])
-    cfg = get_config(LLAMA)
+    args = train.parser().parse_args(
+        [*path.argv, "--data", "bigram", "--log-every", "1"])
+    steps, batch, seq, accum = args.steps, args.batch, args.seq, args.accum
+    cfg = get_config(path.arch)
+    if path.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=path.n_layers)
     check(cfg.remat and cfg.ftl_mode == "off",
-          f"llama3.2-3b trains with remat on and ftl_mode 'off', got "
+          f"{path.label} trains with remat on and ftl_mode 'off', got "
           f"{cfg.remat}, {cfg.ftl_mode!r}")
     t0 = time.perf_counter()
-    loop = train.build(args)
+    loop = train.build(args, cfg)
     torch.cuda.synchronize()
     leaves = M.tree_leaves(loop.state.params)
     n_params = sum(t.numel() for t in leaves)
     state_gb = sum(t.numel() * t.element_size() for t in
                    M.tree_leaves(loop.state.params)
                    + M.tree_leaves(loop.state.opt)) / 1e9
-    print(f"  {LLAMA}: {cfg.n_layers} layers, {n_params} parameters, "
-          f"{state_gb} GB of bf16 weights and fp32 moments, built in "
-          f"{time.perf_counter() - t0} s")
-    check(n_params == LLAMA_PARAMS, f"{n_params} parameters, the "
-          f"reference counts {LLAMA_PARAMS}")
+    print(f"  {path.label}: {cfg.n_layers} layers {M.period_kinds(cfg)}, "
+          f"{n_params} parameters, {state_gb} GB of bf16 weights and fp32 "
+          f"moments, built in {time.perf_counter() - t0} s")
+    check(n_params == path.n_params, f"{n_params} parameters, the "
+          f"reference counts {path.n_params}")
 
     # --- the main path: counters from 0 ----------------------------------
-    for mod in modules.values():
-        mod.launches = 0
-    flash_attention.bwd_launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     loop.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: mod.launches for n, mod in modules.items()}
-    launches["flash_attention_bwd"] = flash_attention.bwd_launches
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
     print(f"  main path launches: {launches}")
-    layers = cfg.n_layers
-    check(launches["flash_attention"] == 2 * layers * accum * steps,
-          f"flash forward launched {launches['flash_attention']} times, "
-          f"not 2 x {layers} x {accum} a step")
-    check(launches["flash_attention_bwd"] == layers * accum * steps,
-          f"flash backward launched {launches['flash_attention_bwd']} "
-          f"times, not {layers} x {accum} a step")
-    check(all(v == 0 for n, v in launches.items()
-              if not n.startswith("flash_attention")),
-          f"a kernel off the train path launched: {launches}")
+    for name, n in launches.items():
+        want = path.per_step.get(name, 0) * steps
+        check(n == want, f"{name} launched {n} times in {steps} steps, "
+              f"not {path.per_step.get(name, 0)} a step")
     log = loop.metrics_log
     check(len(log) == steps and all(
         np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
@@ -1344,7 +1561,8 @@ def train_phase(dev, card: str, modules: dict) -> dict:
     step_s = statistics.median(secs[1:])
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     mem = torch.cuda.memory_stats(dev)
-    print(f"  {steps} steps in {wall} s, step seconds {secs}; steady step "
+    print(f"  {steps} steps in {wall} s, losses "
+          f"{[m['loss'] for m in log]}, step seconds {secs}; steady step "
           f"(median of steps 2-{steps}) {step_s} s: {batch * seq / step_s} "
           f"training tokens/s; peak device memory {peak} GB; the caching "
           f"allocator's retries {mem['num_alloc_retries']}, device "
@@ -1367,7 +1585,7 @@ def train_phase(dev, card: str, modules: dict) -> dict:
           + "; ".join(f"{e.key} {e.self_device_time_total / 1e3} ms "
                       f"x{e.count}" for e in top[:10]))
     del prof
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in path.per_step:
         hits = [n for n in kern if re.search(KERNEL_RE[name], n)]
         check(bool(hits), f"{name} kernel missing from the profiler's "
               f"device-kernel list")
@@ -1380,7 +1598,7 @@ def train_phase(dev, card: str, modules: dict) -> dict:
     print(f"  profiler: one train step, device kernel time {busy} ms of "
           f"{prof_ms} ms wall: device busy {busy / prof_ms} [{card}]")
 
-    # --- gradients through the kernels against the plain Function ---------
+    # --- gradients through the kernels against the plain Functions ---------
     mb = {"tokens": data["tokens"][:batch // accum]}
     loss_fn = S.make_loss_fn(cfg)
 
@@ -1389,10 +1607,13 @@ def train_phase(dev, card: str, modules: dict) -> dict:
         return float(loss.detach()), torch.autograd.grad(loss, leaves)
 
     lk, gk = grads()
-    # the model's attention core (models/layers.py:_attend) through the
-    # plain Function: the same autograd Function, its plain passes
-    with mock.patch.object(ops, "attention", functools.partial(
-            ops.attention, backend="ref")):
+    # the model's attention core (models/layers.py:_attend) and RG-LRU
+    # scan (models/recurrent.py:rec_block) through the same autograd
+    # Functions, their plain passes
+    with contextlib.ExitStack() as stack:
+        for op in path.plain:
+            stack.enter_context(mock.patch.object(ops, op, functools.partial(
+                getattr(ops, op), backend="ref")))
         lp, gp = grads()
     names = [n for n, _ in _flat_names(loop.state.params)]
     rel = {}
@@ -1401,13 +1622,13 @@ def train_phase(dev, card: str, modules: dict) -> dict:
                           / torch.linalg.vector_norm(b.float()))
     del gk, gp
     worst = max(rel, key=rel.get)
-    print(f"  gradients, kernels against the plain Function on one "
-          f"microbatch: loss {lk} against {lp}; worst leaf {worst} "
-          f"|g_kernel - g_plain| / |g_plain| = {rel[worst]} (tolerance "
-          f"{GRAD_RTOL}); every leaf: {rel}")
+    print(f"  gradients, kernels against the plain Functions "
+          f"({', '.join(path.plain)}) on one microbatch: loss {lk} against "
+          f"{lp}; worst leaf {worst} |g_kernel - g_plain| / |g_plain| = "
+          f"{rel[worst]} (tolerance {GRAD_RTOL}); every leaf: {rel}")
     check(all(np.isfinite(v) for v in rel.values())
           and rel[worst] <= GRAD_RTOL, "gradients through the kernels "
-          "disagree with the plain Function's")
+          "disagree with the plain Functions'")
 
     # --- a kernel with no backward refuses to train -----------------------
     step = S.make_train_step(dataclasses.replace(cfg, ftl_mode="fused"),
@@ -1419,7 +1640,7 @@ def train_phase(dev, card: str, modules: dict) -> dict:
         check("no backward kernel yet" in str(e), f"unexpected error: {e}")
     else:
         check(False, "a CUDA step under ftl_mode='fused' did not raise")
-    del loop, leaves
+    del loop, leaves, step
     torch.cuda.empty_cache()
     return launches
 
@@ -1490,16 +1711,21 @@ def main() -> int:
         want = (mlstm.smem_bytes_for(chunk, st), mlstm.qk_smem_bytes(chunk))
         check(got == want, f"mlstm_scan footprints at L={chunk}: Python "
               f"{want}, CUDA {got}")
-    # and the RG-LRU scan's, at every tile and chunk its schedule picks
+    # and the RG-LRU scan's and its backward's, at every tile and chunk
+    # their schedule picks
     for ct, chunk in rg_lru.LADDER:
-        got = _build.lib().rt_rg_lru_smem_bytes(ct, chunk)
-        check(got == rg_lru.smem_bytes(ct, chunk), f"rg_lru_scan footprint "
-              f"at tile {ct}, chunk {chunk}: Python "
-              f"{rg_lru.smem_bytes(ct, chunk)}, CUDA {got}")
-    for line in (lib.parent / "build.log").read_text().splitlines():
+        got = (_build.lib().rt_rg_lru_smem_bytes(ct, chunk),
+               _build.lib().rt_rg_lru_bwd_smem_bytes(ct, chunk))
+        want = (rg_lru.smem_bytes(ct, chunk),
+                rg_lru.bwd_smem_bytes(ct, chunk))
+        check(got == want, f"rg_lru_scan footprints (forward, backward) "
+              f"at tile {ct}, chunk {chunk}: Python {want}, CUDA {got}")
+    build_log = (lib.parent / "build.log").read_text()
+    for line in build_log.splitlines():
         if line.startswith("==") or "Compiling entry" in line \
                 or "Used" in line or "spill" in line:
             print("  ptxas:" + line.split("ptxas info    :")[-1])
+    check_new_builds(build_log)
 
     print("== kernels against their plain versions (bf16)")
     results = kernel_cases(dev, Timer(dev))
@@ -1507,6 +1733,10 @@ def main() -> int:
     kernels = {"gemm": gemm, "flash_attention": flash_attention,
                "fused_mlp": fused_mlp, "rg_lru_scan": rg_lru,
                "gemm_act": gemm_act, "mlstm_scan": mlstm}
+    # every launch counter: the serving kernels', and the backward kernels'
+    counters = {**{n: (m, "launches") for n, m in kernels.items()},
+                "flash_attention_bwd": (flash_attention, "bwd_launches"),
+                "rg_lru_scan_bwd": (rg_lru, "bwd_launches")}
     # each model's weights load after the one before is freed: granite-20b's
     # 40.6 GB after recurrentgemma-9b's, xlstm-1.3b's 3.9 GB last
     paths = {LLAMA: (("gemm", "flash_attention", "fused_mlp"),
@@ -1545,9 +1775,11 @@ def main() -> int:
             engine_vs_model(cfg, params, dev, n_plain)
         del params
         torch.cuda.empty_cache()
-    print(f"== train {LLAMA}, full width, through the trainer (at "
-          f"{time.perf_counter() - t_start} s)")
-    launches[TRAIN] = train_phase(dev, card, kernels)
+    # each model's training state after the one before is freed
+    for path in TRAIN_PATHS:
+        print(f"== train {path.label}, full width, through the trainer (at "
+              f"{time.perf_counter() - t_start} s)")
+        launches[path.label] = train_phase(dev, card, counters, path)
     print(f"  total {time.perf_counter() - t_start} s")
 
     meta = {
@@ -1562,6 +1794,8 @@ def main() -> int:
                       "src/repro/kernels/fused_mlp.py:75"),
         "rg_lru_scan": ("src/repro_torch/csrc/rg_lru.cu",
                         "src/repro/kernels/rg_lru.py:51"),
+        "rg_lru_scan_bwd": ("src/repro_torch/csrc/rg_lru_bwd.cu",
+                            "the gradient of src/repro/kernels/rg_lru.py:51"),
         "gemm_act": ("src/repro_torch/csrc/gemm_act.cu",
                      "src/repro/kernels/gemm_gelu.py:51"),
         "mlstm_scan": ("src/repro_torch/csrc/mlstm.cu",
@@ -1574,6 +1808,7 @@ def main() -> int:
     head_path = {n: arch for arch, (names, _, _) in paths.items()
                  for n in names}
     head_path["flash_attention_bwd"] = TRAIN
+    head_path["rg_lru_scan_bwd"] = RG_TRAIN
     head = {name: next(c for c in cases if c["path"] == head_path[name])
             for name, cases in results.items()}
     line = {"kernels": [
@@ -1584,7 +1819,8 @@ def main() -> int:
                               if name in n},
          **{k: head[name][k] for k in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "work_bound_ms", "library_ms", "lse_ms", "shape", "tile_loop")
+             "work_bound_ms", "library_ms", "lse_ms", "anchors_ms", "shape",
+             "tile_loop")
             if k in head[name]},
          "cases": results[name]}
         for name, (src, rep) in meta.items()]}

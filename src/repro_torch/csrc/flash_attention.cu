@@ -448,12 +448,9 @@ template <bool LSE>
 int dispatch(Params& p, const void* q, const void* k, const void* v, void* o,
              int D, int block_q, int n_tiles, cudaStream_t s) {
   const bool tall = block_q == 128;
-  // the backward takes Dh <= 128, so there is no LSE build at 256
-  if constexpr (!LSE) {
-    if (D == 256)
-      return tall ? launch<256, 128, LSE>(p, q, k, v, o, n_tiles, s)
-                  : launch<256, 64, LSE>(p, q, k, v, o, n_tiles, s);
-  }
+  if (D == 256)
+    return tall ? launch<256, 128, LSE>(p, q, k, v, o, n_tiles, s)
+                : launch<256, 64, LSE>(p, q, k, v, o, n_tiles, s);
   if (D == 128)
     return tall ? launch<128, 128, LSE>(p, q, k, v, o, n_tiles, s)
                 : launch<128, 64, LSE>(p, q, k, v, o, n_tiles, s);

@@ -51,46 +51,25 @@
 // to its launch's generation + 1, so stale flags never match and no call
 // clears them.  A ragged W masks the last tile's channels (TMA reads zeros
 // past W; no such channel is stored or published).
-#include "hopper.cuh"
+//
+// Training (ANCHOR): the kernel also writes the fp32 carry at each unit's
+// start, anchors (B, ceil(T / 64), W), which the backward kernel
+// (rg_lru_bwd.cu) recomputes h_{t-1} from.  The compute thread of each
+// unit's first segment holds it once the carry-in is known and writes its
+// 8 channels; serving's build (ANCHOR false) holds no trace of it.
+#include "rg_lru.cuh"
 
 namespace {
 
-using rt::bf16;
+using namespace rglru;
 
-constexpr int SEG = 16;           // steps a compute thread scans
-constexpr int UNIT = 64;          // steps a published aggregate covers
-constexpr int SPU = UNIT / SEG;   // segments a unit
-constexpr int CV = 8;             // channels a thread owns (16 bytes)
-// __launch_bounds__(MAX_THREADS, 2) caps a thread at 80 registers, so
-// that three blocks of the 224 threads the widest schedule runs fit an SM
-constexpr int MAX_THREADS = 384;
-constexpr int SMEM_LIMIT = 232448;
-constexpr int BOX = 64;           // steps a TMA box (and its barrier) holds
-constexpr int MAX_BOXES = 1024 / BOX;
-constexpr int FOLD_BATCH = 16;    // aggregates a fold lane has in flight
-constexpr int SYNC_HEADER = 4;    // 32-bit words before the flags
 // named barriers: the compute warps after their segments; the compute
 // warps' units before the publisher releases them; the fold warps after
 // the flags; compute and fold warps once the carry-in is known
 constexpr int BAR_SEG = 1, BAR_PUB = 2, BAR_FLAGS = 3, BAR_CARRY = 4;
 
-// A block's warps: compute warps (8 channels x 16 steps a thread), fold
-// warps (one for a tile of up to 32 channels, two beyond; a lane folds one
-// channel at a time) and one publisher warp.
-struct Shape {
-  int ct, chunk;
-  __host__ __device__ constexpr int compute() const {
-    return ct / CV * (chunk / SEG);
-  }
-  __host__ __device__ constexpr int cwarps() const {
-    return (compute() + 31) / 32;
-  }
-  __host__ __device__ constexpr int fwarps() const {
-    return ct > 32 ? 2 : 1;
-  }
-  __host__ __device__ constexpr int threads() const {
-    return 32 * (cwarps() + fwarps() + 1);
-  }
+// A block's warps (rglru::Warps) and its shared memory.
+struct Shape : Warps {
   // dynamic shared memory (kernels/rg_lru.py:smem_bytes must agree): 128
   // bytes of alignment slack, x and a of the chunk x ct tile (bf16), the
   // segments' and the units' aggregates (float2 a channel) and the
@@ -101,33 +80,6 @@ struct Shape {
   }
 };
 
-__device__ __forceinline__ float step(float a, float h, float x) {
-  return __fadd_rn(__fmul_rn(a, h), x);
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[CV]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
-  uint32_t v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(uint32_t* p, uint32_t v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-
 struct Params {
   CUtensorMap mx, ma;  // (W, T, B) bf16 in boxes of ct x BOX x 1 (vec only)
   const bf16* x;
@@ -136,17 +88,20 @@ struct Params {
   bf16* h;
   float* hT;
   float2* agg;       // (B, (n_chunks - 1) * chunk / UNIT, W) unit aggregates
+  float* anchors;    // (B, n_u, W) unit-start carries, written if ANCHOR
   uint32_t* sync;    // 64-bit ticket | generation word, then one flag a block
-  int B, T, W, ct, chunk, n_chunks, n_tiles;
+  int B, T, W, ct, chunk, n_chunks, n_tiles, n_u;
 };
 
-template <bool VEC>
+// __launch_bounds__(MAX_THREADS, 2) caps a thread at 80 registers, so
+// that three blocks of the 224 threads the widest schedule runs fit an SM
+template <bool VEC, bool ANCHOR>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
 rg_lru_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint32_t s_ticket, s_gen;
   __shared__ __align__(8) uint64_t landed[MAX_BOXES];  // a box of x and a
-  const Shape sh{p.ct, p.chunk};
+  const Shape sh{{p.ct, p.chunk}};
   const int tid = threadIdx.x, warp = tid / 32;
   const int ct = p.ct, segs = p.chunk / SEG, units = p.chunk / UNIT;
   const int ncomp = sh.compute(), cw = sh.cwarps(), fw = sh.fwarps();
@@ -160,15 +115,7 @@ rg_lru_kernel(const __grid_constant__ Params p) {
 
   // ---- the ticket: chunk-major launch order ------------------------------
   if (tid == 0) {
-    auto* word = reinterpret_cast<unsigned long long*>(p.sync);
-    const unsigned long long old = atomicAdd(word, 1ull);
-    const uint32_t ticket = static_cast<uint32_t>(old);
-    const uint32_t gen = static_cast<uint32_t>(old >> 32);
-    if (ticket >= gridDim.x) __trap();  // the word was not left by a launch
-    if (ticket == gridDim.x - 1)       // every ticket is taken: reset
-      atomicExch(word, static_cast<unsigned long long>(gen + 1u) << 32);
-    s_ticket = ticket;
-    s_gen = gen;
+    take_ticket(p.sync, &s_ticket, &s_gen);
     if constexpr (VEC) {
       for (int j = 0; j < p.chunk / BOX; ++j) rt::mbar_init(&landed[j], 1);
       rt::mbar_init_fence();
@@ -360,6 +307,22 @@ rg_lru_kernel(const __grid_constant__ Params p) {
       H[i] = step(v.x, H[i], v.y);
     }
   }
+  if constexpr (ANCHOR) {  // the unit's carry: its first segment's start
+    if (s % SPU == 0) {
+      float* dst = p.anchors +
+                   (static_cast<size_t>(b) * p.n_u + u0 + unit) * p.W + w0;
+      if constexpr (VEC) {
+        reinterpret_cast<float4*>(dst)[0] =
+            make_float4(H[0], H[1], H[2], H[3]);
+        reinterpret_cast<float4*>(dst)[1] =
+            make_float4(H[4], H[5], H[6], H[7]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < CV; ++e)
+          if (e < valid) dst[e] = H[e];
+      }
+    }
+  }
   for (int q = unit * SPU; q < s; ++q) {
 #pragma unroll
     for (int i = 0; i < CV; ++i) {
@@ -392,33 +355,11 @@ rg_lru_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// What the kernel takes: a tile of 8 to 128 channels (a power of two), a
-// chunk of whole units up to 1024 steps, at most MAX_THREADS threads and
-// the shared memory a block may have.
-// (B, T, W) bf16 as a 3-D map read in boxes of ct channels x one unit of
-// steps, unswizzled: rows past T and channels past W read as zeros.
-CUresult make_map(rt::Encode enc, CUtensorMap* map, const void* base, int B,
-                  int T, int W, int ct) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W),
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(W) * 2,
-      static_cast<cuuint64_t>(T) * static_cast<cuuint64_t>(W) * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(ct), BOX, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(base), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
+// What the kernel takes: rglru::takes_shape within the shared memory a
+// block may have.
 bool takes(int ct, int chunk) {
-  const Shape sh{ct, chunk};
-  return (ct == 8 || ct == 16 || ct == 32 || ct == 64 || ct == 128) &&
-         chunk >= UNIT && chunk <= 1024 && chunk % UNIT == 0 &&
-         sh.threads() <= MAX_THREADS && sh.smem_bytes() <= SMEM_LIMIT;
+  return takes_shape(ct, chunk) &&
+         Shape{{ct, chunk}}.smem_bytes() <= SMEM_LIMIT;
 }
 
 }  // namespace
@@ -429,21 +370,25 @@ bool takes(int ct, int chunk) {
 // words, zeroed once before a stream's first launch and left by each
 // launch for the next (see the source note); one launch at a time on it.
 // ``vec``: W % 8 == 0 and x, a, h 16-byte aligned (16-byte copies).
+// ``anchors``: null (serving), or (B, ceil(T / 64), W) fp32, 16-byte
+// aligned, for each unit's starting carry (training).
 extern "C" int rt_rg_lru_scan(const void* x, const void* a, const void* h0,
-                              void* h, void* hT, void* agg, void* sync,
-                              int B, int T, int W, int ct, int chunk,
-                              int vec, void* stream) {
+                              void* h, void* hT, void* agg, void* anchors,
+                              void* sync, int B, int T, int W, int ct,
+                              int chunk, int vec, void* stream) {
   if (B <= 0 || T <= 0 || W <= 0 || B > 65535 || !takes(ct, chunk) ||
       sync == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{{}, {}, static_cast<const bf16*>(x), static_cast<const bf16*>(a),
            static_cast<const float*>(h0), static_cast<bf16*>(h),
            static_cast<float*>(hT), static_cast<float2*>(agg),
-           static_cast<uint32_t*>(sync), B, T, W, ct, chunk,
-           (T + chunk - 1) / chunk, (W + ct - 1) / ct};
+           static_cast<float*>(anchors), static_cast<uint32_t*>(sync), B,
+           T, W, ct, chunk, (T + chunk - 1) / chunk, (W + ct - 1) / ct,
+           (T + UNIT - 1) / UNIT};
   const long long blocks =
       static_cast<long long>(B) * p.n_chunks * p.n_tiles;
-  if (blocks > 0x7fffffffLL || (p.n_chunks > 1 && agg == nullptr))
+  if (blocks > 0x7fffffffLL || (p.n_chunks > 1 && agg == nullptr) ||
+      (vec && reinterpret_cast<uintptr_t>(anchors) % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec) {
     const rt::Encode enc = rt::encode_fn();
@@ -452,10 +397,16 @@ extern "C" int rt_rg_lru_scan(const void* x, const void* a, const void* h0,
     if (cr == CUDA_SUCCESS) cr = make_map(enc, &p.ma, a, B, T, W, ct);
     if (cr != CUDA_SUCCESS) return 1000 + static_cast<int>(cr);
   }
-  const Shape sh{ct, chunk};
+  const Shape sh{{ct, chunk}};
   const int smem = sh.smem_bytes();
-  const void* fn = vec ? reinterpret_cast<const void*>(&rg_lru_kernel<true>)
-                       : reinterpret_cast<const void*>(&rg_lru_kernel<false>);
+  const void* fn =
+      anchors ? (vec ? reinterpret_cast<const void*>(&rg_lru_kernel<true, true>)
+                     : reinterpret_cast<const void*>(
+                           &rg_lru_kernel<false, true>))
+              : (vec ? reinterpret_cast<const void*>(
+                           &rg_lru_kernel<true, false>)
+                     : reinterpret_cast<const void*>(
+                           &rg_lru_kernel<false, false>));
   cudaError_t rc = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   void* args[] = {&p};
@@ -469,5 +420,5 @@ extern "C" int rt_rg_lru_scan(const void* x, const void* a, const void* h0,
 // The footprint of one block (kernels/rg_lru.py:smem_bytes), -1 for a
 // tile and chunk the kernel does not take.
 extern "C" int rt_rg_lru_smem_bytes(int ct, int chunk) {
-  return takes(ct, chunk) ? Shape{ct, chunk}.smem_bytes() : -1;
+  return takes(ct, chunk) ? Shape{{ct, chunk}}.smem_bytes() : -1;
 }

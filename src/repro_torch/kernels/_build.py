@@ -39,16 +39,20 @@ SIGNATURES = {
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
          _I, _P), _I),
     "rt_flash_attention_bwd": (
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         _I, _I, _P), _I),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _I, _I, _I, _I, _P), _I),
     "rt_flash_smem_bytes": ((_I, _I, _I), _I),
     "rt_fused_mlp": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          _I, _P), _I),
     "rt_fused_mlp_smem_bytes": ((_I, _I, _I, _I, _I), _I),
     "rt_rg_lru_scan": (
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "rt_rg_lru_smem_bytes": ((_I, _I), _I),
+    "rt_rg_lru_bwd": (
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        _I),
+    "rt_rg_lru_bwd_smem_bytes": ((_I, _I), _I),
     "rt_mlstm_scan": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "rt_mlstm_smem_bytes": ((_I, _I), _I),

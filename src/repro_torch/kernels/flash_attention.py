@@ -31,10 +31,17 @@ no trace of it.  Its backward launches ``csrc/flash_attention_bwd.cu``
 (key tile, kv head, batch) for dK and dV, walking the group's q heads in
 a fixed order so that GQA's sum needs no atomics, then one block per
 (query tile, head, batch) for dQ; P is recomputed from the logsumexp.
-It is compute-bound like the forward (10·Tq·Tk·Dh FLOP a head, halved
-by the causal mask) and, for now, the simple design on ``mma.sync`` and
-``cp.async``; it takes head dims 64 and 128, and a head dim of 256
-under autograd raises.  The plain versions are
+P and dS enter the dV and dK products as split-bf16 pairs (hi + lo):
+summed over a group's heads and queries, their bf16 rounding alone
+leaves dK and dV outside the bf16 tolerance at MQA 16/1, head dim 256.
+At head dim 256 two warps share each 16-key group of a dK/dV block, one
+computing S and the other dP, and each keeps half the columns of dK and
+dV.  Where the key tiles alone leave SMs idle (MQA), the group's q heads
+are split across blocks (:func:`bwd_splits`), and a small kernel sums
+the splits' fp32 partials in split order.  It is compute-bound like the
+forward (10·Tq·Tk·Dh FLOP a head, halved by the causal mask) and, for
+now, the simple design on ``mma.sync`` and ``cp.async``; it takes head
+dims 64, 128 and 256.  The plain versions are
 :func:`repro_torch.kernels.ref.attention_lse` and
 :func:`repro_torch.kernels.ref.attention_bwd`; on CPU tensors the same
 Function runs them.
@@ -52,7 +59,7 @@ from . import _build, ref
 from .gemm import H100_SMS, sm_count
 
 HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)         # head dims the backward kernels take
+BWD_KEYS = 64                     # keys a dK/dV block owns
 BLOCK_Q = (128, 64)               # query tile heights, the taller preferred
 MAX_STAGES = 4                    # K/V ring stages the kernel can hold
 MAX_TILES = 1024                  # query tiles the launch order can list
@@ -227,6 +234,18 @@ launches = 0
 bwd_launches = 0
 
 
+def bwd_splits(b: int, hq: int, hk: int, tk: int, sms: int = H100_SMS
+               ) -> int:
+    """Blocks the backward splits each kv head's group of q heads across:
+    the fewest (a divisor of the group) whose dK/dV grid, one block per
+    (64-key tile, kv head, batch, split), fills the card's ``sms`` SMs,
+    else the whole group.  1 wherever the key tiles alone fill it."""
+    group = hq // hk
+    blocks = _cdiv(tk, BWD_KEYS) * hk * b
+    return next((d for d in range(1, group + 1)
+                 if group % d == 0 and blocks * d >= sms), group)
+
+
 def _check(what: str, *ts: torch.Tensor) -> None:
     q = ts[0]
     if not all(t.is_cuda and t.device == q.device for t in ts):
@@ -292,16 +311,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``csrc/flash_attention_bwd.cu``), for CUDA q, k, v, the forward's
     output o and row logsumexp ``lse``, and the output gradient ``do``.
     :func:`repro_torch.kernels.ref.attention_bwd` is the plain version.
-    Head dims 64 and 128."""
+    Head dims 64, 128 and 256; the q heads of a group split across
+    :func:`bwd_splits` blocks."""
     global bwd_launches
     _check("flash_attention_bwd", q, k, v, o, do)
     _check_shapes(q, k, v, window, q_offset)
     b, hq, tq, dh = q.shape
     _, hk, tk, _ = k.shape
-    if dh not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention backward: head_dim {dh} is not supported yet "
-            f"(the kernel takes {BWD_HEAD_DIMS})")
     if o.shape != q.shape or do.shape != q.shape \
             or lse.shape != (b, hq, tq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous() or lse.device != q.device:
@@ -313,14 +329,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0 or tk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     dsum = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    splits = bwd_splits(b, hq, hk, tk, sm_count(q.device.index))
+    partials = (torch.empty((2, splits, b, hk, tk, dh), dtype=torch.float32,
+                            device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _build.lib().rt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dsum.data_ptr(), b, hq, hk, tq, tk, dh,
-            int(causal), 0 if window is None else int(window),
-            int(q_offset), stream)
+            dv.data_ptr(), dsum.data_ptr(),
+            None if partials is None else partials.data_ptr(), b, hq, hk,
+            tq, tk, dh, int(causal), 0 if window is None else int(window),
+            int(q_offset), splits, stream)
     _build.check(rc, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv
@@ -341,10 +361,6 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset, plain):
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         ctx.kw, ctx.plain = kw, _plain(plain, q, k, v)
-        if not ctx.plain and q.shape[-1] not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash_attention backward: head_dim {q.shape[-1]} is not "
-                f"supported yet (the kernel takes {BWD_HEAD_DIMS})")
         o, lse = (ref.attention_lse(q, k, v, **kw) if ctx.plain
                   else _forward(q, k, v, with_lse=True, **kw))
         ctx.save_for_backward(q, k, v, o, lse)

@@ -1,19 +1,20 @@
 """Public kernel API of the port: the dispatch.
 
-Every op here but ``gemm_act``, ``rg_lru`` and ``mlstm`` (which have only
-the first: no caller asks for their plain versions on the card):
+Every op here but ``gemm_act`` and ``mlstm`` (which have only the first:
+no caller asks for their plain versions on the card):
   * with ``backend='auto'`` calls the kernel wrapper, which launches the
     CUDA kernel for a CUDA tensor and runs the plain version for a CPU
     tensor — the decision is the tensor's device, nothing else;
   * with ``backend='ref'`` runs the plain PyTorch version
     (:mod:`repro_torch.kernels.ref`): the layer-per-layer baseline.
 
-``attention`` is differentiable either way: both backends go through one
-``torch.autograd.Function`` (:func:`repro_torch.kernels.flash_attention.
-attention`), whose backward is the backward kernel on the card and the
-plain softmax-gradient equations with ``'ref'`` or on the CPU.  The
-other kernels have no backward yet: on a CUDA tensor that needs a
-gradient their wrappers raise.
+``attention`` and ``rg_lru`` are differentiable either way: both
+backends go through one ``torch.autograd.Function`` each
+(:func:`repro_torch.kernels.flash_attention.attention`,
+:func:`repro_torch.kernels.rg_lru.rg_lru_scan`), whose backward is the
+backward kernel on the card and the plain gradient equations with
+``'ref'`` or on the CPU.  The other kernels have no backward yet: on a
+CUDA tensor that needs a gradient their wrappers raise.
 
 Each kernel picks its launch from its shapes in pure Python, its
 ``schedule``: the tile widths and the split-K of ``gemm`` and
@@ -80,10 +81,10 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
                             plain=backend == "ref")
 
 
-def rg_lru(x, a, h0=None):
-    """RG-LRU scan: (all h in ``x.dtype``, final h in fp32).  It has no
-    ``backend``: its plain version runs for CPU tensors only."""
-    return _rg_lru.rg_lru_scan(x, a, h0)
+def rg_lru(x, a, h0=None, *, backend: Backend = "auto"):
+    """RG-LRU scan: (all h in ``x.dtype``, final h in fp32)."""
+    _check_backend(backend)
+    return _rg_lru.rg_lru_scan(x, a, h0, plain=backend == "ref")
 
 
 def mlstm(q, k, v, i_pre, f_pre, *, return_state: bool = False):

@@ -175,6 +175,42 @@ def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
     return hs.to(x.dtype), h
 
 
+def rg_lru_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
+               dh: torch.Tensor | None, dh_t: torch.Tensor | None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, da, dh0) of :func:`rg_lru_scan` for the cotangents ``dh`` of
+    all h (B, T, W) and ``dh_t`` of the final h (B, W); None means zeros.
+    The reverse recurrence in fp32, from the end::
+
+        g_T = dh_T + dh_t,   g_t = dh_t + a_{t+1} g_{t+1},
+        dx_t = g_t,   da_t = g_t h_{t-1},   dh0 = a_1 g_1
+
+    with h_{t-1} the fp32 carry (h0 at t = 1), recomputed here, as the
+    reference's ``lax.scan`` keeps it.  dx and da come back in their
+    inputs' dtypes, dh0 in fp32."""
+    b, t, w = x.shape
+    dev = x.device
+    xf, af = x.float(), a.float()
+    hp = torch.empty((b, t, w), dtype=torch.float32, device=dev)
+    h = (torch.zeros((b, w), dtype=torch.float32, device=dev)
+         if h0 is None else h0.float())
+    for i in range(t):
+        hp[:, i] = h
+        h = af[:, i] * h + xf[:, i]
+    dhf = (torch.zeros((b, t, w), dtype=torch.float32, device=dev)
+           if dh is None else dh.float())
+    g = (torch.zeros((b, w), dtype=torch.float32, device=dev)
+         if dh_t is None else dh_t.float())
+    dx = torch.empty((b, t, w), dtype=torch.float32, device=dev)
+    da = torch.empty_like(dx)
+    for i in reversed(range(t)):
+        g = g + dhf[:, i]
+        dx[:, i] = g
+        da[:, i] = g * hp[:, i]
+        g = af[:, i] * g
+    return dx.to(x.dtype), da.to(a.dtype), g
+
+
 # ---------------------------------------------------------------------------
 # mLSTM (xLSTM) — matrix-memory recurrence, stabilized
 # ---------------------------------------------------------------------------

@@ -31,6 +31,22 @@ own as :func:`repro_torch.kernels.ref.rg_lru_scan` rounds them:
 :func:`chunked_model` reproduces the kernel's bits on the CPU.
 :func:`schedule` picks the tile and the chunk so that the grid fills the
 card.  The plain version is :func:`repro_torch.kernels.ref.rg_lru_scan`.
+
+Training goes through :func:`rg_lru_scan` too, as a
+``torch.autograd.Function``.  Its forward launches the same kernel built
+with a template flag that also writes the fp32 carry at each 64-step
+unit's start (B·⌈T/64⌉·W·4 bytes, the anchors), where the compute thread
+of the unit's first segment already holds it, so serving's build holds no
+trace of it.  Its backward (``csrc/rg_lru_bwd.cu``,
+:func:`rg_lru_scan_bwd`) runs the reverse recurrence ``g_t = dh_t +
+a_{t+1}·g_{t+1}`` from ``g_T = dh_T + dh_t`` on the same structure run
+backward in time: the same tiles, segments and units, tickets handed out
+from the last chunk, and each chunk's carry-in the fold from ``dh_t``
+over every later unit, in order from the end.  Each block recomputes its
+steps' fp32 h_{t-1} from the anchors as the forward computed it (never
+from the bf16 h), and writes dx = g and da = g·h_{t-1} in one pass: 10
+bytes an element.  :func:`chunked_bwd_model` reproduces its bits on the
+CPU; :func:`repro_torch.kernels.ref.rg_lru_bwd` is the plain version.
 """
 from __future__ import annotations
 
@@ -38,12 +54,15 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import _build, ref
 from .gemm import H100_SMS
 
-# kernel launches since the last reset (``chip_smoke.py`` reads it)
+# kernel launches since the last reset (``chip_smoke.py`` reads them): the
+# forward kernel's, and the backward's
 launches = 0
+bwd_launches = 0
 
 SEGMENT = 16                      # steps a thread scans
 UNIT = 64                         # steps a published aggregate covers
@@ -84,12 +103,25 @@ def smem_bytes(channel_tile: int, chunk: int) -> int:
             + chunk // UNIT * channel_tile * 8 + channel_tile * 4)
 
 
-def takes(channel_tile: int, chunk: int) -> bool:
-    """The tiles and chunks the kernel takes (csrc/rg_lru.cu: takes)."""
+def bwd_smem_bytes(channel_tile: int, chunk: int) -> int:
+    """One backward block's dynamic shared memory (csrc/rg_lru_bwd.cu:
+    Shape::smem_bytes must agree): 128 bytes of slack, x, a and dh of its
+    tile in bf16, the recomputed h_{t-1} in fp32, the segments' forward
+    and backward aggregates, the units' backward aggregates (two fp32 a
+    channel each), the units' anchors and the carry-in (one)."""
+    return (128 + 10 * chunk * channel_tile
+            + 2 * (chunk // SEGMENT) * channel_tile * 8
+            + (chunk // UNIT) * channel_tile * (8 + 4) + channel_tile * 4)
+
+
+def takes(channel_tile: int, chunk: int, backward: bool = False) -> bool:
+    """The tiles and chunks the kernel takes (csrc/rg_lru.cu: takes), or
+    the backward kernel (csrc/rg_lru_bwd.cu: takes)."""
+    smem = (bwd_smem_bytes if backward else smem_bytes)(channel_tile, chunk)
     return (channel_tile in CHANNEL_TILES and UNIT <= chunk <= MAX_CHUNK
             and chunk % UNIT == 0
             and threads_for(channel_tile, chunk) <= MAX_THREADS
-            and smem_bytes(channel_tile, chunk) <= SMEM_LIMIT)
+            and smem <= SMEM_LIMIT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +133,8 @@ class Schedule:
     block's shared memory, the unit aggregates' scratch and the sync
     buffer's 32-bit words (a header, then one flag a block).  A block's
     tile arrives as TMA boxes of 64 steps, each on its own barrier: no
-    ring (a block runs one chunk)."""
+    ring (a block runs one chunk).  ``backward``: the backward kernel's
+    launch, the same blocks and scratch with its own shared memory."""
     channel_tile: int
     chunk: int
     n_chunks: int
@@ -113,6 +146,7 @@ class Schedule:
     sync_words: int
     segment: int = SEGMENT
     unit: int = UNIT
+    backward: bool = False
 
     @property
     def warps(self) -> int:
@@ -120,7 +154,8 @@ class Schedule:
 
     @property
     def label(self) -> str:
-        return (f"tile {self.channel_tile} ch, chunk {self.chunk}, "
+        return (f"{'backward, ' if self.backward else ''}tile "
+                f"{self.channel_tile} ch, chunk {self.chunk}, "
                 f"{self.threads} threads, grid {self.grid}")
 
 
@@ -129,13 +164,15 @@ def _blocks(b: int, t: int, w: int, channel_tile: int, chunk: int) -> int:
 
 
 def schedule(b: int, t: int, w: int, chunk: int | None = None,
-             channel_tile: int | None = None) -> Schedule:
+             channel_tile: int | None = None, *,
+             backward: bool = False) -> Schedule:
     """The launch for (B, T, W): the first (tile, chunk) of
     :data:`LADDER` whose grid reaches :data:`MIN_BLOCKS`, two blocks an
     SM of an H100 (a chunk longer than T rounded up to a unit is
     skipped), else the ladder's last.  ``chunk`` or ``channel_tile`` may
-    override either.  Refuses B outside 1 to 65535, T < 1, W < 1 and a
-    tile and chunk the kernel does not take."""
+    override either.  ``backward`` gives the backward kernel's launch,
+    picked by the same rule.  Refuses B outside 1 to 65535, T < 1, W < 1
+    and a tile and chunk the kernel does not take."""
     if not 0 < b <= MAX_B:
         raise ValueError(f"rg_lru_scan kernel takes 1 to {MAX_B} batch "
                          f"rows, got {b}")
@@ -148,7 +185,7 @@ def schedule(b: int, t: int, w: int, chunk: int | None = None,
                 LADDER[-1])
     ct = pick[0] if channel_tile is None else channel_tile
     ck = pick[1] if chunk is None else chunk
-    if not takes(ct, ck):
+    if not takes(ct, ck, backward):
         raise ValueError(f"rg_lru_scan kernel takes a tile of "
                          f"{CHANNEL_TILES} channels and a chunk of whole "
                          f"{UNIT}-step units up to {MAX_CHUNK} within "
@@ -159,9 +196,15 @@ def schedule(b: int, t: int, w: int, chunk: int | None = None,
     return Schedule(
         channel_tile=ct, chunk=ck, n_chunks=n_chunks, n_tiles=n_tiles,
         threads=threads_for(ct, ck), grid=grid,
-        smem_bytes=smem_bytes(ct, ck),
+        smem_bytes=(bwd_smem_bytes if backward else smem_bytes)(ct, ck),
         scratch_bytes=8 * b * (n_chunks - 1) * (ck // UNIT) * w,
-        sync_words=SYNC_HEADER + grid)
+        sync_words=SYNC_HEADER + grid, backward=backward)
+
+
+def anchor_shape(b: int, t: int, w: int) -> tuple[int, int, int]:
+    """The anchors a training forward writes: the fp32 carry at each
+    64-step unit's start, (B, ⌈T/64⌉, W)."""
+    return (b, -(-t // UNIT), w)
 
 
 # the sync buffer of each (device, stream): a ticket and generation word
@@ -196,25 +239,40 @@ def _check(x, a, h0) -> None:
         raise ValueError("rg_lru_scan kernel takes contiguous operands")
 
 
+def _plain(plain: bool, *ts: torch.Tensor | None) -> bool:
+    return plain or all(t.device.type == "cpu" for t in ts if t is not None)
+
+
 def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
-                h0: torch.Tensor | None = None
+                h0: torch.Tensor | None = None, *, plain: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x, a (B, T, W); h0 (B, W) or None → (h (B, T, W) in ``x.dtype``,
-    h_T (B, W) in fp32).
+    h_T (B, W) in fp32), with their gradient where autograd asks for one.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    A CPU tensor, or ``plain``, runs the plain versions; a CUDA tensor
+    launches the kernel (and, in the backward pass, the backward kernel)
+    or raises."""
     ts = [t for t in (x, a, h0) if t is not None]
-    if all(t.device.type == "cpu" for t in ts):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return _Scan.apply(x, a, h0, _plain(plain, *ts))
+    if _plain(plain, *ts):
         return ref.rg_lru_scan(x, a, h0)
-    _build.no_backward("rg_lru_scan", *ts)
+    return _forward(x, a, h0, with_anchors=False)[:2]
+
+
+def _forward(x, a, h0, *, with_anchors: bool):
+    """The forward kernel on CUDA x, a, h0: (h, h_T, the anchors or
+    None)."""
     _check(x, a, h0)
     b, t, w = x.shape
+    anchors = (torch.empty(anchor_shape(b, t, w), dtype=torch.float32,
+                           device=x.device) if with_anchors else None)
     if t == 0 or b == 0 or w == 0:
         return torch.empty_like(x), (
             torch.zeros((b, w), dtype=torch.float32, device=x.device)
-            if h0 is None else h0.clone())
-    return _launch(x, a, h0, schedule(b, t, w), None, None, None)
+            if h0 is None else h0.clone()), anchors
+    return (*_launch(x, a, h0, schedule(b, t, w), None, None, None,
+                     anchors), anchors)
 
 
 def run_schedule(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
@@ -226,21 +284,31 @@ def run_schedule(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
     :func:`rg_lru_scan` checks them; ``sched`` must be the shape's
     schedule at its tile and chunk).  ``out``, ``h_t`` and ``scratch``
     (``sched.scratch_bytes`` of fp32) may be handed in, as the card tests
-    do to fill them with NaN first; otherwise they are allocated here."""
+    do to fill them with NaN first; otherwise they are allocated here.
+    Counts a launch."""
     _check(x, a, h0)
     b, t, w = x.shape
     if sched != schedule(b, t, w, sched.chunk, sched.channel_tile):
         raise ValueError(f"rg_lru_scan: schedule {sched} is not the one "
                          f"for {tuple(x.shape)}")
+    _check_scratch(scratch, sched)
+    return _launch(x, a, h0, sched, out, h_t, scratch)
+
+
+def _check_scratch(scratch, sched: Schedule) -> None:
     if scratch is not None and \
             scratch.numel() * scratch.element_size() < sched.scratch_bytes:
         raise ValueError(f"rg_lru_scan: scratch of "
                          f"{scratch.numel() * scratch.element_size()} B, "
                          f"the schedule needs {sched.scratch_bytes}")
-    return _launch(x, a, h0, sched, out, h_t, scratch)
 
 
-def _launch(x, a, h0, sched: Schedule, out, h_t, scratch):
+def _vec(w: int, *ts: torch.Tensor) -> int:
+    """16-byte rows: W % 8 == 0 and every bf16 operand 16-byte aligned."""
+    return int(w % 8 == 0 and all(u.data_ptr() % 16 == 0 for u in ts))
+
+
+def _launch(x, a, h0, sched: Schedule, out, h_t, scratch, anchors=None):
     global launches
     b, t, w = x.shape
     dev = x.device
@@ -251,19 +319,122 @@ def _launch(x, a, h0, sched: Schedule, out, h_t, scratch):
     if scratch is None:
         scratch = torch.empty(sched.scratch_bytes // 4, dtype=torch.float32,
                               device=dev)
-    vec = int(w % 8 == 0 and all(u.data_ptr() % 16 == 0
-                                 for u in (x, a, out)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         sync = _sync(dev, stream, sched.sync_words)
         rc = _build.lib().rt_rg_lru_scan(
             x.data_ptr(), a.data_ptr(),
             None if h0 is None else h0.data_ptr(), out.data_ptr(),
-            h_t.data_ptr(), scratch.data_ptr(), sync.data_ptr(), b, t, w,
-            sched.channel_tile, sched.chunk, vec, stream)
+            h_t.data_ptr(), scratch.data_ptr(),
+            None if anchors is None else anchors.data_ptr(),
+            sync.data_ptr(), b, t, w, sched.channel_tile, sched.chunk,
+            _vec(w, x, a, out), stream)
     _build.check(rc, "rg_lru_scan")
     launches += 1
     return out, h_t
+
+
+def rg_lru_scan_bwd(x: torch.Tensor, a: torch.Tensor,
+                    anchors: torch.Tensor, dh: torch.Tensor | None,
+                    dh_t: torch.Tensor | None = None, *,
+                    sched: Schedule | None = None,
+                    dx: torch.Tensor | None = None,
+                    da: torch.Tensor | None = None,
+                    scratch: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, da, dh0) by the backward kernel (``csrc/rg_lru_bwd.cu``) for
+    CUDA bf16 x and a, the training forward's ``anchors``, the bf16
+    cotangent ``dh`` of h and the fp32 cotangent ``dh_t`` of h_T (None:
+    zeros).  dx and da in bf16, dh0 in fp32.
+    :func:`repro_torch.kernels.ref.rg_lru_bwd` is the plain version and
+    :func:`chunked_bwd_model` gives the kernel's bits.  ``sched`` (the
+    shape's backward schedule at some tile and chunk), ``dx``, ``da`` and
+    ``scratch`` may be handed in, as the card tests do."""
+    global bwd_launches
+    _check(x, a, None)
+    b, t, w = x.shape
+    if dh is None:
+        dh = torch.zeros_like(x)
+    if dh.shape != x.shape or dh.dtype != torch.bfloat16 \
+            or dh.device != x.device or not dh.is_contiguous():
+        raise ValueError(f"rg_lru_scan_bwd: dh must be a contiguous bf16 "
+                         f"{tuple(x.shape)} tensor beside x, got "
+                         f"{tuple(dh.shape)} {dh.dtype}")
+    if dh_t is not None and (
+            dh_t.shape != (b, w) or dh_t.dtype != torch.float32
+            or dh_t.device != x.device or not dh_t.is_contiguous()):
+        raise ValueError(f"rg_lru_scan_bwd: dh_t must be ({b}, {w}) "
+                         f"float32, got {tuple(dh_t.shape)} {dh_t.dtype}")
+    if anchors.shape != anchor_shape(b, t, w) \
+            or anchors.dtype != torch.float32 \
+            or anchors.device != x.device or not anchors.is_contiguous():
+        raise ValueError(f"rg_lru_scan_bwd: anchors must be a contiguous "
+                         f"{anchor_shape(b, t, w)} float32 tensor, got "
+                         f"{tuple(anchors.shape)} {anchors.dtype}")
+    dx = torch.empty_like(x) if dx is None else dx
+    da = torch.empty_like(a) if da is None else da
+    dh0 = torch.empty((b, w), dtype=torch.float32, device=x.device)
+    if t == 0 or b == 0 or w == 0:
+        return dx, da, (torch.zeros_like(dh0) if dh_t is None
+                        else dh_t.clone())
+    if sched is None:
+        sched = schedule(b, t, w, backward=True)
+    elif sched != schedule(b, t, w, sched.chunk, sched.channel_tile,
+                           backward=True):
+        raise ValueError(f"rg_lru_scan_bwd: schedule {sched} is not a "
+                         f"backward one for {tuple(x.shape)}")
+    _check_scratch(scratch, sched)
+    if scratch is None:
+        scratch = torch.empty(sched.scratch_bytes // 4, dtype=torch.float32,
+                              device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        sync = _sync(x.device, stream, sched.sync_words)
+        rc = _build.lib().rt_rg_lru_bwd(
+            x.data_ptr(), a.data_ptr(), dh.data_ptr(), anchors.data_ptr(),
+            None if dh_t is None else dh_t.data_ptr(), dx.data_ptr(),
+            da.data_ptr(), dh0.data_ptr(), scratch.data_ptr(),
+            sync.data_ptr(), b, t, w, sched.channel_tile, sched.chunk,
+            _vec(w, x, a, dh, dx, da), stream)
+    _build.check(rc, "rg_lru_scan_bwd")
+    bwd_launches += 1
+    return dx, da, dh0
+
+
+class _Scan(torch.autograd.Function):
+    """The scan with its gradient.  On the CPU, or with ``plain``, both
+    passes run the plain versions (``ref.rg_lru_scan``,
+    ``ref.rg_lru_bwd``, which recomputes h); on a CUDA tensor the forward
+    launches the kernel's training build, which keeps the fp32 anchors,
+    and the backward the backward kernel, or they raise.  A cotangent
+    autograd does not pass (h_T's, in training) comes as None: zeros."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0, plain):
+        ctx.set_materialize_grads(False)
+        ctx.plain = plain
+        if plain:
+            h, h_t = ref.rg_lru_scan(x, a, h0)
+            ctx.save_for_backward(x, a, h0)
+        else:
+            h, h_t, anchors = _forward(x, a, h0, with_anchors=True)
+            ctx.save_for_backward(x, a, anchors)
+        ctx.has_h0 = h0 is not None
+        return h, h_t
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh, dh_t):
+        x, a, third = ctx.saved_tensors
+        if dh is not None:
+            dh = dh.contiguous()
+        if dh_t is not None:
+            dh_t = dh_t.contiguous()
+        if ctx.plain:
+            dx, da, dh0 = ref.rg_lru_bwd(x, a, third, dh, dh_t)
+        else:
+            dx, da, dh0 = rg_lru_scan_bwd(x, a, third, dh, dh_t)
+        return dx, da, dh0 if ctx.has_h0 else None, None
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +497,20 @@ def chunked_model(x: torch.Tensor, a: torch.Tensor,
     kernel's result.  Returns what :func:`rg_lru_scan` returns.  For the
     tests only: nothing on the served path calls it."""
     b, t, w = x.shape
+    xs, as_, H, k = _segment_starts(x, a, h0, sched)
+    out = torch.empty_like(xs)
+    for r in range(sched.segment):
+        H = as_[:, :, r] * H + xs[:, :, r]
+        out[:, :, r] = H
+    return out.view(b, -1, w)[:, :t].to(x.dtype), k
+
+
+def _segment_starts(x, a, h0, sched: Schedule):
+    """The staged x and a, the fp32 carry at each segment's start (B,
+    segments, W) and h_T, as the forward kernel computes them: each
+    unit's carry (its anchor) folded from h0 over every earlier unit,
+    then on through the unit's earlier segments."""
+    b, t, w = x.shape
     xs, as_ = _staged(x, a, sched)
     (sA, sX), (uA, uX) = aggregates(x, a, sched=sched)
     k = (torch.zeros((b, w), dtype=torch.float32, device=x.device)
@@ -339,9 +524,74 @@ def chunked_model(x: torch.Tensor, a: torch.Tensor,
     for q in range(sA.shape[2]):
         starts.append(H)
         H = sA[:, :, q] * H + sX[:, :, q]
-    H = torch.stack(starts, 2).view(b, -1, w)        # (B, segments, W)
-    out = torch.empty_like(xs)
-    for r in range(sched.segment):
+    return xs, as_, torch.stack(starts, 2).view(b, -1, w), k
+
+
+def chunked_bwd_model(x: torch.Tensor, a: torch.Tensor,
+                      dh: torch.Tensor | None,
+                      dh_t: torch.Tensor | None = None,
+                      h0: torch.Tensor | None = None, *, sched: Schedule
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``csrc/rg_lru_bwd.cu``'s decomposition and rounding points, in
+    plain PyTorch on any device: what :func:`rg_lru_scan_bwd` returns,
+    bit for bit, for a forward from ``h0``.
+
+    The reverse recurrence is the forward's form run backward in time,
+    ``g_t = c_t·g_{t+1} + dh_t`` with ``c_t = a_{t+1}`` (1 for the last
+    step and past T, where dh is padded 0 up to a whole unit), from
+    ``dh_t`` (or 0).  Each 16-step segment folds its steps from the last,
+    (C, G) = (1, 0): G ← c·G + dh, C ← c·C; each 64-step unit folds its
+    segments' aggregates from the last the same way; the carry at each
+    unit's end is the fold from ``dh_t`` over every later unit, from the
+    last, ``K ← C_u·K + G_u``, and at each segment's end it continues
+    from its unit's through the unit's later segments; each step is then
+    re-scanned from there, dx_t = g_t and da_t = g_t·h_{t-1}, and dh0 =
+    a_0·g_0.  h_{t-1} is the fp32 carry exactly as the forward kernel
+    computes it (:func:`chunked_model`: the anchors, then the segments).
+    Every product and sum is a separate fp32 operation.  Nothing here
+    depends on the schedule's tile or chunk, nor does the kernel's
+    result.  For the tests only."""
+    b, t, w = x.shape
+    xs, as_, H, _ = _segment_starts(x, a, h0, sched)
+    shape = xs.shape
+    n_s, seg = shape[1], shape[2]
+    per = sched.unit // seg
+    pad = n_s * seg - t
+    dhs = (torch.zeros(shape, dtype=torch.float32, device=x.device)
+           if dh is None else F.pad(dh.float(), (0, 0, 0, pad)).view(shape))
+    af = as_.reshape(b, -1, w)
+    c = torch.cat([af[:, 1:], torch.ones_like(af[:, :1])], 1).view(shape)
+    hp = torch.empty_like(xs)                       # h_{t-1}
+    for r in range(seg):
+        hp[:, :, r] = H
         H = as_[:, :, r] * H + xs[:, :, r]
-        out[:, :, r] = H
-    return out.view(b, -1, w)[:, :t].to(x.dtype), k
+    C = torch.ones_like(xs[:, :, 0])
+    G = torch.zeros_like(C)
+    for r in reversed(range(seg)):
+        G = c[:, :, r] * G + dhs[:, :, r]
+        C = c[:, :, r] * C
+    sC, sG = C.view(b, -1, per, w), G.view(b, -1, per, w)
+    uC, uG = torch.ones_like(sC[:, :, 0]), torch.zeros_like(sG[:, :, 0])
+    for q in reversed(range(per)):
+        uG = sC[:, :, q] * uG + sG[:, :, q]
+        uC = sC[:, :, q] * uC
+    k = (torch.zeros((b, w), dtype=torch.float32, device=x.device)
+         if dh_t is None else dh_t.float())
+    ends = []
+    for u in reversed(range(uC.shape[1])):
+        ends.append(k)
+        k = uC[:, u] * k + uG[:, u]
+    K = torch.stack(ends[::-1], 1)                  # (B, units, W)
+    seg_ends = []
+    for q in reversed(range(per)):
+        seg_ends.append(K)
+        K = sC[:, :, q] * K + sG[:, :, q]
+    G = torch.stack(seg_ends[::-1], 2).view(b, -1, w)
+    dx, da = torch.empty_like(xs), torch.empty_like(xs)
+    for r in reversed(range(seg)):
+        G = c[:, :, r] * G + dhs[:, :, r]
+        dx[:, :, r] = G
+        da[:, :, r] = G * hp[:, :, r]
+    dh0 = as_[:, 0, 0] * G[:, 0]
+    return (dx.view(b, -1, w)[:, :t].to(x.dtype),
+            da.view(b, -1, w)[:, :t].to(a.dtype), dh0)

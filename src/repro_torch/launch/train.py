@@ -27,6 +27,7 @@ import logging
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ftl import executor_block
 from repro_torch.core.ftl import registry as ftl_registry
 from repro_torch.core.ftl.solver import InfeasibleError
@@ -38,9 +39,11 @@ from repro_torch.runtime.monitor import HeartbeatMonitor
 from repro_torch.train import steps as S
 
 
-def build(args) -> TrainLoop:
+def build(args, cfg: ModelConfig | None = None) -> TrainLoop:
     """The :class:`TrainLoop` the flags in ``args`` describe, not yet
-    run; its ``block_plan`` and ``heartbeat`` are surfaced for tools."""
+    run; its ``block_plan`` and ``heartbeat`` are surfaced for tools.
+    ``cfg``, where given, takes the place of the config ``--arch`` names
+    (``--reduced`` and ``--ftl-mode`` still apply to it)."""
     if args.mesh:
         raise NotImplementedError("the port has no distributed layer yet: "
                                   "--mesh is not supported")
@@ -48,7 +51,8 @@ def build(args) -> TrainLoop:
         raise NotImplementedError("the port has no gradient compression "
                                   "yet: --compress is not supported")
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
+    if cfg is None:
+        cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.ftl_mode:

@@ -5,8 +5,11 @@ On CPU tensors ``ops.attention`` runs the same ``torch.autograd.Function``
 that launches the flash kernels on the card, with its plain passes:
 ``ref.attention_lse`` forward and ``ref.attention_bwd`` backward.  Cases:
 GQA 4/2 and MQA 4/1; causal, a window of 8 and not causal; ``q_offset``
-0 and 5; a fully masked row gives zero gradients.  Also: the kernels
-that have no backward refuse a gradient on a non-CPU tensor.
+0 and 5; a fully masked row gives zero gradients; head dim 256 with MQA
+16/1 and a window, recurrentgemma-9b's local attention.  Also: the
+kernels that have no backward refuse a gradient on a non-CPU tensor, the
+two that have one (flash attention at every head dim, the RG-LRU scan)
+take it, and the backward's split of a group's q heads across blocks.
 """
 import numpy as np
 import pytest
@@ -55,6 +58,19 @@ def _torch_grad(q, k, v, do, **kw):
 def test_function_matches_jax_vjp(heads, mask, q_offset):
     kw = dict(MASKS[mask], q_offset=q_offset)
     q, k, v, do = _inputs(*heads, 20, 20 + q_offset)
+    want = _jax_vjp(q, k, v, do, **kw)
+    got = _torch_grad(q, k, v, do, **kw)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("mask", ["causal", "window8"])
+@pytest.mark.parametrize("heads", [(16, 1), (4, 2)], ids=["mqa16", "gqa"])
+def test_function_matches_jax_vjp_at_head_dim_256(heads, mask):
+    """recurrentgemma-9b's head dim, its MQA and a window shorter than T
+    (the window's lower edge binds for the later queries)."""
+    kw = dict(MASKS[mask], q_offset=0)
+    q, k, v, do = _inputs(*heads, 24, 24, dh=256, seed=9)
     want = _jax_vjp(q, k, v, do, **kw)
     got = _torch_grad(q, k, v, do, **kw)
     for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
@@ -132,6 +148,9 @@ CALLS = {
         _meta(64, 64, grad=g), _meta(64, 128), _meta(128, 64)),
     "rg_lru_scan": lambda g: rg_lru.rg_lru_scan(
         _meta(1, 8, 64, grad=g), _meta(1, 8, 64, grad=g)),
+    "flash_attention_256": lambda g: flash_attention.flash_attention(
+        _meta(1, 2, 8, 256, grad=g), _meta(1, 1, 8, 256),
+        _meta(1, 1, 8, 256)),
     "mlstm_scan": lambda g: mlstm.mlstm_scan(
         _meta(1, 2, 8, 64, grad=g), _meta(1, 2, 8, 64), _meta(1, 2, 8, 64),
         _meta(1, 2, 8, dtype=torch.float32),
@@ -139,11 +158,27 @@ CALLS = {
 }
 
 
-@pytest.mark.parametrize("name", list(CALLS))
+# the kernels with a backward kernel: a gradient goes through their
+# autograd Function, which on a ``meta`` tensor stops at the device check
+WITH_BACKWARD = ("rg_lru_scan", "flash_attention_256")
+
+
+@pytest.mark.parametrize("name", [n for n in CALLS
+                                  if n not in WITH_BACKWARD])
 def test_kernels_without_backward_refuse_a_gradient(name):
     with pytest.raises(NotImplementedError,
                        match=f"^{name}: no backward kernel yet; train with "
                              f"ftl_mode='off'$"):
+        CALLS[name](True)
+
+
+@pytest.mark.parametrize("name", WITH_BACKWARD)
+def test_the_scan_and_flash_at_256_no_longer_refuse_a_gradient(name):
+    """The RG-LRU scan (since its backward kernel) and flash attention at
+    head dim 256 (since the backward takes it) no longer raise
+    ``NotImplementedError`` under grad: the call reaches the Function's
+    forward, whose kernel side asks for a CUDA tensor."""
+    with pytest.raises(ValueError, match="CUDA"):
         CALLS[name](True)
 
 
@@ -158,15 +193,40 @@ def test_kernels_without_backward_serve_under_no_grad(name):
             gemm.gemm(_meta(64, 64, grad=False), _meta(64, 64, grad=True))
 
 
-def test_flash_backward_refuses_head_dim_256():
+def test_flash_backward_takes_head_dim_256():
+    """Head dim 256 under grad goes through the autograd Function: on a
+    CPU tensor its plain passes give a gradient, on a ``meta`` one its
+    kernel side asks for a CUDA tensor, as it does under no_grad."""
     q = _meta(1, 2, 8, 256)
-    with pytest.raises(NotImplementedError,
-                       match="flash_attention backward: head_dim 256"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention.flash_attention(q, _meta(1, 1, 8, 256),
                                         _meta(1, 1, 8, 256))
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         flash_attention.flash_attention(q, _meta(1, 1, 8, 256),
                                         _meta(1, 1, 8, 256))
+    qc = torch.zeros(1, 2, 8, 256).requires_grad_()
+    o = flash_attention.flash_attention(qc, torch.zeros(1, 1, 8, 256),
+                                        torch.zeros(1, 1, 8, 256))
+    assert type(o.grad_fn).__name__ == "_AttentionBackward"
+
+
+@pytest.mark.parametrize("b,hq,hk,tk,want", [
+    (1, 16, 1, 3072, 4),    # recurrentgemma-9b's train path: 48 tiles
+    (1, 16, 1, 4096, 4),
+    (1, 16, 1, 1000, 16),   # 16 tiles: the whole group
+    (1, 48, 1, 2048, 6),    # granite-20b's MQA: 32 tiles
+    (2, 24, 8, 1024, 1),    # llama's GQA: 256 blocks without a split
+    (1, 8, 8, 1500, 1),     # one q head a kv head
+])
+def test_backward_splits_fill_the_card(b, hq, hk, tk, want):
+    """The fewest splits of a group's q heads (a divisor of the group)
+    whose dK/dV grid reaches the card's 132 SMs, else the whole group."""
+    s = flash_attention.bwd_splits(b, hq, hk, tk)
+    assert s == want and (hq // hk) % s == 0
+    blocks = -(-tk // flash_attention.BWD_KEYS) * hk * b
+    assert blocks * s >= 132 or s == hq // hk
+    assert s == 1 or blocks * [d for d in range(1, s)
+                               if (hq // hk) % d == 0][-1] < 132
 
 
 def test_flash_backward_wrapper_checks_its_operands():

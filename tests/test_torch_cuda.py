@@ -227,6 +227,8 @@ def test_flash_attention_schedules(dev, case, want_block_q, block_q):
     (1, 8, 8, 448, 500, 64, False, None, 0),
     (2, 4, 2, 70, 100, 128, True, 16, 30),
     (1, 2, 2, 8, 8, 64, True, 2, 20),           # every row fully masked
+    (1, 16, 1, 1000, 1000, 256, True, 256, 0),  # recurrentgemma's, BQ 64
+    (1, 16, 1, 3072, 3072, 256, True, 2048, 0),  # its train path, BQ 128
 ])
 def test_flash_attention_lse(dev, b, hq, hk, tq, tk, dh, causal, window,
                              q_offset):
@@ -254,13 +256,19 @@ def test_flash_attention_lse(dev, b, hq, hk, tq, tk, dh, causal, window,
     (2, 4, 1, 70, 130, 64, True, 16, 60),       # MQA, window, q_offset
     (1, 8, 8, 100, 150, 64, False, None, 0),    # cross-attention
     (1, 2, 2, 8, 8, 64, True, 2, 20),           # every row fully masked
+    (1, 16, 1, 1000, 1000, 256, True, 256, 0),  # D = 256, MQA, window
+    (1, 16, 1, 3072, 3072, 256, True, 2048, 0),  # recurrentgemma's train
+    (2, 4, 1, 130, 130, 256, True, None, 0),    # D = 256, 2 q heads a split
+    (1, 24, 8, 600, 600, 128, True, 100, 0),    # GQA with a window
+    (1, 48, 1, 700, 700, 128, True, None, 0),   # granite's MQA, split
 ])
 def test_flash_attention_backward(dev, b, hq, hk, tq, tk, dh, causal,
                                   window, q_offset):
     """The backward kernels against ``ref.attention_bwd`` on the same o
-    and lse, dO ~ N(0, 1), in the bf16 rule; two launches give the same
-    bits; the autograd Function launches the forward and backward kernels
-    once each."""
+    and lse, dO ~ N(0, 1), in the bf16 rule (dK and dV summed over a
+    group's q heads in splits where the key tiles leave SMs idle); two
+    launches give the same bits; the autograd Function launches the
+    forward and backward kernels once each."""
     q = _rand(dev, 30, b, hq, tq, dh)
     k, v = _rand(dev, 31, b, hk, tk, dh), _rand(dev, 32, b, hk, tk, dh)
     do = _rand(dev, 33, b, hq, tq, dh)
@@ -287,9 +295,14 @@ def test_kernels_without_backward_raise_under_grad(dev):
         gemm.gemm(x, _rand(dev, 41, 64, 64))
     with torch.no_grad():
         _close(gemm.gemm(x, x), ref.gemm(x, x))
-    q = _rand(dev, 42, 1, 2, 8, 256).requires_grad_()
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        flash_attention.flash_attention(q, q, q)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        fused_mlp.fused_mlp(x, _rand(dev, 42, 64, 128), _rand(dev, 43, 128,
+                                                              64))
+    # head dim 256 has its backward now
+    q = _rand(dev, 44, 1, 2, 8, 256).requires_grad_()
+    k = _rand(dev, 45, 1, 1, 8, 256)
+    out = flash_attention.flash_attention(q, k, k)
+    assert type(out.grad_fn).__name__ == "_AttentionBackward"
 
 
 def test_flash_smem_bytes_match_the_launcher(dev):
@@ -569,10 +582,123 @@ def test_rg_lru_launcher_refuses_what_the_kernel_does_not_take(dev):
                          (64, 64, 0), (64, 64, 65536)]:
         rc = _build.lib().rt_rg_lru_scan(
             x.data_ptr(), a.data_ptr(), None, h.data_ptr(), h_t.data_ptr(),
-            None, sync.data_ptr(), b, 64, 64, ct, chunk, 1, stream)
+            None, None, sync.data_ptr(), b, 64, 64, ct, chunk, 1, stream)
         assert rc != 0
     with pytest.raises(ValueError):             # not the shape's schedule
         rg_lru.run_schedule(x, a, None, rg_lru.schedule(1, 128, 64))
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU scan's backward kernel
+# ---------------------------------------------------------------------------
+
+def _rg_lru_bwd_run(dev, b, t, w, seed, state, sched=None):
+    """The training forward's anchors, then the backward kernel with its
+    dx and da filled with NaN first; against ``chunked_bwd_model``."""
+    x, a, h0 = _rg_lru_inputs(dev, seed, b, t, w)
+    h0 = h0 if state else None
+    dh = _rand(dev, seed + 2, b, t, w)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    dh_t = torch.randn((b, w), generator=g, device=dev) if state else None
+    _, _, anchors = rg_lru._forward(x, a, h0, with_anchors=True)
+    sched = sched or rg_lru.schedule(b, t, w, backward=True)
+    nan = float("nan")
+    got = rg_lru.rg_lru_scan_bwd(
+        x, a, anchors, dh, dh_t, sched=sched, dx=torch.full_like(x, nan),
+        da=torch.full_like(a, nan),
+        scratch=torch.full((max(1, sched.scratch_bytes // 4),), nan,
+                           device=dev))
+    model = rg_lru.chunked_bwd_model(x, a, dh, dh_t, h0, sched=sched)
+    torch.cuda.synchronize()
+    return (x, a, h0, dh, dh_t, anchors), got, model
+
+
+@pytest.mark.parametrize("b,t,w,state", [
+    (1, 1, 8, True),             # one step: c = 1, dh0 = a_0 (dh_0 + dh_T)
+    (2, 63, 64, False),          # one unit, cut
+    (1, 64, 64, True),           # one whole unit
+    (1, 65, 64, True),           # a second unit of one step
+    (2, 1000, 4000, True),       # a ragged last chunk and tile
+    (2, 37, 13, True),           # W % 8 != 0: element copies
+    (1, 3072, 4096, False),      # recurrentgemma-9b's train path
+    (4, 1024, 4096, True),       # many chunks, four rows
+])
+def test_rg_lru_backward_is_the_chunked_model_bit_for_bit(dev, b, t, w,
+                                                          state):
+    """dx, da and dh0 equal ``chunked_bwd_model`` bit for bit, and the
+    plain backward within the bf16 rule (dh0, fp32, within 1e-4); two
+    launches give the same bits."""
+    args, got, model = _rg_lru_bwd_run(dev, b, t, w, 51, state)
+    assert all(torch.equal(p, q) for p, q in zip(got, model))
+    x, a, h0, dh, dh_t, anchors = args
+    want = ref.rg_lru_bwd(x, a, h0, dh, dh_t)
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+    again = rg_lru.rg_lru_scan_bwd(x, a, anchors, dh, dh_t)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.parametrize("b,t,w", [(1, 2048, 4096), (2, 700, 264)])
+def test_rg_lru_backward_every_schedule_gives_the_same_bits(dev, b, t, w):
+    want = None
+    for ct, ck in [(64, 256), (64, 128), (128, 64), (32, 256), (8, 64)]:
+        sched = rg_lru.schedule(b, t, w, ck, ct, backward=True)
+        _, got, model = _rg_lru_bwd_run(dev, b, t, w, 53, True, sched)
+        assert all(torch.equal(p, q) for p, q in zip(got, model))
+        want = want or got
+        assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+def test_rg_lru_anchors_leave_h_alone_and_are_the_models_carries(dev):
+    """The training build writes the carry at each unit's start and the
+    same h and h_T as serving's build."""
+    x, a, h0 = _rg_lru_inputs(dev, 55, 2, 1000, 4000)
+    h, h_t, anchors = rg_lru._forward(x, a, h0, with_anchors=True)
+    hs, h_ts = rg_lru.rg_lru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hs) and torch.equal(h_t, h_ts)
+    assert anchors.shape == rg_lru.anchor_shape(2, 1000, 4000)
+    for u in range(anchors.shape[1]):
+        if u == 0:
+            assert torch.equal(anchors[:, 0], h0)
+            continue
+        _, carry = rg_lru.chunked_model(
+            x[:, :64 * u].contiguous(), a[:, :64 * u].contiguous(), h0,
+            sched=rg_lru.schedule(2, 64 * u, 4000))
+        assert torch.equal(anchors[:, u], carry), u
+
+
+def test_rg_lru_function_launches_both_kernels(dev):
+    """Under autograd the scan's Function launches the training forward
+    once and the backward once, and gives the kernels' gradients."""
+    x, a, h0 = _rg_lru_inputs(dev, 57, 1, 300, 256)
+    dh = _rand(dev, 58, 1, 300, 256)
+    ts = [x.clone().requires_grad_(), a.clone().requires_grad_(),
+          h0.clone().requires_grad_()]
+    f0, b0 = rg_lru.launches, rg_lru.bwd_launches
+    h, _ = ops.rg_lru(*ts)
+    grads = torch.autograd.grad(h, ts, dh)
+    assert (rg_lru.launches, rg_lru.bwd_launches) == (f0 + 1, b0 + 1)
+    _, _, anchors = rg_lru._forward(x, a, h0, with_anchors=True)
+    want = rg_lru.rg_lru_scan_bwd(x, a, anchors, dh, None)
+    assert all(torch.equal(p, q) for p, q in zip(grads, want))
+    # and the plain Function on the card launches neither kernel
+    f1, b1 = rg_lru.launches, rg_lru.bwd_launches
+    plain = torch.autograd.grad(ops.rg_lru(*ts, backend="ref")[0], ts, dh)
+    assert (rg_lru.launches, rg_lru.bwd_launches) == (f1, b1)
+    _close(grads[0], plain[0])
+    _close(grads[1], plain[1])
+
+
+def test_rg_lru_bwd_footprints_agree_with_the_launcher(dev):
+    from repro_torch.kernels import _build
+    for ct in rg_lru.CHANNEL_TILES + (24,):
+        for chunk in range(32, 1025, 32):
+            want = (rg_lru.bwd_smem_bytes(ct, chunk)
+                    if rg_lru.takes(ct, chunk, backward=True) else -1)
+            assert _build.lib().rt_rg_lru_bwd_smem_bytes(ct, chunk) == want
 
 
 def _mlstm_inputs(dev, seed, b, h, t, dh):

@@ -285,3 +285,25 @@ def test_launcher_needs_a_card_unless_told_cpu(monkeypatch):
              *flag])
         with pytest.raises(NotImplementedError):
             tlaunch.build(args)
+
+
+def test_build_takes_a_config_in_place_of_the_arch():
+    """``build(args, cfg)`` trains the config it is handed (here reduced
+    recurrentgemma-9b cut to two periods), with the flags' data, steps
+    and device."""
+    cfg = dataclasses.replace(
+        tconfigs.get_config("recurrentgemma-9b").reduced(), n_layers=6)
+    args = tlaunch.parser().parse_args(
+        ["--arch", "recurrentgemma-9b", "--device", "cpu", "--steps", "1",
+         "--batch", "2", "--seq", "16"])
+    loop = tlaunch.build(args, cfg)
+    stack = TM.tree_leaves(loop.state.params["layers"])
+    assert stack and all(t.shape[0] == 2 for t in stack)  # two periods
+    loop.run()
+    assert len(loop.metrics_log) == 1
+    assert np.isfinite(loop.metrics_log[0]["loss"])
+    whole = tlaunch.build(tlaunch.parser().parse_args(
+        ["--arch", "recurrentgemma-9b", "--reduced", "--device", "cpu",
+         "--steps", "1", "--batch", "2", "--seq", "16"]))
+    assert all(t.shape[0] == 1
+               for t in TM.tree_leaves(whole.state.params["layers"]))

@@ -7,7 +7,8 @@
   converted, ``ftl_mode`` "off" and "auto"): loss within 1e-6 and each
   leaf's max |Δg| within 1e-4 of that leaf's max |g|.  The port's
   attention core runs its autograd Function's plain backward here
-  (``ref.attention_bwd``).
+  (``ref.attention_bwd``), and recurrentgemma-9b's RG-LRU scan its own
+  (``ref.rg_lru_bwd``, once for each recurrent layer, counted).
 * ``make_train_step`` against ``jax.jit`` of the reference's for accum 1
   and 2, three steps of reduced llama3.2-3b on ``SyntheticLM`` bigram
   batches: per-step loss, grad_norm and lr within 1e-5 relative, params
@@ -18,6 +19,7 @@ The reference runs with matmul precision "highest"; both packages plan on
 the same explicit default target.
 """
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -39,6 +41,7 @@ from repro.train import steps as JS  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import hw as thw  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
 from repro_torch.train import losses as tlosses  # noqa: E402
@@ -138,8 +141,16 @@ def test_loss_gradients_match_reference(jweights, arch, mode):
     jp = jax.tree.map(jnp.asarray, jweights[arch])
     (jl, _), jg = jax.value_and_grad(JS.make_loss_fn(jcfg), has_aux=True)(
         jp, {"tokens": jnp.asarray(tokens)})
-    tl, tg = _torch_grads(tcfg, params_from_numpy(jweights[arch], "cpu"),
-                          tokens)
+    with mock.patch.object(tref, "rg_lru_bwd",
+                           wraps=tref.rg_lru_bwd) as scan_bwd:
+        tl, tg = _torch_grads(tcfg, params_from_numpy(jweights[arch],
+                                                      "cpu"), tokens)
+    # the scan's gradient goes through its autograd Function: its plain
+    # backward runs once in each recurrent layer
+    kinds = TM.period_kinds(tcfg)
+    n_rec = sum(kinds[i % len(kinds)] == "rec" for i in range(tcfg.n_layers))
+    assert scan_bwd.call_count == n_rec
+    assert n_rec > 0 or tcfg.family != "hybrid"
     np.testing.assert_allclose(tl, float(jl), rtol=0, atol=1e-6)
     jflat = dict(_flat(jax.tree.map(np.asarray, jg)))
     assert set(jflat) == set(tg)
