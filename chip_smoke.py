@@ -14,7 +14,10 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    the planner and the schedules read agree with the launchers', and
    that ``ptxas`` reports no spills and no serialised ``wgmma`` for the
    builds that train recurrentgemma-9b (the RG-LRU scan's anchors and
-   backward, flash attention's logsumexp and backward at head_dim 256).
+   backward, flash attention's logsumexp at head_dim 256) and for every
+   build of the flash backward (its dK/dV kernel with 128-key tiles at
+   head_dim 64 and 128, with 64-key tiles at 128 and 256; its dQ kernel
+   at every head dim and tile height; D's rows; the splits' sum).
 2. Kernels against their plain PyTorch versions, in bf16 at the serving
    paths' shapes: max |difference| against the stated tolerance, and each
    kernel's time (CUDA events, median of 20 launches, L2 flushed before
@@ -67,7 +70,12 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    whisper-base's cross-attention and recurrentgemma-9b's MQA 16/1 at
    head_dim 256 (the train path's T = 3072 and T = 4096 with the 2048
    window, T = 1024 causal, a ragged T = 1000 with a 256 window), two
-   launches bit-identical, each beside SDPA's backward.
+   launches bit-identical, each beside SDPA's backward; each row prints
+   its schedule (the dK/dV kernel's key tile, ring stages, grid and
+   splits, the dQ kernel's query tile, ring stages and grid, from
+   ``kernels/flash_attention.py:bwd_schedule``); the train path's row is
+   profiled by kernel (``kernels_ms``: D's rows, dK/dV, dQ, the splits'
+   sum).
 3. Serve llama3.2-3b at full width (28 layers, bf16, random weights from a
    seed) with ``ftl_mode='fused'`` on the ``h100`` planning target: 8
    requests, 4 slots, paged KV.  The launch counters are set to 0 just
@@ -267,22 +275,30 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS
 # phase 1: the builds this slice added
 # ---------------------------------------------------------------------------
 
-# entries (mangled names) of the builds added for training recurrentgemma-
-# 9b: the RG-LRU forward with its anchors and its backward, the flash
-# forward with its row logsumexp at head_dim 256 (both tile heights) and
-# the flash backward at head_dim 256 and its splits' sum
+# entries (mangled names) of the builds added for training: the RG-LRU
+# forward with its anchors and its backward, the flash forward with its
+# row logsumexp at head_dim 256 (both tile heights), and every build of
+# the flash backward's TMA + wgmma rebuild (with how many of each, where
+# it is fixed), one build a head dim: its dK/dV kernel in rows (128 keys,
+# head_dim 64 and 128) and in columns (64 keys, head_dim 256), its dQ
+# kernel (64 rows at head_dim 64 and 256, 128 at 128), D's rows and the
+# splits' sum
 NEW_BUILDS = {
-    "rg_lru_scan, anchors": r"rg_lru_kernelILb[01]ELb1E",
-    "rg_lru_scan_bwd": r"rg_lru_bwd_kernel",
-    "flash_attention, lse, D=256": r"flash_kernelILi256ELi(64|128)ELb1E",
-    "flash_attention_bwd, every head dim": r"(dkdv|dq)_kernelILi",
-    "flash_attention_bwd, splits' sum": r"split_sum_kernel",
+    "rg_lru_scan, anchors": (r"rg_lru_kernelILb[01]ELb1E", None),
+    "rg_lru_scan_bwd": (r"rg_lru_bwd_kernel", None),
+    "flash_attention, lse, D=256":
+        (r"flash_kernelILi256ELi(64|128)ELb1E", None),
+    "flash_attention_bwd dK/dV, rows": (r"dkdv_kernelILi(64|128)ELb0E", 2),
+    "flash_attention_bwd dK/dV, columns": (r"dkdv_kernelILi256ELb1E", 1),
+    "flash_attention_bwd dQ": (r"dq_kernelILi(64|128|256)ELi(64|128)E", 3),
+    "flash_attention_bwd D rows": (r"dsum_kernelILi", 3),
+    "flash_attention_bwd, splits' sum": (r"split_sum_kernel", 1),
 }
 
 
 def check_new_builds(log: str) -> None:
-    """``ptxas``'s report on :data:`NEW_BUILDS`: each has an entry, none
-    spills, and none has its ``wgmma`` serialised (C7515/C7520)."""
+    """``ptxas``'s report on :data:`NEW_BUILDS`: each has its entries,
+    none spills, and none has its ``wgmma`` serialised (C7515/C7520)."""
     spills, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -294,9 +310,11 @@ def check_new_builds(log: str) -> None:
             spills[entry] = int(m.group(1)) + int(m.group(2))
     serialised = " ".join(line for line in log.splitlines()
                           if "C7515" in line or "C7520" in line)
-    for what, pattern in NEW_BUILDS.items():
+    for what, (pattern, builds) in NEW_BUILDS.items():
         hits = {e: n for e, n in spills.items() if re.search(pattern, e)}
-        check(bool(hits), f"no ptxas report for {what}")
+        check(len(hits) == builds if builds else bool(hits),
+              f"{len(hits)} ptxas report(s) for {what}, "
+              f"{builds or 'some'} expected")
         check(all(n == 0 for n in hits.values()),
               f"{what} spills: {hits}")
         check(not any(e in serialised for e in hits),
@@ -506,8 +524,10 @@ def flash_bwd_cases(dev, timer, randn):
     recurrentgemma-9b's local attention at head_dim 256, MQA 16/1: the
     train path's (1, 3072) with its 2048 window, (1, 4096) with the
     window, (1, 1024) causal, and a ragged (1, 1000) with a 256 window.
-    Each row prints the backward's split of a group's q heads across
-    blocks.  Two launches must give the same bits.  The one PyTorch call
+    Each row prints the backward's schedule (``bwd_schedule``: the dK/dV
+    kernel's key tile, stages, grid and splits of a group's q heads, the
+    dQ kernel's query tile, stages and grid).  Two launches must give the
+    same bits.  The one PyTorch call
     is SDPA's backward, through ``torch.autograd.grad`` on a saved graph,
     with ``is_causal`` where the window does not bind and the window as a
     boolean mask where it does (the backend it lands on is printed); the
@@ -532,12 +552,12 @@ def flash_bwd_cases(dev, timer, randn):
                     randn(b_, hk, tk, dh, scale=sc), randn(b_, hk, tk, dh))
         do = randn(b_, hq, tq, dh)
         kw = dict(causal=causal, window=win, q_offset=0)
-        splits = flash_attention.bwd_splits(
-            b_, hq, hk, tk, flash_attention.sm_count(dev.index))
+        sched = flash_attention.bwd_plan(q, kk, **kw)
         label = (f"flash_attention_bwd B={b_} Hq={hq} Hk={hk} Tq={tq} "
                  f"Tk={tk} D={dh} {'causal' if causal else 'not causal'}"
                  f"{'' if win is None else ' window=%d' % win}")
-        print(f"  {label}: {splits} split(s) of the group's q heads")
+        print(f"  {label}: schedule {sched.label}, {sched.kv_smem_bytes} "
+              f"and {sched.q_smem_bytes} B of shared memory")
         o, lse = flash_attention._forward(q, kk, v, with_lse=True, **kw)
         got = flash_attention.flash_attention_bwd(q, kk, v, o, lse, do, **kw)
         want = ref.attention_bwd(q, kk, v, o, lse, do, **kw)
@@ -554,6 +574,12 @@ def flash_bwd_cases(dev, timer, randn):
         nbytes = (2 * 4 * q.numel() + 2 * 4 * kk.numel()
                   + 4 * lse.numel())
         bd, why = bound_ms(nbytes, 10 * b_ * hq * dh * pairs)
+        split = None
+        if path == TRAIN:
+            split = bwd_kernel_split(flash_attention, q, kk, v, o, lse, do,
+                                     kw)
+            print(f"  {label}: device ms a call by kernel (profiler, mean of "
+                  f"5): {split}")
         binds = win is not None and win < tk
         lib_mask = mask if binds else None
         ts = [t.detach().clone().requires_grad_() for t in (q, kk, v)]
@@ -563,7 +589,10 @@ def flash_bwd_cases(dev, timer, randn):
         backend = sdpa_backend(*ts, lib_mask, causal)
         out.append(dict(
             path=path, shape=[b_, hq, hk, tq, tk, dh], causal=causal,
-            window=win, splits=splits, max_abs_err=err, bit_identical=same,
+            window=win, block_k=sched.block_k, block_q=sched.block_q,
+            stages=[sched.kv_stages, sched.q_stages],
+            grid=[sched.kv_grid, sched.q_grid], splits=sched.splits,
+            max_abs_err=err, bit_identical=same, kernels_ms=split,
             ms=timer.ms(lambda: flash_attention.flash_attention_bwd(
                 q, kk, v, o, lse, do, **kw)),
             plain_ms=timer.ms(lambda: ref.attention_bwd(
@@ -577,6 +606,27 @@ def flash_bwd_cases(dev, timer, randn):
         del sdpa, ts, mask
         torch.cuda.empty_cache()
     return out
+
+
+def bwd_kernel_split(flash_attention, q, k, v, o, lse, do, kw) -> dict:
+    """Device ms a call of the flash backward's kernels (D's rows, dK/dV,
+    dQ on the side stream, the splits' sum), the mean of 5 calls under
+    the profiler: what holds the call back."""
+    flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    split = {}
+    for name, (_, ms) in _device_kernels(prof).items():
+        m = re.search(r"(dsum|dkdv|split_sum|dq)_kernel", name)
+        if m:
+            split[m.group(1)] = split.get(m.group(1), 0.0) + ms / 5
+    check(set(split) >= {"dsum", "dkdv", "dq"},
+          f"flash backward kernels missing from the profile: {split}")
+    return split
 
 
 def tile_loop(label, x, w) -> dict:
@@ -1022,8 +1072,8 @@ def mlstm_cases(dev, timer, randn):
 
 KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "flash_attention": r"(^|::)flash_kernel\b",
-             # one call: D = rowsum(dO o), then dK/dV, the splits' sum
-             # (MQA), then dQ
+             # one call: D = rowsum(dO o), then dK/dV and the splits' sum
+             # (MQA) beside dQ
              "flash_attention_bwd":
                  r"(^|::)(dsum|dkdv|split_sum|dq)_kernel\b",
              "fused_mlp": r"(^|::)fused_mlp_kernel\b",
@@ -1703,6 +1753,20 @@ def main() -> int:
             check(got == flash_attention.smem_bytes_for(dh, bq),
                   f"flash_attention footprint at D={dh}, BQ={bq}: Python "
                   f"{flash_attention.smem_bytes_for(dh, bq)}, CUDA {got}")
+    # and the flash backward's, at the tile each head dim builds and every
+    # ring depth
+    for dh in flash_attention.HEAD_DIMS:
+        for kern, tiles in ((0, flash_attention.BWD_BLOCK_K),
+                            (1, flash_attention.BWD_BLOCK_Q)):
+            for tile in (tiles[dh],):
+                for st in range(2, flash_attention.MAX_STAGES + 1):
+                    got = _build.lib().rt_flash_bwd_smem_bytes(
+                        kern, dh, tile, st)
+                    want = flash_attention.bwd_smem_bytes(
+                        ("dkdv", "dq")[kern], dh, tile, st)
+                    check(got == want, f"flash_attention_bwd footprint "
+                          f"(kernel {kern}, D={dh}, tile {tile}, {st} "
+                          f"stages): Python {want}, CUDA {got}")
     # and the mLSTM scan's, at both chunk lengths
     for chunk in mlstm.CHUNKS:
         st = mlstm.stages_for(chunk)

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma
-// kernels: the GEMM tile loop (gemm_tile.cuh) and flash attention
-// (flash_attention.cu).
+// kernels: the GEMM tile loop (gemm_tile.cuh), flash attention and its
+// backward (flash_attention.cu, flash_attention_bwd.cu) and the scans.
 //
 // * mbarriers: init, arrive, arrive with an expected transaction count,
 //   and a parity wait.
-// * TMA: loads of one box of a 2-D or 3-D tensor map into shared memory,
-//   completing an mbarrier's transaction bytes; a 3-D store of one box
-//   from shared memory, with its bulk-group commit and wait.
+// * TMA: loads of one box of a 2-D or 3-D tensor map, or of a run of
+//   contiguous bytes, into shared memory, completing an mbarrier's
+//   transaction bytes; a 3-D store of one box from shared memory, with its
+//   bulk-group commit and wait.
 // * wgmma: the shared-memory matrix descriptor for the 128-byte swizzle;
 //   Wgmma<N, TB>::ss (A and B from shared memory) and ::rs (A from
 //   registers, in the mma.sync A-fragment layout), m64nNk16 bf16 -> fp32
@@ -110,6 +111,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ``bytes`` contiguous bytes of global memory into shared memory (both
+// 16-byte aligned, a multiple of 16 bytes), completing ``bar``'s
+// transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -339,8 +352,18 @@ using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime so
-// that the library needs no link against libcuda.
+// that the library needs no link against libcuda; null if the driver has
+// none or no context can be made current.  The encoder needs the device's
+// context current on the calling thread, and autograd runs a backward on
+// a thread of its own on which no runtime call may have run yet:
+// cudaFree(nullptr) binds the current device's context, once a thread
+// (a later cudaSetDevice binds the new device's).
 inline Encode encode_fn() {
+  static thread_local bool bound = false;
+  if (!bound) {
+    if (cudaFree(nullptr) != cudaSuccess) return nullptr;
+    bound = true;
+  }
   static Encode fn = nullptr;
   if (!fn) {
     void* ptr = nullptr;

@@ -40,7 +40,8 @@ SIGNATURES = {
          _I, _P), _I),
     "rt_flash_attention_bwd": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         _I, _I, _I, _I, _P), _I),
+         _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P), _I),
+    "rt_flash_bwd_smem_bytes": ((_I, _I, _I, _I), _I),
     "rt_flash_smem_bytes": ((_I, _I, _I), _I),
     "rt_fused_mlp": (
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

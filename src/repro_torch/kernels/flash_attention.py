@@ -27,22 +27,32 @@ Its forward launches the same kernel built with a template flag that
 also writes each row's fp32 logsumexp (+inf for a row that sees no key),
 in the epilogue after the last ``wgmma`` wait, so serving's build holds
 no trace of it.  Its backward launches ``csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd`): D = rowsum(dO ∘ O), then one block per
-(key tile, kv head, batch) for dK and dV, walking the group's q heads in
-a fixed order so that GQA's sum needs no atomics, then one block per
-(query tile, head, batch) for dQ; P is recomputed from the logsumexp.
-P and dS enter the dV and dK products as split-bf16 pairs (hi + lo):
-summed over a group's heads and queries, their bf16 rounding alone
-leaves dK and dV outside the bf16 tolerance at MQA 16/1, head dim 256.
-At head dim 256 two warps share each 16-key group of a dK/dV block, one
-computing S and the other dP, and each keeps half the columns of dK and
-dV.  Where the key tiles alone leave SMs idle (MQA), the group's q heads
-are split across blocks (:func:`bwd_splits`), and a small kernel sums
-the splits' fp32 partials in split order.  It is compute-bound like the
-forward (10·Tq·Tk·Dh FLOP a head, halved by the causal mask) and, for
-now, the simple design on ``mma.sync`` and ``cp.async``; it takes head
-dims 64, 128 and 256.  The plain versions are
-:func:`repro_torch.kernels.ref.attention_lse` and
+(:func:`flash_attention_bwd`) on the forward's parts: D = rowsum(dO ∘ O)
+into rows padded to 64 queries, then one block per (key tile, kv head,
+batch, split) for dK and dV and one per (query tile, q head, batch) for
+dQ, each a producer warp streaming TMA tiles through an mbarrier ring to
+two (dQ: one or two) consumer warpgroups on ``wgmma``; P is recomputed
+from the logsumexp, and P and dS enter the next products from registers.
+dQ runs on a second stream beside dK/dV, joined before the call
+returns.  A dK/dV block walks the group's q heads in a fixed order, so
+that GQA's sum needs no atomics.  Its key tile is 128 keys at head dims
+64 and 128 (each consumer group owning 64 keys and all of their dK and
+dV columns) and 64 at 256 (both groups on the same keys, one computing
+S and the other dP, trading them through shared memory, each keeping
+half the columns).  dQ's query tile is 128 rows at head dim 128 and 64
+at 64 and 256, where two groups share the 64 rows the same way.  P and dS enter the dV
+and dK products as split-bf16 pairs (hi + lo): summed over a group's
+heads and queries, their bf16 rounding alone leaves dK and dV outside
+the bf16 tolerance at MQA 16/1, head dim 256.  Where the key tiles
+alone leave SMs idle (MQA), the group's q heads are split across blocks
+(:func:`bwd_splits`), and a small kernel sums the splits' fp32
+partials in split order.  :func:`bwd_schedule` decides, in
+pure Python, both kernels' tiles, ring depths, grids and launch orders
+(heaviest first), and :func:`query_tiles` gives each key tile's span of
+query tiles and the ones that need no mask, as the kernel computes
+them.  It is compute-bound like the forward (10·Tq·Tk·Dh FLOP a head,
+halved by the causal mask); it takes head dims 64, 128 and 256.  The
+plain versions are :func:`repro_torch.kernels.ref.attention_lse` and
 :func:`repro_torch.kernels.ref.attention_bwd`; on CPU tensors the same
 Function runs them.
 """
@@ -59,7 +69,11 @@ from . import _build, ref
 from .gemm import H100_SMS, sm_count
 
 HEAD_DIMS = (64, 128, 256)
-BWD_KEYS = 64                     # keys a dK/dV block owns
+BWD_ROWS = 64                     # queries (dK/dV) or keys (dQ) a stage
+# the backward's one build at each head dim: the dK/dV kernel's key tile
+# and the dQ kernel's query tile
+BWD_BLOCK_K = {64: 128, 128: 128, 256: 64}
+BWD_BLOCK_Q = {64: 64, 128: 128, 256: 64}
 BLOCK_Q = (128, 64)               # query tile heights, the taller preferred
 MAX_STAGES = 4                    # K/V ring stages the kernel can hold
 MAX_TILES = 1024                  # query tiles the launch order can list
@@ -229,21 +243,154 @@ def run_schedule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # kernel launches since the last reset (``chip_smoke.py`` reads them): the
 # forward kernel's, and the backward's (one for each call of
-# :func:`flash_attention_bwd`, which runs its three kernels)
+# :func:`flash_attention_bwd`, which runs all of its kernels)
 launches = 0
 bwd_launches = 0
 
 
-def bwd_splits(b: int, hq: int, hk: int, tk: int, sms: int = H100_SMS
-               ) -> int:
+def bwd_splits(b: int, hq: int, hk: int, tk: int, block_k: int,
+               sms: int = H100_SMS) -> int:
     """Blocks the backward splits each kv head's group of q heads across:
     the fewest (a divisor of the group) whose dK/dV grid, one block per
-    (64-key tile, kv head, batch, split), fills the card's ``sms`` SMs,
-    else the whole group.  1 wherever the key tiles alone fill it."""
+    (``block_k``-key tile, kv head, batch, split), fills the card's
+    ``sms`` SMs, else the whole group.  1 wherever the key tiles alone
+    fill it."""
     group = hq // hk
-    blocks = _cdiv(tk, BWD_KEYS) * hk * b
+    blocks = _cdiv(tk, block_k) * hk * b
     return next((d for d in range(1, group + 1)
                  if group % d == 0 and blocks * d >= sms), group)
+
+
+def query_tiles(tile: int, block_k: int, block_q: int, tq: int, tk: int,
+                causal: bool, window: int | None, q_offset: int) -> Span:
+    """The query tiles that some row of key tile ``tile`` sees, and the
+    ones among them that every real row sees whole, as the dK/dV kernel
+    computes them (csrc/flash_attention_bwd.cu: query_span): the
+    transpose of :func:`key_tiles`.  Rows past ``tq`` do not count; a key
+    tile holding a key past ``tk`` has no whole query tile."""
+    win = window or 0
+    k0 = tile * block_k
+    k1 = min(k0 + block_k, tk) - 1
+    q_lo = max(0, k0 - q_offset) if causal else 0
+    q_hi = min(tq - 1, k1 + win - 1 - q_offset) if win else tq - 1
+    if q_lo > q_hi:
+        return Span(0, 0, 0, 0)
+    lo, hi = q_lo // block_q, q_hi // block_q + 1
+    # rows that see every key of the tile: from the one that sees its last
+    # key (causal) to the one that still sees its first (window)
+    f_lo = max(0, k0 + block_k - 1 - q_offset) if causal else 0
+    f_hi = k0 + win - 1 - q_offset if win else tq - 1
+    full_lo = min(hi, max(lo, _cdiv(f_lo, block_q)))
+    top = hi if f_hi >= tq - 1 else (f_hi + 1) // block_q
+    full_hi = (full_lo if k0 + block_k > tk
+               else max(full_lo, min(hi, top)))
+    return Span(lo, full_lo, full_hi, hi)
+
+
+def bwd_smem_bytes(kernel: str, head_dim: int, tile: int, stages: int
+                   ) -> int:
+    """Dynamic shared memory of one block of the backward's ``"dkdv"``
+    kernel at key tile ``tile`` or its ``"dq"`` kernel at query tile
+    ``tile``, with ``stages`` ring stages (csrc/flash_attention_bwd.cu:
+    KvCfg and QCfg::smem_bytes): 1 KB to align to the 128-byte swizzle,
+    the tiles held for the whole loop, the ring and 256 B of mbarriers."""
+    if kernel == "dkdv":
+        # K and V; a stage's Q and dO tiles and lse and D rows; the S^T /
+        # dP^T trade where both groups share 64 keys
+        trade = 2 * 32 * 128 * 4 if tile == 64 else 0
+        return (1024 + 2 * tile * head_dim * 2
+                + stages * (2 * BWD_ROWS * head_dim * 2 + 2 * BWD_ROWS * 4)
+                + trade + 256)
+    # Q and dO; a stage's K and V tiles; at head_dim 256, the S / dP trade
+    # of two groups sharing 64 rows
+    trade = 2 * 32 * 128 * 4 if head_dim == 256 else 0
+    return (1024 + 2 * tile * head_dim * 2
+            + 2 * stages * BWD_ROWS * head_dim * 2 + trade + 256)
+
+
+def bwd_stages_for(kernel: str, head_dim: int, tile: int) -> int:
+    """A backward ring's depth: as many stages as fit a block's shared
+    memory, at most MAX_STAGES (2 at head_dim 256)."""
+    n = MAX_STAGES
+    while bwd_smem_bytes(kernel, head_dim, tile, n) > SMEM_LIMIT:
+        n -= 1
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdSchedule:
+    """What the backward's launcher runs: the dK/dV kernel's key tile,
+    ring stages, grid (key tiles x kv heads x batch x splits), shared
+    memory and key tiles in launch order; the splits of a group's q heads;
+    the dQ kernel's query tile, ring stages, grid, shared memory and query
+    tiles in launch order.  Both orders heaviest first."""
+    block_k: int
+    kv_stages: int
+    splits: int
+    kv_grid: int
+    kv_smem_bytes: int
+    kv_order: tuple[int, ...]
+    block_q: int
+    q_stages: int
+    q_grid: int
+    q_smem_bytes: int
+    q_order: tuple[int, ...]
+
+    @property
+    def label(self) -> str:
+        return (f"dK/dV BK={self.block_k} stages={self.kv_stages} "
+                f"splits={self.splits} grid={self.kv_grid}; dQ "
+                f"BQ={self.block_q} stages={self.q_stages} "
+                f"grid={self.q_grid}")
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_schedule(b: int, hq: int, hk: int, tq: int, tk: int, dh: int,
+                 causal: bool, window: int | None, q_offset: int, *,
+                 sms: int = H100_SMS) -> BwdSchedule:
+    """The backward's launch for q (b, hq, tq, dh) over k/v (b, hk, tk,
+    dh) on ``sms`` SMs.
+
+    Each kernel's tile is the one built at ``dh`` (:data:`BWD_BLOCK_K`,
+    :data:`BWD_BLOCK_Q`), and the splits fill the card at that key tile
+    (:func:`bwd_splits`).  Each grid launches its tiles in the order of
+    the tiles of the other axis they see, most first, later tiles first on
+    a tie; every (kv head, batch, split) or (q head, batch) of a tile
+    launches together."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {dh}")
+    if hk < 1 or hq % hk:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hk}")
+    block_k, block_q = BWD_BLOCK_K[dh], BWD_BLOCK_Q[dh]
+    nk, nq = _cdiv(tk, block_k), _cdiv(tq, block_q)
+    if not (1 <= nk <= MAX_TILES and 1 <= nq <= MAX_TILES):
+        raise ValueError(f"flash_attention_bwd kernel at head_dim {dh} "
+                         f"takes 1 to {MAX_TILES * block_q} queries and 1 "
+                         f"to {MAX_TILES * block_k} keys, got {tq} and "
+                         f"{tk}")
+    splits = bwd_splits(b, hq, hk, tk, block_k, sms)
+    mask = (tq, tk, causal, window, q_offset)
+    seen_k = [query_tiles(j, block_k, BWD_ROWS, *mask).tiles
+              for j in range(nk)]
+    seen_q = [key_tiles(i, block_q, BWD_ROWS, *mask).tiles
+              for i in range(nq)]
+    kv_st = bwd_stages_for("dkdv", dh, block_k)
+    q_st = bwd_stages_for("dq", dh, block_q)
+    return BwdSchedule(
+        block_k, kv_st, splits, nk * hk * b * splits,
+        bwd_smem_bytes("dkdv", dh, block_k, kv_st),
+        tuple(sorted(range(nk), key=lambda j: (-seen_k[j], -j))),
+        block_q, q_st, nq * hq * b, bwd_smem_bytes("dq", dh, block_q, q_st),
+        tuple(sorted(range(nq), key=lambda i: (-seen_q[i], -i))))
+
+
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+             window: int | None, q_offset: int) -> BwdSchedule:
+    """The schedule :func:`flash_attention_bwd` launches for CUDA q, k."""
+    b, hq, tq, dh = q.shape
+    return bwd_schedule(b, hq, k.shape[1], tq, k.shape[2], dh, bool(causal),
+                        window, int(q_offset), sms=sm_count(q.device.index))
 
 
 def _check(what: str, *ts: torch.Tensor) -> None:
@@ -301,6 +448,49 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream the backward's dQ kernel runs on beside dK/dV: forked
+    from the caller's stream after D's rows and joined into it before the
+    call returns, so that the caller sees one stream's order."""
+    return torch.cuda.Stream(device)
+
+
+def run_bwd_schedule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     s: BwdSchedule, *, causal: bool, window: int | None,
+                     q_offset: int, out: tuple[torch.Tensor, ...] | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by the backward kernels on schedule ``s``, for checked
+    CUDA operands with ``k.shape[2] > 0`` (what :func:`flash_attention_bwd`
+    launches with :func:`bwd_plan`; ``chip_smoke.py`` times other
+    schedules with it).  ``out``: dq, dk and dv to write into, else new
+    tensors.  Counts no launch."""
+    b, hq, tq, dh = q.shape
+    _, hk, tk, _ = k.shape
+    dq, dk, dv = out if out is not None else (
+        torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    rows = torch.empty((2, b, hq, _cdiv(tq, BWD_ROWS) * BWD_ROWS),
+                       dtype=torch.float32, device=q.device)
+    partials = (torch.empty((2, s.splits, b, hk, tk, dh),
+                            dtype=torch.float32, device=q.device)
+                if s.splits > 1 else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        side = _side_stream(q.device).cuda_stream
+        rc = _build.lib().rt_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), rows.data_ptr(),
+            None if partials is None else partials.data_ptr(), b, hq, hk,
+            tq, tk, dh, int(causal), 0 if window is None else int(window),
+            int(q_offset), s.block_k, s.block_q, s.kv_stages, s.q_stages,
+            s.splits, _order_array(s.kv_order), len(s.kv_order),
+            _order_array(s.q_order), len(s.q_order), stream, side)
+    _build.check(rc, "flash_attention_bwd")
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
@@ -308,11 +498,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
     """(dq, dk, dv) in bf16 by the backward kernels
-    (``csrc/flash_attention_bwd.cu``), for CUDA q, k, v, the forward's
-    output o and row logsumexp ``lse``, and the output gradient ``do``.
-    :func:`repro_torch.kernels.ref.attention_bwd` is the plain version.
-    Head dims 64, 128 and 256; the q heads of a group split across
-    :func:`bwd_splits` blocks."""
+    (``csrc/flash_attention_bwd.cu``) on :func:`bwd_plan`'s schedule, for
+    CUDA q, k, v, the forward's output o and row logsumexp ``lse``, and
+    the output gradient ``do``.  :func:`repro_torch.kernels.ref.
+    attention_bwd` is the plain version.  Head dims 64, 128 and 256; the
+    q heads of a group split across :func:`bwd_splits` blocks."""
     global bwd_launches
     _check("flash_attention_bwd", q, k, v, o, do)
     _check_shapes(q, k, v, window, q_offset)
@@ -324,26 +514,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}, lse {tuple(lse.shape)} "
                          f"{lse.dtype} for q {tuple(q.shape)}")
-    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
-                  torch.empty_like(v))
     if q.numel() == 0 or tk == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    splits = bwd_splits(b, hq, hk, tk, sm_count(q.device.index))
-    partials = (torch.empty((2, splits, b, hk, tk, dh), dtype=torch.float32,
-                            device=q.device) if splits > 1 else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _build.lib().rt_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dsum.data_ptr(),
-            None if partials is None else partials.data_ptr(), b, hq, hk,
-            tq, tk, dh, int(causal), 0 if window is None else int(window),
-            int(q_offset), splits, stream)
-    _build.check(rc, "flash_attention_bwd")
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = run_bwd_schedule(q, k, v, o, lse, do, bwd_plan(q, k, **kw), **kw)
     bwd_launches += 1
-    return dq, dk, dv
+    return out
 
 
 def _plain(plain: bool, *ts: torch.Tensor) -> bool:

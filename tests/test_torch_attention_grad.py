@@ -210,20 +210,23 @@ def test_flash_backward_takes_head_dim_256():
     assert type(o.grad_fn).__name__ == "_AttentionBackward"
 
 
-@pytest.mark.parametrize("b,hq,hk,tk,want", [
-    (1, 16, 1, 3072, 4),    # recurrentgemma-9b's train path: 48 tiles
-    (1, 16, 1, 4096, 4),
-    (1, 16, 1, 1000, 16),   # 16 tiles: the whole group
-    (1, 48, 1, 2048, 6),    # granite-20b's MQA: 32 tiles
-    (2, 24, 8, 1024, 1),    # llama's GQA: 256 blocks without a split
-    (1, 8, 8, 1500, 1),     # one q head a kv head
+@pytest.mark.parametrize("b,hq,hk,tk,dh,want", [
+    (1, 16, 1, 3072, 256, 4),   # recurrentgemma-9b's train path: 48 tiles
+    (1, 16, 1, 4096, 256, 4),
+    (1, 16, 1, 1000, 256, 16),  # 16 tiles: the whole group
+    (1, 48, 1, 2048, 128, 12),  # granite-20b's MQA: 16 tiles
+    (2, 24, 8, 1024, 128, 3),   # llama's GQA: 128 blocks without a split
+    (1, 8, 8, 1500, 64, 1),     # one q head a kv head
 ])
-def test_backward_splits_fill_the_card(b, hq, hk, tk, want):
+def test_backward_splits_fill_the_card(b, hq, hk, tk, dh, want):
     """The fewest splits of a group's q heads (a divisor of the group)
-    whose dK/dV grid reaches the card's 132 SMs, else the whole group."""
-    s = flash_attention.bwd_splits(b, hq, hk, tk)
-    assert s == want and (hq // hk) % s == 0
-    blocks = -(-tk // flash_attention.BWD_KEYS) * hk * b
+    whose dK/dV grid, at the key tile the schedule runs, reaches the
+    card's 132 SMs, else the whole group."""
+    sched = flash_attention.bwd_schedule(b, hq, hk, tk, tk, dh, True, None,
+                                         0)
+    s = flash_attention.bwd_splits(b, hq, hk, tk, sched.block_k)
+    assert s == sched.splits == want and (hq // hk) % s == 0
+    blocks = -(-tk // sched.block_k) * hk * b
     assert blocks * s >= 132 or s == hq // hk
     assert s == 1 or blocks * [d for d in range(1, s)
                                if (hq // hk) % d == 0][-1] < 132

@@ -261,20 +261,29 @@ def test_flash_attention_lse(dev, b, hq, hk, tq, tk, dh, causal, window,
     (2, 4, 1, 130, 130, 256, True, None, 0),    # D = 256, 2 q heads a split
     (1, 24, 8, 600, 600, 128, True, 100, 0),    # GQA with a window
     (1, 48, 1, 700, 700, 128, True, None, 0),   # granite's MQA, split
+    # rows that reach both the loop over whole tiles and the masked one in
+    # one call: long and not causal, with both window edges masked
+    (1, 8, 2, 2048, 2048, 128, False, 700, 0),
+    (1, 4, 1, 512, 1024, 64, True, None, 512),  # q_offset > 0 at D = 64
+    (2, 8, 4, 777, 777, 128, True, None, 0),    # Tk past the last tile
 ])
 def test_flash_attention_backward(dev, b, hq, hk, tq, tk, dh, causal,
                                   window, q_offset):
     """The backward kernels against ``ref.attention_bwd`` on the same o
     and lse, dO ~ N(0, 1), in the bf16 rule (dK and dV summed over a
-    group's q heads in splits where the key tiles leave SMs idle); two
-    launches give the same bits; the autograd Function launches the
-    forward and backward kernels once each."""
+    group's q heads in splits where the key tiles leave SMs idle), into
+    dq, dk and dv filled with NaN first; two launches give the same bits;
+    the autograd Function launches the forward and backward kernels once
+    each."""
     q = _rand(dev, 30, b, hq, tq, dh)
     k, v = _rand(dev, 31, b, hk, tk, dh), _rand(dev, 32, b, hk, tk, dh)
     do = _rand(dev, 33, b, hq, tq, dh)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o, lse = flash_attention._forward(q, k, v, with_lse=True, **kw)
-    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    nan = tuple(torch.full_like(t, float("nan")) for t in (q, k, v))
+    got = flash_attention.run_bwd_schedule(
+        q, k, v, o, lse, do, flash_attention.bwd_plan(q, k, **kw), out=nan,
+        **kw)
     want = ref.attention_bwd(q, k, v, o, lse, do, **kw)
     for g, w in zip(got, want):
         _close(g, w)
@@ -690,6 +699,88 @@ def test_rg_lru_function_launches_both_kernels(dev):
     assert (rg_lru.launches, rg_lru.bwd_launches) == (f1, b1)
     _close(grads[0], plain[0])
     _close(grads[1], plain[1])
+
+
+def test_flash_bwd_footprints_agree_with_the_launcher(dev):
+    """Each backward kernel's footprint (``bwd_smem_bytes``, which
+    ``bwd_schedule`` sizes its rings by) is what the launcher asks for, at
+    the tile each head dim builds and every ring depth; -1 where no build
+    takes the tile."""
+    from repro_torch.kernels import _build
+    fa = flash_attention
+    for dh in (32, *fa.HEAD_DIMS):
+        for kern, (name, tiles) in enumerate((("dkdv", fa.BWD_BLOCK_K),
+                                              ("dq", fa.BWD_BLOCK_Q))):
+            for tile in (64, 128):
+                for st in range(2, fa.MAX_STAGES + 1):
+                    built = tiles.get(dh) == tile
+                    want = (fa.bwd_smem_bytes(name, dh, tile, st) if built
+                            else -1)
+                    assert _build.lib().rt_flash_bwd_smem_bytes(
+                        kern, dh, tile, st) == want, (name, dh, tile, st)
+
+
+def _on_a_fresh_thread(fn):
+    """fn() on a new thread, as autograd runs a backward: no runtime call
+    has bound the device's context there before the launcher's."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+            torch.cuda.synchronize()
+        except BaseException as e:          # handed to the test's thread
+            box["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    return box["out"]
+
+
+@pytest.mark.parametrize("kernel", ["rg_lru_scan_bwd", "flash_attention_bwd",
+                                    "flash_attention"])
+def test_tensor_map_launchers_run_first_on_a_fresh_thread(dev, kernel):
+    """A launcher that encodes TMA tensor maps, called first on a thread
+    of its own, gives the bits it gives on the test's thread: the encoder
+    binds the context itself.  Every output is made on the test's thread
+    (and the allocator's blocks warmed there), so that the launcher is the
+    first runtime call on the new one."""
+    if kernel == "rg_lru_scan_bwd":
+        x, a, _ = _rg_lru_inputs(dev, 59, 2, 700, 264)
+        dh = _rand(dev, 60, 2, 700, 264)
+        _, _, anchors = rg_lru._forward(x, a, None, with_anchors=True)
+        sched = rg_lru.schedule(2, 700, 264, backward=True)
+        outs = [dict(dx=torch.empty_like(x), da=torch.empty_like(a),
+                     scratch=torch.empty((max(1, sched.scratch_bytes // 4),),
+                                         device=dev)) for _ in range(2)]
+
+        def call(i):
+            return rg_lru.rg_lru_scan_bwd(x, a, anchors, dh, sched=sched,
+                                          **outs[i])
+    else:
+        q = _rand(dev, 61, 1, 8, 300, 128)
+        k, v = _rand(dev, 62, 1, 2, 300, 128), _rand(dev, 63, 1, 2, 300, 128)
+        kw = dict(causal=True, window=None, q_offset=0)
+        o, lse = flash_attention._forward(q, k, v, with_lse=True, **kw)
+        do = _rand(dev, 64, 1, 8, 300, 128)
+        outs = [tuple(torch.empty_like(t) for t in (q, k, v))
+                for _ in range(2)]
+        s = flash_attention.bwd_plan(q, k, **kw)
+        fs = flash_attention.plan(q, k, **kw)
+
+        def call(i):
+            if kernel == "flash_attention":
+                return (flash_attention.run_schedule(q, k, v, fs, **kw),)
+            return flash_attention.run_bwd_schedule(q, k, v, o, lse, do, s,
+                                                    out=outs[i], **kw)
+    want = call(0)
+    torch.cuda.synchronize()
+    got = _on_a_fresh_thread(lambda: call(1))
+    assert all(torch.equal(p, w) for p, w in zip(got, want))
 
 
 def test_rg_lru_bwd_footprints_agree_with_the_launcher(dev):
