@@ -14,10 +14,13 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    the planner and the schedules read agree with the launchers', and
    that ``ptxas`` reports no spills and no serialised ``wgmma`` for the
    builds that train recurrentgemma-9b (the RG-LRU scan's anchors and
-   backward, flash attention's logsumexp at head_dim 256) and for every
+   backward, flash attention's logsumexp at head_dim 256), for every
    build of the flash backward (its dK/dV kernel with 128-key tiles at
    head_dim 64 and 128, with 64-key tiles at 128 and 256; its dQ kernel
-   at every head dim and tile height; D's rows; the splits' sum).
+   at every head dim and tile height; D's rows; the splits' sum) and for
+   the mLSTM backward's four kernels; the mLSTM forward's serving and
+   training builds print their spills, which are not gated (the serving
+   build spilled before the training build was added).
 2. Kernels against their plain PyTorch versions, in bf16 at the serving
    paths' shapes: max |difference| against the stated tolerance, and each
    kernel's time (CUDA events, median of 20 launches, L2 flushed before
@@ -57,11 +60,23 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    Dh = 1024, with and without state), four slots at T = 512, a ragged
    (2, 2, 1000, 128), and a right-padded scan whose state is taken below T
    against the unpadded scan's (bit for bit); each case prints its
-   schedule (chunk length, ring stages, grids) and its time at the other
-   chunk length, two launches are checked bit-identical, and each row
-   keeps three bounds apart: the function's (which the kernel is held
-   to), the work this design does (split-bf16 products, the Q K^T
-   scratch) and the step-by-step fp32 recurrence's.  The flash forward
+   schedule (chunk length, ring stages, grids) and its time in the
+   training build (``states_ms``), two launches are checked
+   bit-identical, and each row keeps three bounds apart: the function's
+   (which the kernel is held to), the work this design does (split-bf16
+   products, the Q K^T scratch) and the step-by-step fp32 recurrence's.
+   The mLSTM backward (``csrc/mlstm_bwd.cu``) is held against
+   ``ref.mlstm_bwd`` (dq, dk, dv in bf16 by the rule above; di, df in
+   fp32 within 1e-3 (max|plain| + |plain|)) on NaN-filled outputs at the
+   train path's (16, 4, 128, 1024), (4, 4, 512, 1024), (1, 4, 2048,
+   1024), a ragged (2, 2, 1000, 128) and (1, 4, 600, 1024), two launches
+   bit-identical, beside
+   the function's bound, the bound with the saved states read once, the
+   design's, and the training forward's time; the train path's row is
+   profiled by kernel.  The flash forward is held where a causal window
+   meets more queries than keys (Tq 128 over Tk 16 at head_dim 256,
+   window 2; Tq 200 over Tk 64 at 128, window 17), at both tile
+   heights.  The flash forward
    rows are timed again with the row logsumexp a training forward writes
    (``lse_ms``).  The flash backward kernels are held against
    ``ref.attention_bwd`` (dQ, dK, dV; dO ~ N(0, 1)) at llama's 24/8 at
@@ -149,7 +164,21 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    RG-LRU forward 2 x 4 x 2 times and its backward 4 x 2 times, and no
    other kernel; the gradient check forces both ``ops.attention`` and
    ``ops.rg_lru`` to ``backend='ref'``.
-13. One JSON line for the kernels, then the result line.
+13. Train xlstm-1.3b at full width and depth the same way (48 layers, 42
+   mLSTM and 6 sLSTM, 1,944,285,520 parameters, ``mlstm_chunk`` 64): 4
+   steps of 32 x 128 tokens in 2 microbatches (T cut from 512: the
+   sLSTM's Python loop took 32 s a step there).  A step launches the
+   mLSTM scan's training build 42 x 2 x 2 times and its backward 42 x 2
+   times, and no other kernel.  The gradient check forces ``ops.mlstm``
+   to ``backend='ref'`` (the chunked plain scan, checkpointed, under
+   autograd) layer by layer, on each mLSTM layer's own input and a
+   random cotangent (the random-weight stack carries a difference
+   1.3-1.9 times further each layer, so a whole-stack comparison parts
+   by the loss itself): every leaf and the scan's own gradients at the
+   initial weights, the scans' after the steps (whose leaves, through
+   the bf16 block's ill-conditioned backward, are printed).  xLSTM plans
+   no block, so no step under ``ftl_mode='fused'`` is tried.
+14. One JSON line for the kernels, then the result line.
 
 It exits non-zero, printing no result, when no CUDA device is visible,
 and when it stands alone without the rest of the repository.
@@ -215,6 +244,13 @@ LLAMA_PARAMS = 3_212_749_824
 RG_TRAIN = "recurrentgemma-9b (train)"
 RG_TRAIN_LAYERS = 6
 RG_TRAIN_PARAMS = 3_410_153_472
+# the third: xlstm-1.3b at full width and depth (48 layers) through the
+# trainer, every mLSTM layer's scan and its gradient on the kernels
+XLSTM_TRAIN = "xlstm-1.3b (train)"
+# the mLSTM backward's fp32 di and df against the plain gradient:
+# |kernel - plain| <= GATE_SHARE * (max|plain| + |plain|), the row dots and
+# the reverse cumulative sum taken in another order than autograd's
+GATE_SHARE = 1e-3
 # the train path's gradients through the kernels against the plain
 # Functions', leaf by leaf: |g_kernel - g_plain| / |g_plain| (norms over
 # the leaf).  Both take bf16 products in another order, and the flash
@@ -293,7 +329,15 @@ NEW_BUILDS = {
     "flash_attention_bwd dQ": (r"dq_kernelILi(64|128|256)ELi(64|128)E", 3),
     "flash_attention_bwd D rows": (r"dsum_kernelILi", 3),
     "flash_attention_bwd, splits' sum": (r"split_sum_kernel", 1),
+    "mlstm_scan_bwd prep": (r"mlstm_bwd_prep_kernel", 1),
+    "mlstm_scan_bwd state pass": (r"mlstm_bwd_state_kernel", 1),
+    "mlstm_scan_bwd gradients": (r"mlstm_bwd_grad_kernel", 1),
+    "mlstm_scan_bwd gates": (r"mlstm_bwd_gate_kernel", 1),
 }
+# the mLSTM forward's builds spill already in serving (about 200 bytes a
+# thread at Dh = 1024); the training builds' spills are printed beside
+# theirs, not gated
+FORWARD_BUILDS = r"mlstm_scan_kernelILi64ELi(\d)ELb([01])E"
 
 
 def check_new_builds(log: str) -> None:
@@ -321,6 +365,12 @@ def check_new_builds(log: str) -> None:
               f"{what}: ptxas serialised its wgmma")
         print(f"  ptxas: {what}: {len(hits)} build(s), no spills, no "
               f"serialised wgmma")
+    for e, n in sorted(spills.items()):
+        m = re.search(FORWARD_BUILDS, e)
+        if m:
+            print(f"  ptxas: mlstm_scan, {int(m.group(1))} tiles an owner, "
+                  f"{'training' if m.group(2) == '1' else 'serving'} build: "
+                  f"{n} bytes of spill stores and loads")
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +409,7 @@ def kernel_cases(dev, timer):
     results = {"gemm": [], "flash_attention": [],
                "flash_attention_bwd": [], "fused_mlp": [],
                "rg_lru_scan": [], "rg_lru_scan_bwd": [], "gemm_act": [],
-               "mlstm_scan": []}
+               "mlstm_scan": [], "mlstm_scan_bwd": []}
 
     # execute_block_plan's projections: llama's at m=1024, and
     # recurrentgemma-9b's (wq/wo 4096 wide, MQA wk/wv 256 wide) at m=4096;
@@ -389,6 +439,7 @@ def kernel_cases(dev, timer):
             bound_ms=b, bound_by=why))
 
     results["flash_attention"] = flash_cases(dev, timer, randn)
+    flash_window_cases(dev, randn)
     results["flash_attention_bwd"] = flash_bwd_cases(dev, timer, randn)
     results["fused_mlp"] += fused_mlp_cases(
         dev, timer, randn, 3072, 8192, 3072, "silu", (1024, 256, 4), LLAMA)
@@ -399,6 +450,7 @@ def kernel_cases(dev, timer):
     results["gemm_act"] = gemm_act_cases(dev, timer, randn)
     partial_vs_fused(dev, timer, randn)
     results["mlstm_scan"] = mlstm_cases(dev, timer, randn)
+    results["mlstm_scan_bwd"] = mlstm_bwd_cases(dev, timer, randn)
 
     for name, cases in results.items():
         for c in cases:
@@ -411,6 +463,9 @@ def kernel_cases(dev, timer):
                 work += f", with the row logsumexp {c['lse_ms']} ms"
             if c.get("anchors_ms") is not None:
                 work += f", with the unit anchors {c['anchors_ms']} ms"
+            if c.get("states_ms") is not None:
+                work += (f", the training forward (saved states) "
+                         f"{c['states_ms']} ms")
             print(f"  {name} {c['shape']}: kernel {c['ms']} ms, bound "
                   f"{c['bound_ms']} ms ({c['bound_by']}){work}, plain "
                   f"{c['plain_ms']} ms{lib}")
@@ -487,6 +542,29 @@ def flash_cases(dev, timer, randn):
             library=lib_name, library_ms=timer.ms(lib),
             bound_ms=bd, bound_by=why))
     return out
+
+
+def flash_window_cases(dev, randn):
+    """The flash forward where a causal window meets more queries than
+    keys, at both tile heights: the rows' last key can lie past every key
+    tile, and before its span was clamped the kernel's masked loop waited
+    on a tile it never loaded.  Each must finish and match plain."""
+    from repro_torch.kernels import flash_attention, ref
+
+    for b_, hq, hk, tq, tk, dh, win in ((1, 2, 1, 128, 16, 256, 2),
+                                        (1, 2, 1, 200, 64, 128, 17)):
+        q = randn(b_, hq, tq, dh)
+        kk, v = randn(b_, hk, tk, dh), randn(b_, hk, tk, dh)
+        kw = dict(causal=True, window=win, q_offset=0)
+        for bq in flash_attention.BLOCK_Q:
+            s = flash_attention.schedule(
+                b_, hq, hk, tq, tk, dh, True, win, 0,
+                sms=flash_attention.sm_count(dev.index), block_q=bq)
+            label = (f"flash_attention B={b_} Hq={hq} Hk={hk} Tq={tq} "
+                     f"Tk={tk} D={dh} causal window={win}, {s.label}")
+            got = flash_attention.run_schedule(q, kk, v, s, **kw)
+            torch.cuda.synchronize()
+            compare(got, ref.attention(q, kk, v, **kw), label)
 
 
 def window_mask(dev, tq: int, tk: int, causal: bool,
@@ -936,7 +1014,8 @@ def mlstm_cases(dev, timer, randn):
     past it, as ``mlstm_block(length=)`` masks them) against the unpadded
     scan's.  The forget gate is shifted by 3, as the model shifts it.
     Each case prints its schedule (chunk length, ring stages, grids) and
-    its time at the other chunk length (``other_chunk_ms``); two launches
+    its time in the training build, which also writes the chunks' start
+    states, the fp32 h and the denominators (``states_ms``); two launches
     of the first case are checked bit-identical.  Three bounds are kept
     apart: ``bound_ms``, the function's own work, which the kernel is held
     to: the chunkwise form's 4 Dh^2 + 4 L Dh operations a step and head at
@@ -970,13 +1049,11 @@ def mlstm_cases(dev, timer, randn):
         fp32 = bound_ms(nbytes, 5 * steps * (dh * dh + dh), FP32_FLOPS)
         return fn, work, fp32
 
-    def other_chunk_ms(args, state, sched, label):
-        other = mlstm.schedule(*args[0].shape, chunk=128 if
-                               sched.chunk == 64 else 64)
-        t = timer.ms(lambda: mlstm.run_schedule(*args, other,
-                                                return_state=state))
-        print(f"    at the other chunk length, {other.label}: {t} ms")
-        return t
+    def states_ms(args, state, sched):
+        saved = {n: torch.empty(s, dtype=torch.float32, device=dev)
+                 for n, s in mlstm.saved_shapes(*args[0].shape).items()}
+        return timer.ms(lambda: mlstm.run_schedule(
+            *args, sched, return_state=state, saved=saved))
 
     def state_err(got, want, label):
         return max(compare(got[n], want[n], f"{label} {n} (fp32)",
@@ -1018,7 +1095,7 @@ def mlstm_cases(dev, timer, randn):
         out.append(dict(
             case, ms=timer.ms(lambda: mlstm.mlstm_scan(
                 *args, return_state=state)),
-            other_chunk_ms=other_chunk_ms(args, state, sched, label),
+            states_ms=states_ms(args, state, sched),
             # a Python loop over T: about 15 launches a step
             plain_ms=timer.ms(lambda: ref.mlstm_scan(
                 *args, return_state=state), n=3),
@@ -1058,12 +1135,124 @@ def mlstm_cases(dev, timer, randn):
         grid=list(sched.grid), qk_grid=sched.qk_grid,
         max_abs_err=err, state_max_abs_err=serr,
         ms=timer.ms(lambda: mlstm.mlstm_scan(*padded, return_state=True)),
-        other_chunk_ms=other_chunk_ms(padded, True, sched, label),
+        states_ms=states_ms(padded, True, sched),
         plain_ms=timer.ms(lambda: ref.mlstm_scan(*padded,
                                                  return_state=True), n=3),
         library_ms=None, bound_ms=bd, bound_by=why, work_bound_ms=wb,
         work_bound_by=wwhy, fp32_bound_ms=fb, fp32_bound_by=fwhy))
     return out
+
+
+def mlstm_bwd_cases(dev, timer, randn):
+    """The mLSTM backward kernels (``csrc/mlstm_bwd.cu``) against
+    ``ref.mlstm_bwd`` (autograd through the plain scan, in checkpointed
+    chunks) on the training forward's saved tensors, dh ~ N(0, 1), the
+    outputs NaN-filled first: dq, dk, dv in bf16 by phase 2's rule, di
+    and df in fp32 within GATE_SHARE * (max|plain| + |plain|), the
+    largest share printed; two launches bit-identical.  Shapes: the train
+    path's microbatch (16, 4, 128, 1024), four sequences of 512 (4, 4,
+    512, 1024), xlstm-1.3b's widest prefill (1, 4, 2048, 1024), a ragged
+    (2, 2, 1000, 128) and (1, 4, 600, 1024), not a multiple of the
+    chunk.  Three bounds: ``bound_ms`` the function's
+    own, 8 Dh^2 + 10 L Dh operations a step and head at the bf16 rate or
+    the bytes of its inputs and outputs; ``states_bound_ms`` with the
+    saved states read once beside them; ``work_bound_ms`` this design's,
+    the split products' 16 Dh^2 + 16 L Dh operations and the state
+    gradient written once and read twice.  ``states_ms`` is the training
+    forward's time at the shape.  The train path's row is profiled by
+    kernel (``kernels_ms``).  No single PyTorch call computes this
+    gradient."""
+    from repro_torch.kernels import mlstm, ref
+
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(79)
+    nan = float("nan")
+    for path, (b, h, t, dh) in ((XLSTM_TRAIN, (16, 4, 128, 1024)),
+                                (XLSTM, (4, 4, 512, 1024)),
+                                (XLSTM, (1, 4, 2048, 1024)),
+                                ("ragged", (2, 2, 1000, 128)),
+                                (XLSTM, (1, 4, 600, 1024))):
+        q, k, v = randn(b, h, t, dh), randn(b, h, t, dh), randn(b, h, t, dh)
+        ig = torch.randn((b, h, t), generator=gen, device=dev)
+        fg = torch.randn((b, h, t), generator=gen, device=dev) + 3.0
+        args = (q, k, v, ig, fg)
+        dy = randn(b, h, t, dh)
+        sched = mlstm.bwd_schedule(b, h, t, dh)
+        label = f"mlstm_scan_bwd B={b} H={h} T={t} Dh={dh}"
+        print(f"  {label}: schedule {sched.label}, shared memory "
+              f"{sched.prep_smem_bytes}/{sched.state_smem_bytes}/"
+              f"{sched.grad_smem_bytes} B, {sched.scratch_bytes} B of "
+              f"scratch")
+        _, saved = mlstm._forward(*args, return_state=False, train=True)
+        grads = tuple(torch.full_like(x, nan) for x in args)
+        scratch = torch.full((sched.scratch_bytes // 4,), nan, device=dev)
+        got = mlstm.mlstm_scan_bwd(*args, saved, dy, grads=grads,
+                                   scratch=scratch)
+        want = ref.mlstm_bwd(*args, dy)
+        err = max(compare(got[j], want[j], f"{label} d{n}")
+                  for j, n in enumerate("qkv"))
+        gate_err = max(compare(
+            got[j], want[j], f"{label} d{n} (fp32)",
+            atol=GATE_SHARE * float(want[j].abs().max()), rtol=GATE_SHARE)
+            for j, n in ((3, "i"), (4, "f")))
+        del want
+        again = mlstm.mlstm_scan_bwd(*args, saved, dy)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{label}: two launches differ")
+        print(f"  {label}: two launches bit-identical")
+        del got, again, scratch
+        steps, L, nc = b * h * t, sched.chunk, sched.n_chunks
+        # q, k, v, dh read and dq, dk, dv written in bf16, the gates read
+        # and their gradients written in fp32
+        io = 14 * steps * dh + 16 * steps
+        states = 4 * b * h * nc * (dh + 1) * dh
+        fn = bound_ms(io, steps * (8 * dh * dh + 10 * L * dh))
+        st = bound_ms(io + states + 4 * steps * dh + 8 * steps,
+                      steps * (8 * dh * dh + 10 * L * dh))
+        work = bound_ms(io + states + 4 * steps * dh + 8 * steps
+                        + 3 * sched.grad_state_bytes,
+                        steps * (16 * dh * dh + 16 * L * dh))
+        split = None
+        if path == XLSTM_TRAIN:
+            split = mlstm_bwd_kernel_split(mlstm, args, saved, dy)
+            print(f"  {label}: device ms a call by kernel (profiler, mean "
+                  f"of 5): {split}")
+        out.append(dict(
+            path=path, shape=[b, h, t, dh], schedule=sched.label,
+            max_abs_err=err, gate_max_abs_err=gate_err, bit_identical=True,
+            kernels_ms=split,
+            ms=timer.ms(lambda: mlstm.mlstm_scan_bwd(*args, saved, dy)),
+            states_ms=timer.ms(lambda: mlstm._forward(
+                *args, return_state=False, train=True)),
+            # autograd through a Python loop over T: up to 10 s a call,
+            # so one timed call after the warm-up
+            plain_ms=timer.ms(lambda: ref.mlstm_bwd(*args, dy), n=1),
+            library="none: no one call runs this recurrence's gradient",
+            library_ms=None, bound_ms=fn[0], bound_by=fn[1],
+            states_bound_ms=st[0], states_bound_by=st[1],
+            work_bound_ms=work[0], work_bound_by=work[1]))
+        del saved
+        torch.cuda.empty_cache()
+    return out
+
+
+def mlstm_bwd_kernel_split(mlstm, args, saved, dy) -> dict:
+    """Device ms a call of the mLSTM backward's four kernels, the mean of
+    5 calls under the profiler."""
+    mlstm.mlstm_scan_bwd(*args, saved, dy)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            mlstm.mlstm_scan_bwd(*args, saved, dy)
+        torch.cuda.synchronize()
+    split = {}
+    for name, (_, ms) in _device_kernels(prof).items():
+        m = re.search(r"mlstm_bwd_(\w+?)_kernel", name)
+        if m:
+            split[m.group(1)] = split.get(m.group(1), 0.0) + ms / 5
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -1081,7 +1270,10 @@ KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "rg_lru_scan_bwd": r"(^|::)rg_lru_bwd_kernel\b",
              "gemm_act": r"(^|::)gemm_act_kernel\b",
              # one call: the Q K^T kernel, then the chunkwise scan
-             "mlstm_scan": r"(^|::)mlstm_(qk|scan)_kernel\b"}
+             "mlstm_scan": r"(^|::)mlstm_(qk|scan)_kernel\b",
+             # one call: prep, the state pass, the gradients, the gates
+             "mlstm_scan_bwd":
+                 r"(^|::)mlstm_bwd_(prep|state|grad|gate)_kernel\b"}
 # the prefill plan's executors on each path: the gated MLPs are served
 # with ftl_mode="fused", granite's ungated one with "auto", where the
 # planner's partial schedule binds the partial-MLP kernels
@@ -1515,17 +1707,23 @@ def _device_kernels(prof) -> dict:
 @dataclasses.dataclass(frozen=True)
 class TrainPath:
     """One training run through the trainer: the model, the trainer's
-    flags, the depth cut (None: the published depth), the reference's
-    parameter count, the launches each step must make (every other counter
-    stays 0) and the ops forced to ``backend='ref'`` for the gradient
-    check."""
+    flags, the config fields it replaces (a depth cut, the remat chunk),
+    the reference's parameter count, the launches each step must make
+    (every other counter stays 0), the ops forced to ``backend='ref'``
+    for the gradient check, whether that check runs layer by layer
+    (:func:`layer_grads`) instead of through the whole stack, and whether
+    a step under ``ftl_mode='fused'`` must raise (a model with a
+    plannable MLP block, whose fused kernel has no backward yet; xLSTM
+    plans nothing)."""
     arch: str
     label: str
     argv: tuple[str, ...]
-    n_layers: int | None
+    overrides: dict
     n_params: int
     per_step: dict
     plain: tuple[str, ...]
+    layerwise: bool = False
+    fused_raises: bool = True
 
 
 TRAIN_PATHS = (
@@ -1533,17 +1731,30 @@ TRAIN_PATHS = (
     # forward again in the backward pass
     TrainPath(LLAMA, TRAIN, ("--arch", LLAMA, "--steps", "4", "--batch", "4",
                              "--seq", "1024", "--accum", "2"),
-              None, LLAMA_PARAMS,
+              {}, LLAMA_PARAMS,
               {"flash_attention": 2 * 28 * 2, "flash_attention_bwd": 28 * 2},
               ("attention",)),
     # 2 x 3072 tokens in 2 microbatches; 6 layers, two periods of (rec,
     # rec, local): 4 recurrent and 2 local-attention layers
     TrainPath(RG, RG_TRAIN, ("--arch", RG, "--steps", "4", "--batch", "2",
                              "--seq", "3072", "--accum", "2"),
-              RG_TRAIN_LAYERS, RG_TRAIN_PARAMS,
+              {"n_layers": RG_TRAIN_LAYERS}, RG_TRAIN_PARAMS,
               {"flash_attention": 2 * 2 * 2, "flash_attention_bwd": 2 * 2,
                "rg_lru_scan": 2 * 4 * 2, "rg_lru_scan_bwd": 4 * 2},
               ("attention", "rg_lru")),
+    # 32 x 128 tokens in 2 microbatches (4,096 a step; T cut from 512,
+    # where the sLSTM's Python loop under remat took 32 s a step); 48
+    # layers, 42 of them mLSTM; the chunked remat scan on, so that the
+    # plain side of the gradient check keeps only chunk boundaries.  The
+    # random-weight stack carries a difference 1.3-1.9 times further each
+    # layer (tests/test_torch_xlstm_growth.py), so the check goes layer
+    # by layer
+    TrainPath(XLSTM, XLSTM_TRAIN, ("--arch", XLSTM, "--steps", "4",
+                                   "--batch", "32", "--seq", "128",
+                                   "--accum", "2"),
+              {"mlstm_chunk": 64}, N_PARAMS[XLSTM],
+              {"mlstm_scan": 42 * 2 * 2, "mlstm_scan_bwd": 42 * 2},
+              ("mlstm",), layerwise=True, fused_raises=False),
 )
 
 
@@ -1557,10 +1768,11 @@ def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
     ``path.per_step`` times a step, and no other kernel.  Then one
     profiled step for the device's busy share, one microbatch's gradients
     through the kernels against the plain Functions' (``path.plain`` ops
-    with ``backend='ref'``), and a step under ``ftl_mode='fused'``, which
-    must raise."""
+    with ``backend='ref'``; through the whole stack, or with
+    ``path.layerwise`` each layer's on the same input and cotangent),
+    and, where ``path.fused_raises``, a step under
+    ``ftl_mode='fused'``, which must raise."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.optim import OptConfig
@@ -1569,9 +1781,7 @@ def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
     args = train.parser().parse_args(
         [*path.argv, "--data", "bigram", "--log-every", "1"])
     steps, batch, seq, accum = args.steps, args.batch, args.seq, args.accum
-    cfg = get_config(path.arch)
-    if path.n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=path.n_layers)
+    cfg = dataclasses.replace(get_config(path.arch), **path.overrides)
     check(cfg.remat and cfg.ftl_mode == "off",
           f"{path.label} trains with remat on and ftl_mode 'off', got "
           f"{cfg.remat}, {cfg.ftl_mode!r}")
@@ -1588,6 +1798,23 @@ def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
           f"moments, built in {time.perf_counter() - t0} s")
     check(n_params == path.n_params, f"{n_params} parameters, the "
           f"reference counts {path.n_params}")
+
+    # --- xLSTM: gradients layer by layer on the first microbatch, before
+    # the steps move the weights ------------------------------------------
+    if path.layerwise:
+        first = loop.make_batch(0)["tokens"][:2]
+        by_leaf, by_scan = layer_grads(cfg, loop.state.params, first,
+                                       path.plain)
+        print(f"  gradients layer by layer, kernels against the plain "
+              f"Functions ({', '.join(path.plain)}), initial weights, 2 x "
+              f"{first.shape[1]} tokens of the first microbatch: worst leaf "
+              f"{_worst(by_leaf)}, worst scan gradient {_worst(by_scan)} "
+              f"(tolerance {GRAD_RTOL}); every leaf: {by_leaf}; every scan: "
+              f"{by_scan}")
+        check(all(np.isfinite(v) and v <= GRAD_RTOL
+                  for v in (*by_leaf.values(), *by_scan.values())),
+              "gradients through the kernels disagree with the plain "
+              "Functions' at the initial weights")
 
     # --- the main path: counters from 0 ----------------------------------
     for mod, attr in counters.values():
@@ -1620,8 +1847,9 @@ def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
           f"{mem['num_device_free']} [{card}]")
 
     # --- one profiled step: the device's busy share ------------------------
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    # (device activity only: xLSTM's step makes about half a million host
+    # operators, whose events the profiler would take minutes to tally)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     data = loop.make_batch(steps)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1630,10 +1858,6 @@ def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
         torch.cuda.synchronize()
         prof_ms = 1e3 * (time.perf_counter() - t0)
     kern = _device_kernels(prof)
-    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    print("  profiler: top operators by their own device time (ms, calls): "
-          + "; ".join(f"{e.key} {e.self_device_time_total / 1e3} ms "
-                      f"x{e.count}" for e in top[:10]))
     del prof
     for name in path.per_step:
         hits = [n for n in kern if re.search(KERNEL_RE[name], n)]
@@ -1650,49 +1874,153 @@ def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
 
     # --- gradients through the kernels against the plain Functions ---------
     mb = {"tokens": data["tokens"][:batch // accum]}
+    if path.layerwise:
+        # after the steps the gates have grown, and the bf16 block's
+        # backward carries the scans' small differences much further into
+        # its leaves, about as far from a float64 block's for the plain
+        # scan as for the kernel (PERF.md §6): the scans are held, the
+        # leaves shown
+        by_leaf, by_scan = layer_grads(cfg, loop.state.params,
+                                       mb["tokens"][:2], path.plain)
+        over = {k: v for k, v in by_leaf.items() if v > GRAD_RTOL}
+        print(f"  gradients layer by layer after {steps + 1} steps, 2 x "
+              f"{seq} tokens of one microbatch: worst scan gradient "
+              f"{_worst(by_scan)} (tolerance {GRAD_RTOL}); every scan: "
+              f"{by_scan}; leaves (shown, not held): worst "
+              f"{_worst(by_leaf)}, {len(over)} of {len(by_leaf)} over "
+              f"{GRAD_RTOL}: {over}")
+        check(all(np.isfinite(v) and v <= GRAD_RTOL
+                  for v in by_scan.values()),
+              "the scans' gradients through the kernels disagree with the "
+              "plain Functions'")
     loss_fn = S.make_loss_fn(cfg)
 
     def grads():
         loss, _ = loss_fn(loop.state.params, mb)
         return float(loss.detach()), torch.autograd.grad(loss, leaves)
 
-    lk, gk = grads()
-    # the model's attention core (models/layers.py:_attend) and RG-LRU
-    # scan (models/recurrent.py:rec_block) through the same autograd
-    # Functions, their plain passes
-    with contextlib.ExitStack() as stack:
-        for op in path.plain:
-            stack.enter_context(mock.patch.object(ops, op, functools.partial(
-                getattr(ops, op), backend="ref")))
-        lp, gp = grads()
-    names = [n for n, _ in _flat_names(loop.state.params)]
-    rel = {}
-    for name, a, b in zip(names, gk, gp):
-        rel[name] = float(torch.linalg.vector_norm(a.float() - b.float())
-                          / torch.linalg.vector_norm(b.float()))
-    del gk, gp
-    worst = max(rel, key=rel.get)
-    print(f"  gradients, kernels against the plain Functions "
-          f"({', '.join(path.plain)}) on one microbatch: loss {lk} against "
-          f"{lp}; worst leaf {worst} |g_kernel - g_plain| / |g_plain| = "
-          f"{rel[worst]} (tolerance {GRAD_RTOL}); every leaf: {rel}")
-    check(all(np.isfinite(v) for v in rel.values())
-          and rel[worst] <= GRAD_RTOL, "gradients through the kernels "
-          "disagree with the plain Functions'")
+    if not path.layerwise:
+        lk, gk = grads()
+        # the model's attention core (models/layers.py:_attend) and RG-LRU
+        # scan (models/recurrent.py:rec_block) through the same autograd
+        # Functions, their plain passes
+        with plain_ops(path.plain):
+            lp, gp = grads()
+        names = [n for n, _ in _flat_names(loop.state.params)]
+        rel = {name: _rel(a, b) for name, a, b in zip(names, gk, gp)}
+        del gk, gp
+        worst = max(rel, key=rel.get)
+        print(f"  gradients, kernels against the plain Functions "
+              f"({', '.join(path.plain)}) on one microbatch: loss {lk} "
+              f"against {lp}; worst leaf {worst} |g_kernel - g_plain| / "
+              f"|g_plain| = {rel[worst]} (tolerance {GRAD_RTOL}); every "
+              f"leaf: {rel}")
+        check(all(np.isfinite(v) for v in rel.values())
+              and rel[worst] <= GRAD_RTOL, "gradients through the kernels "
+              "disagree with the plain Functions'")
 
     # --- a kernel with no backward refuses to train -----------------------
-    step = S.make_train_step(dataclasses.replace(cfg, ftl_mode="fused"),
-                             None, OptConfig())
-    try:
-        step(loop.state, mb)
-    except NotImplementedError as e:
-        print(f"  a step under ftl_mode='fused' raises: {e}")
-        check("no backward kernel yet" in str(e), f"unexpected error: {e}")
-    else:
-        check(False, "a CUDA step under ftl_mode='fused' did not raise")
-    del loop, leaves, step
+    if path.fused_raises:
+        step = S.make_train_step(dataclasses.replace(cfg, ftl_mode="fused"),
+                                 None, OptConfig())
+        try:
+            step(loop.state, mb)
+        except NotImplementedError as e:
+            print(f"  a step under ftl_mode='fused' raises: {e}")
+            check("no backward kernel yet" in str(e),
+                  f"unexpected error: {e}")
+        else:
+            check(False, "a CUDA step under ftl_mode='fused' did not raise")
+        del step
+    del loop, leaves
     torch.cuda.empty_cache()
     return launches
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| / |b|, norms over the whole tensor (0 where both are 0)."""
+    diff = float(torch.linalg.vector_norm(a.float() - b.float()))
+    base = float(torch.linalg.vector_norm(b.float()))
+    return diff / base if base else (0.0 if diff == 0 else float("inf"))
+
+
+@contextlib.contextmanager
+def plain_ops(names):
+    """``ops``'s ``names`` forced to ``backend='ref'`` (the models call
+    them through the module, so the patch reaches every layer)."""
+    from repro_torch.kernels import ops
+
+    with contextlib.ExitStack() as stack:
+        for op in names:
+            stack.enter_context(mock.patch.object(ops, op, functools.partial(
+                getattr(ops, op), backend="ref")))
+        yield
+
+
+def layer_grads(cfg, params, tokens, plain) -> tuple[dict, dict]:
+    """Each mLSTM layer's gradients through the kernels against the plain
+    Functions' (``plain`` ops with ``backend='ref'``), on the layer's
+    input from one forward through the kernels and one random cotangent
+    of its output: |g_kernel - g_plain| / |g_plain| for the layer's input
+    and every parameter (the leaves), and for the scan's own dq, dk, dv,
+    di and df on the q, k, v, gates and cotangent the layer hands it (the
+    scans).  The plain side scans in checkpointed chunks of 16 steps (the
+    same values as any chunk), so that its recomputed chunk fits beside
+    the training state.  The sLSTM layers run the same plain code on
+    both sides and are left out."""
+    from repro_torch.kernels import mlstm, ops, ref
+    from repro_torch.models import model as M
+
+    chk = dataclasses.replace(cfg, mlstm_chunk=16)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    with torch.no_grad():
+        xs = [x for _, _, x, _ in M.layer_stream(chk, params, tokens)]
+    for t in M.tree_leaves(params):     # as the train step marks them
+        t.requires_grad_(True)
+    gen = torch.Generator(device=tokens.device).manual_seed(5)
+    leaves, scans = {}, {}
+    for i, ((kind, p), x_in) in enumerate(zip(M._layers(chk, params), xs)):
+        if kind != "mlstm":
+            continue
+        named = list(_flat_names(p))
+        x = x_in.detach().requires_grad_()
+        layer = functools.partial(M._apply_layer, chk, p, kind,
+                                  positions=positions, plan=None)
+        cap, real = {}, ops.mlstm
+
+        def grab(*a, cap=cap, real=real, **kw):
+            out = real(*a, **kw)
+            cap["args"] = [t.detach().contiguous() for t in a]
+            out.register_hook(lambda g: cap.__setitem__(
+                "dh", g.detach().contiguous()))
+            return out
+
+        with mock.patch.object(ops, "mlstm", grab):
+            y = layer(x)
+        cot = torch.randn(y.shape, generator=gen, device=y.device
+                          ).to(y.dtype)
+        gk = torch.autograd.grad(y, [x, *(v for _, v in named)], cot)
+        del y
+        with plain_ops(plain):
+            y = layer(x)
+            gp = torch.autograd.grad(y, [x, *(v for _, v in named)], cot)
+        del y
+        for name, a, b in zip(["input", *(n for n, _ in named)], gk, gp):
+            leaves[f"{i}/{name}"] = _rel(a, b)
+        del gk, gp
+        args = cap["args"]
+        _, saved = mlstm._forward(*args, return_state=False, train=True)
+        got = mlstm.mlstm_scan_bwd(*args, saved, cap["dh"])
+        want = ref.mlstm_bwd(*args, cap["dh"])
+        for name, a, b in zip("qkvif", got, want):
+            scans[f"{i}/d{name}"] = _rel(a, b)
+        del cap, args, saved, got, want
+    return leaves, scans
+
+
+def _worst(rel: dict) -> str:
+    k = max(rel, key=rel.get)
+    return f"{k} {rel[k]}"
 
 
 def _flat_names(tree, pre=""):
@@ -1767,14 +2095,20 @@ def main() -> int:
                     check(got == want, f"flash_attention_bwd footprint "
                           f"(kernel {kern}, D={dh}, tile {tile}, {st} "
                           f"stages): Python {want}, CUDA {got}")
-    # and the mLSTM scan's, at both chunk lengths
-    for chunk in mlstm.CHUNKS:
-        st = mlstm.stages_for(chunk)
-        got = (_build.lib().rt_mlstm_smem_bytes(chunk, st),
-               _build.lib().rt_mlstm_qk_smem_bytes(chunk))
-        want = (mlstm.smem_bytes_for(chunk, st), mlstm.qk_smem_bytes(chunk))
-        check(got == want, f"mlstm_scan footprints at L={chunk}: Python "
+    # and the mLSTM scan's, and its backward's at every head dim
+    st = mlstm.stages_for()
+    got = (_build.lib().rt_mlstm_smem_bytes(st),
+           _build.lib().rt_mlstm_qk_smem_bytes())
+    want = (mlstm.smem_bytes_for(st), mlstm.qk_smem_bytes())
+    check(got == want, f"mlstm_scan footprints: Python {want}, CUDA {got}")
+    for dh in range(32, mlstm.MAX_HEAD_DIM + 1, 32):
+        s = mlstm.bwd_schedule(1, 1, 64, dh)
+        got = [_build.lib().rt_mlstm_bwd_smem_bytes(k, dh) for k in range(3)]
+        want = [s.prep_smem_bytes, s.state_smem_bytes, s.grad_smem_bytes]
+        check(got == want, f"mlstm_scan_bwd footprints at Dh={dh}: Python "
               f"{want}, CUDA {got}")
+    print(f"  mlstm_scan_bwd footprints (prep, state pass, gradients) at "
+          f"Dh=1024: {want} B, as the launcher's")
     # and the RG-LRU scan's and its backward's, at every tile and chunk
     # their schedule picks
     for ct, chunk in rg_lru.LADDER:
@@ -1800,7 +2134,8 @@ def main() -> int:
     # every launch counter: the serving kernels', and the backward kernels'
     counters = {**{n: (m, "launches") for n, m in kernels.items()},
                 "flash_attention_bwd": (flash_attention, "bwd_launches"),
-                "rg_lru_scan_bwd": (rg_lru, "bwd_launches")}
+                "rg_lru_scan_bwd": (rg_lru, "bwd_launches"),
+                "mlstm_scan_bwd": (mlstm, "bwd_launches")}
     # each model's weights load after the one before is freed: granite-20b's
     # 40.6 GB after recurrentgemma-9b's, xlstm-1.3b's 3.9 GB last
     paths = {LLAMA: (("gemm", "flash_attention", "fused_mlp"),
@@ -1864,6 +2199,8 @@ def main() -> int:
                      "src/repro/kernels/gemm_gelu.py:51"),
         "mlstm_scan": ("src/repro_torch/csrc/mlstm.cu",
                        "src/repro/kernels/mlstm.py:68"),
+        "mlstm_scan_bwd": ("src/repro_torch/csrc/mlstm_bwd.cu",
+                           "the gradient of src/repro/kernels/mlstm.py:68"),
     }
     # each kernel's headline is the last served path that runs it:
     # "launches" is that path's main-path count and the headline numbers
@@ -1873,6 +2210,7 @@ def main() -> int:
                  for n in names}
     head_path["flash_attention_bwd"] = TRAIN
     head_path["rg_lru_scan_bwd"] = RG_TRAIN
+    head_path["mlstm_scan_bwd"] = XLSTM_TRAIN
     head = {name: next(c for c in cases if c["path"] == head_path[name])
             for name, cases in results.items()}
     line = {"kernels": [
@@ -1883,8 +2221,8 @@ def main() -> int:
                               if name in n},
          **{k: head[name][k] for k in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "work_bound_ms", "library_ms", "lse_ms", "anchors_ms", "shape",
-             "tile_loop")
+             "work_bound_ms", "states_bound_ms", "library_ms", "lse_ms",
+             "anchors_ms", "states_ms", "shape", "tile_loop")
             if k in head[name]},
          "cases": results[name]}
         for name, (src, rep) in meta.items()]}

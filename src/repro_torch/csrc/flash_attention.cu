@@ -107,7 +107,10 @@ __device__ __forceinline__ Span key_span(int q0, int bq, int bkv,
   Span s;
   s.lo = k_min / bkv;
   s.hi = k_max / bkv + 1;
-  s.full_lo = max(s.lo, (f_min + bkv - 1) / bkv);
+  // clamped to hi: with a window and Tq > Tk the rows' last key can lie
+  // past every key tile, and an unclamped full_lo would send the masked
+  // loop to tiles the producer never loads
+  s.full_lo = min(s.hi, max(s.lo, (f_min + bkv - 1) / bkv));
   s.full_hi = max(s.full_lo, min(s.hi, (f_max + 1) / bkv));
   return s;
 }

@@ -10,7 +10,12 @@
 //
 // with C, n, m in fp32, h_t rounded once to bf16 and (optionally) the
 // final C, n and m written out in fp32 (what serving's prefill hands its
-// decode steps).
+// decode steps).  Its training build (template flag TRAIN) also writes what
+// the backward (mlstm_bwd.cu) reads: at each chunk's start the fp32 state
+// it already holds, C_prev's rows with n_prev as row Dh and m_prev, and at
+// each step the fp32 h before its rounding and the denominator with the
+// sign h took through it (+1 or -1 where |n . q~| won, 0 where the floor
+// did); B H ceil(T / L) (Dh + 1) Dh 4 bytes of states.
 //
 // The chunkwise form.  Inside a chunk of L steps (chunks anchored at
 // t = 0), with b_t the in-chunk cumulative sum of log sigma(f) and m_t the
@@ -64,8 +69,8 @@
 //     stage the gates and V with cp.async a chunk ahead and run the gate
 //     scan (m step by step, as the reference computes it, in every lane
 //     of one warp on values passed by shuffles; b; the weights; w o V and
-//     w split into their pairs; V with its ones row) into a chunk buffer:
-//     two at L = 64, one at L = 128, so that the ring keeps four stages.
+//     w split into their pairs; V with its ones row) into one of two
+//     chunk buffers, a chunk ahead.
 //     The ring must be at least as deep as the four owners: an owner
 //     waits on its slot's full barrier by phase parity, and before tile nt
 //     it knows only that its own tile nt - 4 has landed.  With fewer than
@@ -74,8 +79,8 @@
 //     matches the wait's, and the wait passes on a slot TMA is still
 //     filling (this faulted on the card at two and three stages).
 //   Registers bound the slice: 64 accumulators a thread at Dh = 1024;
-//   setmaxnreg gives the owners 96, the output group 64 (72 at L = 128)
-//   and the aux 32 (24).
+//   setmaxnreg gives the owners 96, the output group 64 and the aux 32.
+//   (A 128-step chunk was slower at every measured shape: PERF.md.)
 // * Steps past T in the last chunk, like a bucket's padding (i = -inf,
 //   f = +inf), have zero weights and change no state: a padded scan's
 //   state and h equal the unpadded scan's bit for bit.  No atomics: two
@@ -102,6 +107,7 @@ constexpr int PREP_THREADS = 96;  // the aux group's three gate-scan warps
 
 template <int L>
 struct Cfg {
+  static_assert(L == 64, "the kernels take chunks of 64 steps");
   static constexpr int BOXES = L / 64;          // 64-step boxes a chunk
   static constexpr int TILE = L * 128;          // a Q or K tile (L x 64)
   static constexpr int SLOT = 2 * TILE + 2 * PAIR_BYTES;
@@ -111,13 +117,11 @@ struct Cfg {
   static constexpr int CHUNK = 2 * WV + VX + WP;  // a chunk's operands
   static constexpr int ARR = (5 * L + 2 + 2) * 4;  // ... its weights (16 B)
   static constexpr int STG = 2 * L * 4 + L * DV * 2;  // staged i, f, V
-  // chunk buffers (and stages): two at L = 64, so that the gate scan runs a
-  // chunk ahead; one at L = 128, so that the ring keeps OWNERS stages (the
-  // owners' parity waits need them: see the source note)
-  static constexpr int NB = L == 64 ? 2 : 1;
+  // chunk buffers: two, so that the gate scan runs a chunk ahead
+  static constexpr int NB = 2;
   // the output group holds 64 x L of h; what it gives up goes to the aux
-  static constexpr int OUT_REGS = L == 64 ? 64 : 72;
-  static constexpr int AUX_REGS = L == 64 ? 32 : 24;
+  static constexpr int OUT_REGS = 64;
+  static constexpr int AUX_REGS = 32;
   static constexpr int smem_bytes(int stages) {
     return 1024 + stages * SLOT + NB * (CHUNK + ARR + STG) + 256;
   }
@@ -136,6 +140,12 @@ struct Params {
   float* c_out;  // final C (B * H, Dh, Dh), n (B * H, Dh), m (B * H), or
   float* n_out;  // null
   float* m_out;
+  // the training build's: states (B * H, chunks, Dh + 1, Dh), m0 (B * H,
+  // chunks), hf (B * H, T, Dh), den (B * H, T, 2), all fp32
+  float* xs;
+  float* ms;
+  float* hf;
+  float* dn;
   int T, Dh, nchunks, stages;
   float scale;
 };
@@ -309,7 +319,7 @@ __global__ void __launch_bounds__(128, 1)
     }
 }
 
-template <int L, int MTO>
+template <int L, int MTO, bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 1)
     mlstm_scan_kernel(const __grid_constant__ Params p) {
   using C = Cfg<L>;
@@ -417,13 +427,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int c = 0; c < p.nchunks; ++c) {
         const int cb = c % C::NB, t0 = c * L;
         rt::mbar_wait(&pempty[cb], ((c / C::NB) & 1) ^ 1);
-        if (C::NB == 2) {  // stage the next chunk while this one is read
-          rt::named_barrier(1, PREP_THREADS);  // its buffer is read
-          if (c + 1 < p.nchunks)
-            stage(c + 1);
-          else
-            rt::cp_async_commit();
-        }
+        // stage the next chunk while this one is read
+        rt::named_barrier(1, PREP_THREADS);  // its buffer is read
+        if (c + 1 < p.nchunks)
+          stage(c + 1);
+        else
+          rt::cp_async_commit();
         rt::cp_async_wait<C::NB - 1>();  // chunk c's stage has landed
         rt::named_barrier(1, PREP_THREADS);
         const uint8_t* sb = stg + cb * C::STG;
@@ -447,6 +456,8 @@ __global__ void __launch_bounds__(THREADS, 1)
             ll[r] = ok ? log_sigmoid(si[L + u]) : 0.f;
           }
           const float m_prev = m_run;
+          if (TRAIN && pt == 0 && blockIdx.x == 0)
+            p.ms[(size_t)bh * p.nchunks + c] = m_prev;
           float bb = 0.f, mm = m_run;
 #pragma unroll
           for (int r = 0; r < PER; ++r)
@@ -509,10 +520,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         rt::fence_async_smem();
         rt::mbar_arrive(&pfull[cb]);
-        if (C::NB == 1 && c + 1 < p.nchunks) {  // the stage is read: refill
-          rt::named_barrier(1, PREP_THREADS);
-          stage(c + 1);
-        }
       }
       if (pt == 0 && p.c_out != nullptr && blockIdx.x == 0)
         p.m_out[bh] = m_run;
@@ -577,6 +584,24 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         rt::fence_async_smem();
         rt::mbar_arrive(&pairf[slot]);
+        if constexpr (TRAIN) {  // C_prev's tile and n_prev, for the backward
+          const int j = wg + OWNERS * i;
+          float* xc = p.xs + ((size_t)bh * p.nchunks + c) * (p.Dh + 1) * p.Dh;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int dk = 64 * j + 16 * warp + g + 8 * h;
+            if (dk < p.Dh) {
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  xc[(size_t)(dv0 + 8 * jj + 2 * tq + e) * p.Dh + dk] =
+                      acc[i][4 * jj + 2 * h + e];
+              if (blockIdx.x == 0 && tq == 0)
+                xc[(size_t)p.Dh * p.Dh + dk] = nr[i][h];
+            }
+          }
+        }
         // C^T_j <- g C^T_j + K_j^T (w o V)_hi + K_j^T (w o V)_lo, and
         // n_j <- g n_j + K_j^T w_hi + K_j^T w_lo (columns 0 and 1)
         float na[4] = {gc * nr[i][0], 0.f, gc * nr[i][1], 0.f};
@@ -732,7 +757,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int r = 64 * mh + 16 * warp + g + 8 * h;
           const float nq =
               __shfl_sync(0xffffffffu, H[mh][16 + 2 * h], lane & ~3);
-          const float den = fmaxf(fabsf(nq), arr[3 * L + r]);
+          const float floor_t = arr[3 * L + r];
+          const float den = fmaxf(fabsf(nq), floor_t);
           const int t = c * L + r;
           if (t < p.T) {
             bf16* dst = p.h + ((size_t)bh * p.T + t) * p.Dh + dv0 + 2 * tq;
@@ -741,6 +767,18 @@ __global__ void __launch_bounds__(THREADS, 1)
               *reinterpret_cast<uint32_t*>(dst + 8 * jj) = rt::pack_bf16(
                   H[mh][4 * jj + 2 * h] / den,
                   H[mh][4 * jj + 2 * h + 1] / den);
+            if constexpr (TRAIN) {  // h in fp32, den and its sign
+              float* hd = p.hf + ((size_t)bh * p.T + t) * p.Dh + dv0 + 2 * tq;
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+                *reinterpret_cast<float2*>(hd + 8 * jj) =
+                    make_float2(H[mh][4 * jj + 2 * h] / den,
+                                H[mh][4 * jj + 2 * h + 1] / den);
+              if (blockIdx.x == 0 && tq == 0)
+                *reinterpret_cast<float2*>(p.dn + ((size_t)bh * p.T + t) * 2) =
+                    make_float2(den, fabsf(nq) > floor_t ? copysignf(1.f, nq)
+                                                         : 0.f);
+            }
           }
         }
       rt::mbar_arrive(&pempty[cb]);  // done with the chunk's buffer
@@ -748,10 +786,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int L, int MTO>
+template <int L, int MTO, bool TRAIN>
 int launch_scan(Params& p, int BH, cudaStream_t stream) {
   const void* fn =
-      reinterpret_cast<const void*>(&mlstm_scan_kernel<L, MTO>);
+      reinterpret_cast<const void*>(&mlstm_scan_kernel<L, MTO, TRAIN>);
   // setmaxnreg moves registers within the block's allocation: refuse to
   // launch a build whose allocation cannot cover what the groups ask for
   cudaFuncAttributes attr;
@@ -768,6 +806,20 @@ int launch_scan(Params& p, int BH, cudaStream_t stream) {
     rc = cudaLaunchKernel(fn, dim3(p.Dh / DV, BH), dim3(THREADS), args, smem,
                           stream);
   return static_cast<int>(rc);
+}
+
+template <int L, bool TRAIN>
+int launch_mto(Params& p, int BH, cudaStream_t stream) {
+  switch ((p.Dh + 255) / 256) {
+    case 1:
+      return launch_scan<L, 1, TRAIN>(p, BH, stream);
+    case 2:
+      return launch_scan<L, 2, TRAIN>(p, BH, stream);
+    case 3:
+      return launch_scan<L, 3, TRAIN>(p, BH, stream);
+    default:
+      return launch_scan<L, 4, TRAIN>(p, BH, stream);
+  }
 }
 
 template <int L>
@@ -795,39 +847,30 @@ int launch(const void* q, const void* k, Params& p, int BH,
     rc = cudaLaunchKernel(qk, dim3(L / 64 * p.nchunks * BH), dim3(128),
                           qargs, qk_smem, stream);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int mto = (p.Dh + 255) / 256;
-  switch (mto) {
-    case 1:
-      return launch_scan<L, 1>(p, BH, stream);
-    case 2:
-      return launch_scan<L, 2>(p, BH, stream);
-    case 3:
-      return launch_scan<L, 3>(p, BH, stream);
-    default:
-      return launch_scan<L, 4>(p, BH, stream);
-  }
+  return p.xs != nullptr ? launch_mto<L, true>(p, BH, stream)
+                         : launch_mto<L, false>(p, BH, stream);
 }
 
 }  // namespace
 
 // q, k, v, h: (B*H, T, Dh) bf16, 16-byte aligned; ig, fg: (B*H, T) fp32;
-// scratch: (B*H, ceil(T / chunk), chunk, chunk) fp32.  c (B*H, Dh, Dh),
-// n (B*H, Dh), m (B*H) fp32: the final state, written when c is not null
-// (then n and m must not be null either).  ``chunk`` and ``stages`` as
-// kernels/mlstm.py:schedule picks them.  Returns the first cudaError_t; a
-// tensor map the driver refuses returns 1000 + its CUresult.
+// scratch: (B*H, ceil(T / 64), 64, 64) fp32.  c (B*H, Dh, Dh), n (B*H, Dh),
+// m (B*H) fp32: the final state, written when c is not null (then n and m
+// must not be null either).  xs, ms, hf, dn: the training build's outputs
+// (Params), written when xs is not null (then none of them may be null).
+// ``stages`` as kernels/mlstm.py:schedule picks it.  Returns the first
+// cudaError_t; a tensor map the driver refuses returns 1000 + its CUresult.
 extern "C" int rt_mlstm_scan(const void* q, const void* k, const void* v,
                              const void* ig, const void* fg, void* h,
                              void* c, void* n, void* m, void* scratch,
-                             int BH, int T, int Dh, int chunk, int stages,
-                             void* stream) {
+                             void* xs, void* ms, void* hf, void* dn, int BH,
+                             int T, int Dh, int stages, void* stream) {
   if (BH <= 0 || BH > 65535 || T <= 0 || Dh <= 0 || Dh % DV ||
-      Dh > 1024 || (chunk != 64 && chunk != 128) ||
+      Dh > 1024 ||
       stages < OWNERS ||  // the owners' parity waits (see the source note)
-      stages > MAX_STAGES ||
-      (chunk == 64 ? Cfg<64>::smem_bytes(stages)
-                   : Cfg<128>::smem_bytes(stages)) > 232448 ||
-      (c != nullptr && (n == nullptr || m == nullptr)))
+      stages > MAX_STAGES || Cfg<64>::smem_bytes(stages) > 232448 ||
+      (c != nullptr && (n == nullptr || m == nullptr)) ||
+      (xs != nullptr && (ms == nullptr || hf == nullptr || dn == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.v = static_cast<const bf16*>(v);
@@ -838,25 +881,20 @@ extern "C" int rt_mlstm_scan(const void* q, const void* k, const void* v,
   p.c_out = static_cast<float*>(c);
   p.n_out = static_cast<float*>(n);
   p.m_out = static_cast<float*>(m);
-  p.T = T, p.Dh = Dh, p.nchunks = (T + chunk - 1) / chunk,
-  p.stages = stages;
+  p.xs = static_cast<float*>(xs);
+  p.ms = static_cast<float*>(ms);
+  p.hf = static_cast<float*>(hf);
+  p.dn = static_cast<float*>(dn);
+  p.T = T, p.Dh = Dh, p.nchunks = (T + 63) / 64, p.stages = stages;
   p.scale = static_cast<float>(pow(static_cast<double>(Dh), -0.5));
-  auto s = static_cast<cudaStream_t>(stream);
-  return chunk == 64 ? launch<64>(q, k, p, BH, s)
-                     : launch<128>(q, k, p, BH, s);
+  return launch<64>(q, k, p, BH, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of one scan block (kernels/mlstm.py:
-// smem_bytes_for must agree), or -1 for a chunk the kernel does not take.
-extern "C" int rt_mlstm_smem_bytes(int chunk, int stages) {
-  if (chunk == 64) return Cfg<64>::smem_bytes(stages);
-  if (chunk == 128) return Cfg<128>::smem_bytes(stages);
-  return -1;
+// smem_bytes_for must agree).
+extern "C" int rt_mlstm_smem_bytes(int stages) {
+  return Cfg<64>::smem_bytes(stages);
 }
 
 // ... and of one Q K^T block (kernels/mlstm.py:qk_smem_bytes).
-extern "C" int rt_mlstm_qk_smem_bytes(int chunk) {
-  if (chunk == 64) return Cfg<64>::qk_smem_bytes();
-  if (chunk == 128) return Cfg<128>::qk_smem_bytes();
-  return -1;
-}
+extern "C" int rt_mlstm_qk_smem_bytes() { return Cfg<64>::qk_smem_bytes(); }

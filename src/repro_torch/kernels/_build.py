@@ -55,9 +55,14 @@ SIGNATURES = {
         _I),
     "rt_rg_lru_bwd_smem_bytes": ((_I, _I), _I),
     "rt_mlstm_scan": (
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
-    "rt_mlstm_smem_bytes": ((_I, _I), _I),
-    "rt_mlstm_qk_smem_bytes": ((_I,), _I),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+         _I, _P), _I),
+    "rt_mlstm_smem_bytes": ((_I,), _I),
+    "rt_mlstm_qk_smem_bytes": ((), _I),
+    "rt_mlstm_bwd": (
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+         _I, _I, _P), _I),
+    "rt_mlstm_bwd_smem_bytes": ((_I, _I), _I),
 }
 
 _LIB: list[ctypes.CDLL] = []

@@ -147,7 +147,9 @@ def key_tiles(tile: int, block_q: int, block_k: int, tq: int, tk: int,
     f_min = max(0, last - win + 1) if win else 0
     f_max = min(tk - 1, first) if causal else tk - 1
     lo, hi = k_min // block_k, k_max // block_k + 1
-    full_lo = max(lo, _cdiv(f_min, block_k))
+    # clamped to hi, as the backward's query_tiles is: with a window and
+    # Tq > Tk, f_min can lie past the last key tile
+    full_lo = min(hi, max(lo, _cdiv(f_min, block_k)))
     full_hi = max(full_lo, min(hi, (f_max + 1) // block_k))
     return Span(lo, full_lo, full_hi, hi)
 

@@ -1,20 +1,21 @@
 """Public kernel API of the port: the dispatch.
 
-Every op here but ``gemm_act`` and ``mlstm`` (which have only the first:
-no caller asks for their plain versions on the card):
+Every op here but ``gemm_act`` (which has only the first: no caller asks
+for its plain version on the card):
   * with ``backend='auto'`` calls the kernel wrapper, which launches the
     CUDA kernel for a CUDA tensor and runs the plain version for a CPU
     tensor — the decision is the tensor's device, nothing else;
   * with ``backend='ref'`` runs the plain PyTorch version
     (:mod:`repro_torch.kernels.ref`): the layer-per-layer baseline.
 
-``attention`` and ``rg_lru`` are differentiable either way: both
-backends go through one ``torch.autograd.Function`` each
+``attention``, ``rg_lru`` and ``mlstm`` are differentiable either way:
+both backends go through one ``torch.autograd.Function`` each
 (:func:`repro_torch.kernels.flash_attention.attention`,
-:func:`repro_torch.kernels.rg_lru.rg_lru_scan`), whose backward is the
-backward kernel on the card and the plain gradient equations with
-``'ref'`` or on the CPU.  The other kernels have no backward yet: on a
-CUDA tensor that needs a gradient their wrappers raise.
+:func:`repro_torch.kernels.rg_lru.rg_lru_scan`,
+:func:`repro_torch.kernels.mlstm.mlstm_scan`), whose backward is the
+backward kernel on the card and the plain gradient with ``'ref'`` or on
+the CPU.  The other kernels have no backward yet: on a CUDA tensor that
+needs a gradient their wrappers raise.
 
 Each kernel picks its launch from its shapes in pure Python, its
 ``schedule``: the tile widths and the split-K of ``gemm`` and
@@ -23,7 +24,7 @@ qualifies them on), the query tile height and ring depth of
 ``flash_attention``, the M tile, F slice, hidden chunk and ring depth of
 the fused MLP within ``target``'s fast level (one kernel that sums its
 F-slice partials itself, in a fixed order), the channel tile and chunk
-of the RG-LRU scan and the chunk length of the mLSTM scan.
+of the RG-LRU scan and the ring depth of the mLSTM scan.
 """
 from __future__ import annotations
 
@@ -87,12 +88,24 @@ def rg_lru(x, a, h0=None, *, backend: Backend = "auto"):
     return _rg_lru.rg_lru_scan(x, a, h0, plain=backend == "ref")
 
 
-def mlstm(q, k, v, i_pre, f_pre, *, return_state: bool = False):
+def mlstm(q, k, v, i_pre, f_pre, *, return_state: bool = False,
+          chunk: int = 0, backend: Backend = "auto"):
     """Stabilized mLSTM scan: h in ``q.dtype`` and, with
-    ``return_state``, the final ``{"C", "n", "m"}`` in fp32.  The kernel
-    writes the state itself, so serving's prefill runs it too (the
-    reference sends ``return_state`` to its plain scan).  It has no
-    ``backend``: its plain version runs for CPU tensors only."""
-    return _mlstm.mlstm_scan(q.contiguous(), k.contiguous(), v.contiguous(),
-                             i_pre.contiguous(), f_pre.contiguous(),
-                             return_state=return_state)
+    ``return_state``, the final ``{"C", "n", "m"}`` in fp32; h is
+    differentiable.  The kernel writes the state itself, so serving's
+    prefill runs it too (the reference sends ``return_state`` to its plain
+    scan).  ``chunk > 0`` is ``cfg.mlstm_chunk``, the reference's
+    time-chunked rematerialised scan for training: for a CPU tensor, or
+    with ``backend='ref'``, h comes from ``ref.mlstm_scan_chunked``
+    exactly as the reference computes it; on the card the kernel's
+    Function already keeps only its chunks' start states, at its own
+    chunk length, and ``chunk`` changes nothing.  Otherwise ``'ref'``
+    runs the plain Function on any device."""
+    _check_backend(backend)
+    args = (q.contiguous(), k.contiguous(), v.contiguous(),
+            i_pre.contiguous(), f_pre.contiguous())
+    plain = backend == "ref" or all(x.device.type == "cpu" for x in args)
+    if chunk and not return_state and plain:
+        return _ref.mlstm_scan_chunked(*args, chunk=chunk)
+    return _mlstm.mlstm_scan(*args, return_state=return_state,
+                             plain=backend == "ref")

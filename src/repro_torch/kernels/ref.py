@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _ACTS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -215,6 +216,37 @@ def rg_lru_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
 # mLSTM (xLSTM) — matrix-memory recurrence, stabilized
 # ---------------------------------------------------------------------------
 
+def _mlstm_steps(C, n, m, qf, kf, vf, ig, fg, scale: float):
+    """The stabilized recurrence over the steps of ``qf`` … ``fg`` (fp32,
+    (B, H, t, Dh) and (B, H, t)) from the state ``C``, ``n``, ``m``:
+    returns the new state and the fp32 h of each step (B, H, t, Dh).
+    Every product is an elementwise fp32 product summed in fp32 (no
+    matrix product, so no TF32)."""
+    hs = []
+    for s in range(qf.shape[2]):
+        it, kt, vt = ig[..., s], kf[:, :, s], vf[:, :, s]
+        logf = F.logsigmoid(fg[..., s])
+        m_new = torch.maximum(logf + m, it)
+        i_ = torch.exp(it - m_new)
+        f_ = torch.exp(logf + m - m_new)
+        C = f_[..., None, None] * C + i_[..., None, None] * (
+            vt[..., :, None] * kt[..., None, :])
+        n = f_[..., None] * n + i_[..., None] * kt
+        qs = qf[:, :, s] * scale
+        num = (C * qs[..., None, :]).sum(-1)
+        den = torch.maximum((n * qs).sum(-1).abs(), torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        m = m_new
+    return C, n, m, torch.stack(hs, 2)
+
+
+def _zero_state(q: torch.Tensor):
+    b, h, _, dh = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.zeros((b, h, dh, dh), **f32),
+            torch.zeros((b, h, dh), **f32), torch.zeros((b, h), **f32))
+
+
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                i_pre: torch.Tensor, f_pre: torch.Tensor, *,
                return_state: bool = False):
@@ -229,29 +261,79 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_state``, ``{"C", "n", "m"}`` in fp32.  A Python loop over
     time, batched over (B, H); every product is an elementwise fp32
     product summed in fp32 (no matrix product, so no TF32)."""
-    b, h, t, dh = q.shape
-    scale = dh ** -0.5
-    dev = q.device
+    if q.shape[2] == 0:
+        C, n, m = _zero_state(q)
+        out = torch.empty_like(q)
+    else:
+        C, n, m, hs = _mlstm_steps(
+            *_zero_state(q), q.float(), k.float(), v.float(),
+            i_pre.float(), f_pre.float(), q.shape[-1] ** -0.5)
+        out = hs.to(q.dtype)
+    if return_state:
+        return out, {"C": C, "n": n, "m": m}
+    return out
+
+
+def _chunk_scan(q, k, v, i_pre, f_pre, chunk: int):
+    """The plain scan in chunks of ``chunk`` steps (the last may be
+    shorter), each chunk's steps under ``torch.utils.checkpoint`` when
+    autograd records them: the backward pass keeps only the state at the
+    chunk boundaries and runs each chunk again.  (fp32 h, C, n, m)."""
+    scale = q.shape[-1] ** -0.5
+    C, n, m = _zero_state(q)
     qf, kf, vf = q.float(), k.float(), v.float()
     ig, fg = i_pre.float(), f_pre.float()
-    C = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=dev)
-    n = torch.zeros((b, h, dh), dtype=torch.float32, device=dev)
-    m = torch.zeros((b, h), dtype=torch.float32, device=dev)
-    out = torch.empty((b, h, t, dh), dtype=torch.float32, device=dev)
-    for s in range(t):
-        it, kt, vt = ig[..., s], kf[:, :, s], vf[:, :, s]
-        logf = F.logsigmoid(fg[..., s])
-        m_new = torch.maximum(logf + m, it)
-        i_ = torch.exp(it - m_new)
-        f_ = torch.exp(logf + m - m_new)
-        C = f_[..., None, None] * C + i_[..., None, None] * (
-            vt[..., :, None] * kt[..., None, :])
-        n = f_[..., None] * n + i_[..., None] * kt
-        qs = qf[:, :, s] * scale
-        num = (C * qs[..., None, :]).sum(-1)
-        den = torch.maximum((n * qs).sum(-1).abs(), torch.exp(-m_new))
-        out[:, :, s] = num / den[..., None]
-        m = m_new
+    remat = torch.is_grad_enabled()
+    hs = []
+    for t0 in range(0, q.shape[2], chunk):
+        sl = slice(t0, t0 + chunk)
+        args = (C, n, m, qf[:, :, sl], kf[:, :, sl], vf[:, :, sl],
+                ig[..., sl], fg[..., sl], scale)
+        C, n, m, hc = (checkpoint(_mlstm_steps, *args, use_reentrant=False)
+                       if remat else _mlstm_steps(*args))
+        hs.append(hc)
+    return torch.cat(hs, 2), C, n, m
+
+
+def mlstm_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       i_pre: torch.Tensor, f_pre: torch.Tensor, *,
+                       chunk: int = 256, return_state: bool = False):
+    """:func:`mlstm_scan` with time-chunked rematerialization (the
+    reference's ``mlstm_scan_chunked``): ``chunk`` is halved until it
+    divides T, and each chunk's steps run under a checkpoint, so that
+    autograd keeps only the (Dh × Dh) state at chunk boundaries,
+    O(T/chunk·Dh²) bytes instead of the plain scan's O(T·Dh²), and runs
+    each chunk again in the backward pass.  The same values as
+    :func:`mlstm_scan`, bit for bit."""
+    t = q.shape[2]
+    if t == 0:
+        return mlstm_scan(q, k, v, i_pre, f_pre, return_state=return_state)
+    while t % chunk:
+        chunk //= 2
+    hs, C, n, m = _chunk_scan(q, k, v, i_pre, f_pre, chunk)
+    out = hs.to(q.dtype)
     if return_state:
-        return out.to(q.dtype), {"C": C, "n": n, "m": m}
-    return out.to(q.dtype)
+        return out, {"C": C, "n": n, "m": m}
+    return out
+
+
+# chunk of the plain gradient's rematerialized scan (the kernel's L)
+BWD_CHUNK = 64
+
+
+def mlstm_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              i_pre: torch.Tensor, f_pre: torch.Tensor, dh: torch.Tensor
+              ) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, di, df) of :func:`mlstm_scan`'s h for the cotangent
+    ``dh``: autograd through the plain recurrence, the reference's
+    gradient (the TPU kernel has no backward of its own: ``jax.grad``
+    differentiates the plain scan).  The scan runs again here in chunks
+    of :data:`BWD_CHUNK` steps, each under a checkpoint, so that it keeps
+    only the state at chunk boundaries.  dq, dk, dv in their inputs'
+    dtypes, di and df in fp32."""
+    ins = [x.detach().requires_grad_() for x in (q, k, v, i_pre, f_pre)]
+    with torch.enable_grad():
+        hs = _chunk_scan(*ins, BWD_CHUNK)[0].to(q.dtype)
+        grads = torch.autograd.grad(hs, ins, dh, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for x, g in zip(ins, grads))

@@ -117,12 +117,15 @@ def mlstm_block(cfg, p: Params, x: torch.Tensor, *,
     """x: (B, S, D) -> (B, S, D); residual added by caller.  ``length``
     (≤ S) is the prompt's real length when the sequence is padded on the
     right: the padded steps' gates carry the state through unchanged, so
-    the returned state is the one after ``length`` tokens."""
-    if cfg.mlstm_chunk and not return_state:
-        raise NotImplementedError(
-            "mlstm_chunk > 0 selects the reference's time-chunked "
-            "rematerialised scan, which saves state for training's backward "
-            "pass; the port has no training yet: set mlstm_chunk=0")
+    the returned state is the one after ``length`` tokens.
+
+    ``cfg.mlstm_chunk > 0`` (the reference's time-chunked rematerialised
+    scan, which keeps only chunk-boundary states for the backward pass)
+    runs the plain chunked scan for a CPU tensor, exactly as the reference
+    does, and the kernel's Function for a CUDA tensor: that Function
+    already saves only the states at its own chunks' starts (the
+    schedule's chunk length, not ``mlstm_chunk``).  With ``return_state``
+    the scan is unchunked, as in the reference."""
     xn = norm(p["norm"], x, cfg.norm)
     up = linear(p["up"], xn)
     xin, z = up.chunk(2, dim=-1)                        # (B, S, E) each
@@ -136,7 +139,7 @@ def mlstm_block(cfg, p: Params, x: torch.Tensor, *,
     if return_state:
         hcell, state = ops.mlstm(q, k, v, i_pre, f_pre, return_state=True)
     else:
-        hcell = ops.mlstm(q, k, v, i_pre, f_pre)
+        hcell = ops.mlstm(q, k, v, i_pre, f_pre, chunk=cfg.mlstm_chunk)
     hcell = hcell.transpose(1, 2).reshape(b, s, -1)
     y = _mlstm_out(cfg, p, hcell, z, x)
     return (y, state) if return_state else y

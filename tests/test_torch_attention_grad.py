@@ -160,7 +160,7 @@ CALLS = {
 
 # the kernels with a backward kernel: a gradient goes through their
 # autograd Function, which on a ``meta`` tensor stops at the device check
-WITH_BACKWARD = ("rg_lru_scan", "flash_attention_256")
+WITH_BACKWARD = ("rg_lru_scan", "flash_attention_256", "mlstm_scan")
 
 
 @pytest.mark.parametrize("name", [n for n in CALLS
@@ -174,10 +174,10 @@ def test_kernels_without_backward_refuse_a_gradient(name):
 
 @pytest.mark.parametrize("name", WITH_BACKWARD)
 def test_the_scan_and_flash_at_256_no_longer_refuse_a_gradient(name):
-    """The RG-LRU scan (since its backward kernel) and flash attention at
-    head dim 256 (since the backward takes it) no longer raise
-    ``NotImplementedError`` under grad: the call reaches the Function's
-    forward, whose kernel side asks for a CUDA tensor."""
+    """The RG-LRU and mLSTM scans (since their backward kernels) and flash
+    attention at head dim 256 (since the backward takes it) no longer
+    raise ``NotImplementedError`` under grad: the call reaches the
+    Function's forward, whose kernel side asks for a CUDA tensor."""
     with pytest.raises(ValueError, match="CUDA"):
         CALLS[name](True)
 

@@ -6,7 +6,8 @@ elsewhere.  Run them on the card with
 bf16, elementwise: |kernel - plain| <= 2e-2 + 2e-2 |plain| (both round fp32
 sums to bf16, in different orders).  The mLSTM scan's fp32 state: |kernel -
 plain| <= 1e-3 + 1e-3 |plain| (the same recurrence, its products fused and
-its sums taken in another order).
+its sums taken in another order); its gradient's fp32 di and df: |kernel -
+plain| <= 1e-3 max|plain| + 1e-3 |plain|.
 """
 import pytest
 
@@ -193,6 +194,10 @@ FLASH_SCHEDULES = [
     (2, 4, 1, 50, 90, 256, True, 16, 40),
     (1, 2, 2, 40, 40, 256, False, None, 0),
     (1, 48, 1, 300, 300, 128, True, None, 0),   # granite-20b's MQA 48/1
+    # a causal window with more queries than keys: the span's masked
+    # loop once ran past the key tiles the producer loads, and hung
+    (1, 2, 1, 128, 16, 256, True, 2, 0),
+    (1, 2, 1, 200, 64, 128, True, 17, 0),
 ] + [case for case, _ in FLASH_SCHEDULES])
 def test_flash_attention(dev, b, hq, hk, tq, tk, dh, causal, window,
                          q_offset):
@@ -851,22 +856,6 @@ def test_mlstm_scan(dev, b, h, t, dh, with_state):
         _close(got, want)
 
 
-@pytest.mark.parametrize("b,h,t,dh", [(1, 2, 300, 1024), (2, 2, 200, 128),
-                                      (1, 1, 129, 96)])
-def test_mlstm_scan_at_the_other_chunk_length(dev, b, h, t, dh):
-    """Chunks of 128 (the length the schedule does not pick), with
-    state."""
-    args = _mlstm_inputs(dev, 27, b, h, t, dh)
-    sched = mlstm.schedule(b, h, t, dh, 128)
-    state, scratch = _nan_buffers(dev, sched, b, h, dh, True)
-    got = mlstm.run_schedule(*args, sched, return_state=True,
-                             out=torch.full_like(args[0], float("nan")),
-                             state=state, scratch=scratch)
-    want = ref.mlstm_scan(*args, return_state=True)
-    _close(got[0], want[0])
-    _state_close(got[1], want[1])
-
-
 def test_mlstm_scan_two_launches_are_bit_identical(dev):
     args = _mlstm_inputs(dev, 29, 1, 4, 600, 1024)
     h1, s1 = mlstm.mlstm_scan(*args, return_state=True)
@@ -878,12 +867,114 @@ def test_mlstm_scan_two_launches_are_bit_identical(dev):
 
 def test_mlstm_footprints_agree_with_the_launcher(dev):
     from repro_torch.kernels import _build
-    for chunk in mlstm.CHUNKS:
-        st = mlstm.stages_for(chunk)
-        assert _build.lib().rt_mlstm_smem_bytes(chunk, st) == \
-            mlstm.smem_bytes_for(chunk, st)
-        assert _build.lib().rt_mlstm_qk_smem_bytes(chunk) == \
-            mlstm.qk_smem_bytes(chunk)
+    st = mlstm.stages_for()
+    assert _build.lib().rt_mlstm_smem_bytes(st) == mlstm.smem_bytes_for(st)
+    assert _build.lib().rt_mlstm_qk_smem_bytes() == mlstm.qk_smem_bytes()
+    for dh in range(32, mlstm.MAX_HEAD_DIM + 1, 32):
+        s = mlstm.bwd_schedule(1, 1, 64, dh)
+        assert [_build.lib().rt_mlstm_bwd_smem_bytes(k, dh)
+                for k in range(3)] == [s.prep_smem_bytes,
+                                       s.state_smem_bytes,
+                                       s.grad_smem_bytes]
+
+
+def _mlstm_bwd_case(dev, seed, b, h, t, dh):
+    """The inputs, the training forward's saved tensors and dh ~ N(0, 1)
+    in bf16."""
+    args = _mlstm_inputs(dev, seed, b, h, t, dh)
+    _, saved = mlstm._forward(*args, return_state=False, train=True)
+    return args, saved, _rand(dev, seed + 9, b, h, t, dh)
+
+
+def _gates_close(got, want, share=1e-3):
+    """di, df in fp32 within share·max|want| + share·|want|: the row dots
+    and the cumulative sum taken in another order than autograd's."""
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    tol = share * float(want.abs().max()) + share * want.abs()
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+
+
+MLSTM_BWD = [
+    (1, 4, 300, 1024),           # xlstm-1.3b's head dim, a ragged chunk
+    (2, 2, 1000, 128),           # the reduced config's head dim
+    (1, 1, 7, 32),               # one partial chunk
+    (3, 2, 64, 96),              # one whole chunk, a half column tile
+    (1, 2, 129, 160),
+]
+
+
+@pytest.mark.parametrize("b,h,t,dh", MLSTM_BWD)
+def test_mlstm_bwd_matches_the_plain_gradient(dev, b, h, t, dh):
+    """The backward kernels on NaN-filled outputs and scratch, against
+    ``ref.mlstm_bwd`` (autograd through the plain scan) by the bf16 rule
+    and the gates' rule, and against ``chunkwise_bwd_model`` (the
+    kernels' arithmetic) ten times tighter on the gates: bit for bit it
+    cannot be, as the model's fp32 matrix products sum in cuBLAS's order,
+    not the tensor cores'."""
+    args, saved, dh_ = _mlstm_bwd_case(dev, 31, b, h, t, dh)
+    nan = float("nan")
+    grads = tuple(torch.full_like(x, nan) for x in args)
+    s = mlstm.bwd_schedule(b, h, t, dh)
+    scratch = torch.full((s.scratch_bytes // 4,), nan, device=dev)
+    before = mlstm.bwd_launches
+    got = mlstm.mlstm_scan_bwd(*args, saved, dh_, grads=grads,
+                               scratch=scratch)
+    assert mlstm.bwd_launches == before + 1
+    want = ref.mlstm_bwd(*args, dh_)
+    model = mlstm.chunkwise_bwd_model(*args, dh_)
+    for j in range(3):
+        _close(got[j], want[j])
+        _close(got[j], model[j])
+    for j in (3, 4):
+        _gates_close(got[j], want[j])
+        _gates_close(got[j], model[j], share=1e-4)
+
+
+def test_mlstm_bwd_two_launches_are_bit_identical(dev):
+    args, saved, dh_ = _mlstm_bwd_case(dev, 33, 2, 2, 600, 256)
+    g1 = mlstm.mlstm_scan_bwd(*args, saved, dh_)
+    g2 = mlstm.mlstm_scan_bwd(*args, saved, dh_)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("b,h,t,dh", [(1, 2, 130, 128), (2, 1, 200, 96)])
+def test_mlstm_training_forward_saves_the_model_s_tensors(dev, b, h, t, dh):
+    """The training build's h is the serving build's, bit for bit, and
+    what it saves is ``chunkwise_model``'s within the state's rule; its
+    outputs are NaN-filled first."""
+    args = _mlstm_inputs(dev, 35, b, h, t, dh)
+    sched = mlstm.schedule(b, h, t, dh)
+    saved = {n: torch.full(sh, float("nan"), device=dev)
+             for n, sh in mlstm.saved_shapes(b, h, t, dh).items()}
+    h_train = mlstm.run_schedule(*args, sched, saved=saved)
+    assert torch.equal(h_train, mlstm.mlstm_scan(*args))
+    _, kept = mlstm.chunkwise_model(*args, saved=True)
+    for n in kept:
+        torch.testing.assert_close(saved[n], kept[n], rtol=1e-3, atol=1e-3)
+
+
+def test_mlstm_function_trains_through_both_kernels(dev):
+    """Under autograd a CUDA call launches the training forward once and
+    the backward once; ``return_state`` under autograd raises (the final
+    state has no backward kernel)."""
+    args = [x.detach().requires_grad_() for x in
+            _mlstm_inputs(dev, 37, 1, 2, 100, 128)]
+    dh_ = _rand(dev, 38, 1, 2, 100, 128)
+    before = (mlstm.launches, mlstm.bwd_launches)
+    h = mlstm.mlstm_scan(*args)
+    got = torch.autograd.grad(h, args, dh_)
+    assert (mlstm.launches, mlstm.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = ref.mlstm_bwd(*[x.detach() for x in args], dh_)
+    for j in range(3):
+        _close(got[j], want[j])
+    for j in (3, 4):
+        _gates_close(got[j], want[j])
+    with pytest.raises(NotImplementedError):
+        mlstm.mlstm_scan(*args, return_state=True)
 
 
 def test_mlstm_scan_carries_state_through_padding(dev):

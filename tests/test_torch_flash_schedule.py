@@ -41,6 +41,12 @@ EDGES = [
     (3, 1, 1, 1, 5000, 256, True, None, 4999),      # one decode-like row
 ]
 CASES = SERVED + EDGES
+# a causal window with more queries than keys: the last key a tile's
+# rows all see can lie past every key tile (at Tq 128, Tk 16, window 2
+# the forward once sent its masked loop to a tile it never loaded)
+WINDOWED = [(1, 2, 1, tq, tk, dh, True, win, 0)
+            for tq in (64, 128, 200, 256) for tk in (16, 64, 100)
+            if tq > tk for win in (2, 17, 50) for dh in (128, 256)]
 
 
 def _sched(case, **kw):
@@ -144,7 +150,7 @@ def _visible(case):
 
 
 @pytest.mark.parametrize("block_q", fa.BLOCK_Q)
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + WINDOWED)
 def test_key_split_matches_a_brute_force_mask(case, block_q):
     """Every tile outside [lo, hi) is hidden from every row; every tile in
     it is seen by some row; the tiles run without a mask are seen whole by

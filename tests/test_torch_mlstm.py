@@ -106,7 +106,8 @@ def test_padded_steps_carry_the_state_exactly():
 def test_ops_mlstm_dispatch_on_cpu_tensors():
     """A CPU tensor runs the plain scan through ``ops`` and the wrapper
     alike, launching nothing; bf16 inputs give bf16 h and fp32 state;
-    ``ops.mlstm`` takes no ``backend``."""
+    ``ops.mlstm`` takes the reference's ``backend``: ``'ref'`` gives the
+    same h, and a name it does not know raises."""
     targs, _ = _both(_scan_inputs(1, 2, 9, 32, seed=7))
     bf = [a.to(torch.bfloat16) for a in targs[:3]] + targs[3:]
     before = mlstm.launches
@@ -118,8 +119,9 @@ def test_ops_mlstm_dispatch_on_cpu_tensors():
     assert torch.equal(ops.mlstm(*bf), hr)
     assert torch.equal(mlstm.mlstm_scan(*bf), hr)
     assert mlstm.launches == before
-    with pytest.raises(TypeError):
-        ops.mlstm(*bf, backend="ref")
+    assert torch.equal(ops.mlstm(*bf, backend="ref"), hr)
+    with pytest.raises(ValueError):
+        ops.mlstm(*bf, backend="pallas")
 
 
 # ---------------------------------------------------------------------------
@@ -224,16 +226,53 @@ def test_block_state_at_length_equals_unpadded(blocks, kind):
 
 
 def test_mlstm_chunked_remat_is_refused_for_the_stateless_scan(blocks):
-    """``mlstm_chunk > 0`` is the reference's training-time remat scan:
-    the port has no training, so the stateless block raises; the prefill
-    (with state), which the reference runs unchunked, still runs."""
+    """``mlstm_chunk > 0`` is the reference's training-time remat scan.
+    The port runs it too (the name is kept from when it refused it): the
+    stateless block matches the reference's chunked scan, output and the
+    gradients of x and every weight, at a T that is not a multiple of
+    the chunk (the reference halves it to 4); the prefill with state,
+    which the reference runs unchunked, still matches."""
     jcfg, tcfg, ps = blocks
     jp, tp = ps["mlstm"]
+    jcfg8 = dataclasses.replace(jcfg, mlstm_chunk=8)
     tcfg8 = dataclasses.replace(tcfg, mlstm_chunk=8)
-    x = _x(1, 16, jcfg.d_model, 6)
-    with pytest.raises(NotImplementedError, match="training"):
-        TR.mlstm_block(tcfg8, tp, torch.from_numpy(x))
-    ty, _ = TR.mlstm_block(tcfg8, tp, torch.from_numpy(x), return_state=True)
-    jy, _ = JR.mlstm_block(dataclasses.replace(jcfg, mlstm_chunk=8), jp,
-                           jnp.asarray(x), return_state=True)
+    x = _x(1, 12, jcfg.d_model, 6)
+    cot = _x(1, 12, jcfg.d_model, 7)
+    leaves = TR_leaves(tp)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ty = TR.mlstm_block(tcfg8, tp, xt)
+    tg = torch.autograd.grad(ty, [xt, *leaves.values()],
+                             torch.from_numpy(cot))
+
+    def f(p, xx):
+        return jnp.sum(JR.mlstm_block(jcfg8, p, xx) * cot)
+
+    jy = JR.mlstm_block(jcfg8, jp, jnp.asarray(x))
+    jgp, jgx = jax.grad(f, argnums=(0, 1))(jp, jnp.asarray(x))
+    _close(ty.detach(), jy)
+    _close(tg[0], jgx)
+    jflat = dict(_leaves(jgp))
+    for (name, _), g in zip(leaves.items(), tg[1:]):
+        _close(g, jflat[name], rtol=1e-4, atol=1e-4 * float(
+            np.abs(np.asarray(jflat[name])).max()) + 1e-6)
+    for t in leaves.values():
+        t.requires_grad_(False)
+    with torch.no_grad():
+        ty, _ = TR.mlstm_block(tcfg8, tp, torch.from_numpy(x),
+                               return_state=True)
+    jy, _ = JR.mlstm_block(jcfg8, jp, jnp.asarray(x), return_state=True)
     _close(ty, jy)
+
+
+def _leaves(tree, pre=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, pre + k + "/")
+        else:
+            yield pre + k, v
+
+
+def TR_leaves(tree) -> dict:
+    return dict(_leaves(tree))

@@ -2,7 +2,7 @@
 on the CPU.
 
 ``mlstm_scan`` launches what :func:`mlstm.schedule` picks from the shape
-alone: the chunk length, the 64-row tiles of Cᵀ its four owner
+alone: chunks of 64 steps, the 64-row tiles of Cᵀ its four owner
 warpgroups hold, the Q/K ring's depth, the scan's grid (32 columns of
 one head's C a block), the ``Q Kᵀ`` kernel's blocks, both footprints and
 the fp32 ``Q Kᵀ`` scratch passed between the two kernels.  These tests
@@ -22,24 +22,22 @@ BUCKETS = [128, 256, 512, 1024, 2048]
 
 
 @pytest.mark.parametrize("dh", HEAD_DIMS)
-@pytest.mark.parametrize("chunk", mlstm.CHUNKS)
-def test_every_footprint_fits_a_block(dh, chunk):
-    s = mlstm.schedule(1, 4, 2048, dh, chunk)
+def test_every_footprint_fits_a_block(dh):
+    s = mlstm.schedule(1, 4, 2048, dh)
     assert s.smem_bytes <= mlstm.SMEM_LIMIT == 232_448
     assert s.qk_smem_bytes <= mlstm.SMEM_LIMIT
-    assert s.smem_bytes == mlstm.smem_bytes_for(chunk, s.stages)
+    assert s.smem_bytes == mlstm.smem_bytes_for(s.stages)
 
 
-@pytest.mark.parametrize("chunk,stages", [(64, 7), (128, 4)])
-def test_the_ring_is_as_deep_as_shared_memory_allows(chunk, stages):
+def test_the_ring_is_as_deep_as_shared_memory_allows():
     """As deep as fits, and never shallower than the four owner
     warpgroups (an owner's parity wait is sound only then; see
-    ``stages_for``): one chunk buffer
-    at L = 128 buys its fourth stage."""
-    assert mlstm.stages_for(chunk) == stages >= mlstm.OWNERS
-    assert mlstm.chunk_buffers(chunk) == {64: 2, 128: 1}[chunk]
-    assert mlstm.smem_bytes_for(chunk, stages) <= mlstm.SMEM_LIMIT
-    assert mlstm.smem_bytes_for(chunk, stages + 1) > mlstm.SMEM_LIMIT
+    ``stages_for``), beside two chunk buffers."""
+    stages = mlstm.stages_for()
+    assert stages == 7 >= mlstm.OWNERS
+    assert mlstm.CHUNK_BUFFERS == 2
+    assert mlstm.smem_bytes_for(stages) <= mlstm.SMEM_LIMIT
+    assert mlstm.smem_bytes_for(stages + 1) > mlstm.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("t", BUCKETS)
@@ -55,18 +53,18 @@ def test_grid_at_the_served_shapes(b, h, t):
 
 
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 437, 2048])
-@pytest.mark.parametrize("chunk", mlstm.CHUNKS)
-def test_chunks_cover_t_and_the_scratch_holds_one_q_kt_each(t, chunk):
-    s = mlstm.schedule(2, 3, t, 128, chunk)
+def test_chunks_cover_t_and_the_scratch_holds_one_q_kt_each(t):
+    s = mlstm.schedule(2, 3, t, 128)
+    chunk = s.chunk
+    assert chunk == mlstm.CHUNK == 64
     assert (s.n_chunks - 1) * chunk < t <= s.n_chunks * chunk
-    assert s.qk_grid == chunk // 64 * s.n_chunks * 6
+    assert s.qk_grid == s.n_chunks * 6
     assert s.scratch_bytes == 4 * 6 * s.n_chunks * chunk * chunk
 
 
 def test_scratch_at_the_headline_shape():
     # (1, 4, 2048, 1024): 32 chunks of 64 x 64 fp32 a head, 2 MiB
     assert mlstm.schedule(1, 4, 2048, 1024).scratch_bytes == 2 << 20
-    assert mlstm.schedule(1, 4, 2048, 1024, 128).scratch_bytes == 4 << 20
 
 
 @pytest.mark.parametrize("dh", HEAD_DIMS)
@@ -77,17 +75,17 @@ def test_dk_tiles_cover_the_head_dim_in_whole_owner_rounds(dh):
     assert mlstm.schedule(1, 1, 10, dh).tiles_per_owner == n // 4 <= 4
 
 
-@pytest.mark.parametrize("b,h,t,dh,chunk", [
-    (1, 4, 64, 48, None),          # not a multiple of 32
-    (1, 4, 64, 1056, None),        # above 1024
-    (1, 4, 64, 0, None),
-    (1, 4, 64, 128, 32),           # a chunk the kernel does not take
-    (1, 4, 0, 128, None),          # no step
-    (65536, 1, 64, 128, None),     # more (batch, head) pairs than grid.y
+@pytest.mark.parametrize("b,h,t,dh", [
+    (1, 4, 64, 48),                # not a multiple of 32
+    (1, 4, 64, 1056),              # above 1024
+    (1, 4, 64, 0),
+    (0, 4, 64, 128),               # no (batch, head) pair
+    (1, 4, 0, 128),                # no step
+    (65536, 1, 64, 128),           # more (batch, head) pairs than grid.y
 ])
-def test_schedule_refuses_what_the_kernel_does_not_take(b, h, t, dh, chunk):
+def test_schedule_refuses_what_the_kernel_does_not_take(b, h, t, dh):
     with pytest.raises(ValueError):
-        mlstm.schedule(b, h, t, dh, chunk)
+        mlstm.schedule(b, h, t, dh)
 
 
 def test_label_names_the_chunk_stages_and_grids():

@@ -191,11 +191,17 @@ def test_prefill_state_at_last_pos_equals_unpadded_prefill(weights, variant):
 
 
 def test_stateless_forward_refuses_the_chunked_remat_scan(weights):
-    jp, tp = weights["reduced"]
-    _, tcfg = _cfgs(mlstm_chunk=16)
-    with pytest.raises(NotImplementedError, match="training"):
-        TM.forward(tcfg, tp, {"tokens": torch.from_numpy(
-            _tokens(1, 8, tcfg.vocab_size))})
+    """The stateless ``forward`` with ``mlstm_chunk > 0`` (the
+    reference's remat scan; the name is kept from when the port refused
+    it) matches the reference's logits, at a T the chunk of 16 does not
+    divide (both halve it to 8) and on both stacks."""
+    for variant in VARIANTS:
+        jp, tp = weights[variant]
+        jcfg, tcfg = _cfgs(variant, mlstm_chunk=16)
+        toks = _tokens(2, 24, jcfg.vocab_size, seed=5)
+        jl, _ = JM.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+        tl, _ = TM.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)})
+        _close(tl, jl)
 
 
 def test_unsupported_families_name_what_the_port_serves():
