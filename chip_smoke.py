@@ -18,9 +18,11 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    build of the flash backward (its dK/dV kernel with 128-key tiles at
    head_dim 64 and 128, with 64-key tiles at 128 and 256; its dQ kernel
    at every head dim and tile height; D's rows; the splits' sum) and for
-   the mLSTM backward's four kernels; the mLSTM forward's serving and
-   training builds print their spills, which are not gated (the serving
-   build spilled before the training build was added).
+   the mLSTM backward's prep, gradient and gate kernels; its state pass
+   (four builds, the forward scan's shape) is held to no serialised
+   ``wgmma`` and prints its spills, as the mLSTM forward's serving and
+   training builds do, which are not gated (the serving build spilled
+   before the training build was added).
 2. Kernels against their plain PyTorch versions, in bf16 at the serving
    paths' shapes: max |difference| against the stated tolerance, and each
    kernel's time (CUDA events, median of 20 launches, L2 flushed before
@@ -70,10 +72,14 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    fp32 within 1e-3 (max|plain| + |plain|)) on NaN-filled outputs at the
    train path's (16, 4, 128, 1024), (4, 4, 512, 1024), (1, 4, 2048,
    1024), a ragged (2, 2, 1000, 128) and (1, 4, 600, 1024), two launches
-   bit-identical, beside
+   bit-identical (100 at (4, 4, 512, 1024)), beside
    the function's bound, the bound with the saved states read once, the
-   design's, and the training forward's time; the train path's row is
-   profiled by kernel.  The flash forward is held where a causal window
+   design's, and the training forward's time; each row prints its
+   schedule (the state pass's grid and ring stages, the gradient grid)
+   and is profiled by kernel with each call prepared as it is timed
+   (prep, the state pass, the gradients, the gates), with the device's
+   idle time between them and the host's time to enqueue a call.
+   The flash forward is held where a causal window
    meets more queries than keys (Tq 128 over Tk 16 at head_dim 256,
    window 2; Tq 200 over Tk 64 at 128, window 17), at both tile
    heights.  The flash forward
@@ -330,7 +336,6 @@ NEW_BUILDS = {
     "flash_attention_bwd D rows": (r"dsum_kernelILi", 3),
     "flash_attention_bwd, splits' sum": (r"split_sum_kernel", 1),
     "mlstm_scan_bwd prep": (r"mlstm_bwd_prep_kernel", 1),
-    "mlstm_scan_bwd state pass": (r"mlstm_bwd_state_kernel", 1),
     "mlstm_scan_bwd gradients": (r"mlstm_bwd_grad_kernel", 1),
     "mlstm_scan_bwd gates": (r"mlstm_bwd_gate_kernel", 1),
 }
@@ -338,11 +343,18 @@ NEW_BUILDS = {
 # thread at Dh = 1024); the training builds' spills are printed beside
 # theirs, not gated
 FORWARD_BUILDS = r"mlstm_scan_kernelILi64ELi(\d)ELb([01])E"
+# the mLSTM backward's state pass has the forward scan's shape (768
+# threads at 80 registers a thread, moved by setmaxnreg): its four builds,
+# one per tile count an owner holds, are held to no serialised wgmma, and
+# their spills are printed, as the forward's are, not gated
+STATE_PASS_BUILDS = r"mlstm_bwd_state_kernelILi(\d)E"
 
 
 def check_new_builds(log: str) -> None:
     """``ptxas``'s report on :data:`NEW_BUILDS`: each has its entries,
-    none spills, and none has its ``wgmma`` serialised (C7515/C7520)."""
+    none spills, and none has its ``wgmma`` serialised (C7515/C7520); on
+    :data:`STATE_PASS_BUILDS`: four, none serialised (C7515/C7520), their
+    spills and any C7512 (registers too few for the wgmma) printed."""
     spills, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -365,12 +377,25 @@ def check_new_builds(log: str) -> None:
               f"{what}: ptxas serialised its wgmma")
         print(f"  ptxas: {what}: {len(hits)} build(s), no spills, no "
               f"serialised wgmma")
+    state = {e: n for e, n in spills.items()
+             if re.search(STATE_PASS_BUILDS, e)}
+    check(len(state) == 4, f"{len(state)} ptxas report(s) for the "
+          f"mlstm_scan_bwd state pass, 4 expected")
+    check(not any(e in serialised for e in state),
+          "mlstm_scan_bwd state pass: ptxas serialised its wgmma")
+    short = " ".join(line for line in log.splitlines() if "C7512" in line)
     for e, n in sorted(spills.items()):
         m = re.search(FORWARD_BUILDS, e)
         if m:
             print(f"  ptxas: mlstm_scan, {int(m.group(1))} tiles an owner, "
                   f"{'training' if m.group(2) == '1' else 'serving'} build: "
                   f"{n} bytes of spill stores and loads")
+        m = re.search(STATE_PASS_BUILDS, e)
+        if m:
+            print(f"  ptxas: mlstm_scan_bwd state pass, {m.group(1)} tiles "
+                  f"an owner: no serialised wgmma, {n} bytes of spill "
+                  f"stores and loads"
+                  + (", C7512 (too few registers)" if e in short else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -1149,7 +1174,8 @@ def mlstm_bwd_cases(dev, timer, randn):
     chunks) on the training forward's saved tensors, dh ~ N(0, 1), the
     outputs NaN-filled first: dq, dk, dv in bf16 by phase 2's rule, di
     and df in fp32 within GATE_SHARE * (max|plain| + |plain|), the
-    largest share printed; two launches bit-identical.  Shapes: the train
+    largest share printed; two launches bit-identical (100 at (4, 4, 512,
+    1024)).  Shapes: the train
     path's microbatch (16, 4, 128, 1024), four sequences of 512 (4, 4,
     512, 1024), xlstm-1.3b's widest prefill (1, 4, 2048, 1024), a ragged
     (2, 2, 1000, 128) and (1, 4, 600, 1024), not a multiple of the
@@ -1158,10 +1184,13 @@ def mlstm_bwd_cases(dev, timer, randn):
     the bytes of its inputs and outputs; ``states_bound_ms`` with the
     saved states read once beside them; ``work_bound_ms`` this design's,
     the split products' 16 Dh^2 + 16 L Dh operations and the state
-    gradient written once and read twice.  ``states_ms`` is the training
-    forward's time at the shape.  The train path's row is profiled by
-    kernel (``kernels_ms``).  No single PyTorch call computes this
-    gradient."""
+    gradient of every chunk but the last written once and read once.
+    ``states_ms`` is the training forward's time at the shape.  Each row
+    is profiled by kernel (``kernels_ms``, each call prepared as for
+    ``ms``); ``gap_ms`` is ``ms`` less the kernels' sum, ``span_ms`` a
+    call's first kernel start to last kernel end, ``idle_ms`` the
+    device's idle time inside it, ``host_ms`` the host's time to enqueue
+    a call.  No single PyTorch call computes this gradient."""
     from repro_torch.kernels import mlstm, ref
 
     out = []
@@ -1182,7 +1211,7 @@ def mlstm_bwd_cases(dev, timer, randn):
         print(f"  {label}: schedule {sched.label}, shared memory "
               f"{sched.prep_smem_bytes}/{sched.state_smem_bytes}/"
               f"{sched.grad_smem_bytes} B, {sched.scratch_bytes} B of "
-              f"scratch")
+              f"scratch ({sched.grad_state_bytes} B of end-gradients)")
         _, saved = mlstm._forward(*args, return_state=False, train=True)
         grads = tuple(torch.full_like(x, nan) for x in args)
         scratch = torch.full((sched.scratch_bytes // 4,), nan, device=dev)
@@ -1196,11 +1225,16 @@ def mlstm_bwd_cases(dev, timer, randn):
             atol=GATE_SHARE * float(want[j].abs().max()), rtol=GATE_SHARE)
             for j, n in ((3, "i"), (4, "f")))
         del want
-        again = mlstm.mlstm_scan_bwd(*args, saved, dy)
-        torch.cuda.synchronize()
-        check(all(torch.equal(x, y) for x, y in zip(got, again)),
-              f"{label}: two launches differ")
-        print(f"  {label}: two launches bit-identical")
+        # at the (4, 4, 512, 1024) row 100 launches (the state pass's
+        # buffers and ring cycled many times: a ring race once showed as
+        # other bits now and then), elsewhere two
+        launches = 100 if (b, t) == (4, 512) else 2
+        for _ in range(launches - 1):
+            again = mlstm.mlstm_scan_bwd(*args, saved, dy)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{label}: launches differ")
+        print(f"  {label}: {launches} launches bit-identical")
         del got, again, scratch
         steps, L, nc = b * h * t, sched.chunk, sched.n_chunks
         # q, k, v, dh read and dq, dk, dv written in bf16, the gates read
@@ -1211,18 +1245,23 @@ def mlstm_bwd_cases(dev, timer, randn):
         st = bound_ms(io + states + 4 * steps * dh + 8 * steps,
                       steps * (8 * dh * dh + 10 * L * dh))
         work = bound_ms(io + states + 4 * steps * dh + 8 * steps
-                        + 3 * sched.grad_state_bytes,
+                        + 2 * sched.grad_state_bytes,
                         steps * (16 * dh * dh + 16 * L * dh))
-        split = None
-        if path == XLSTM_TRAIN:
-            split = mlstm_bwd_kernel_split(mlstm, args, saved, dy)
-            print(f"  {label}: device ms a call by kernel (profiler, mean "
-                  f"of 5): {split}")
+        ms = timer.ms(lambda: mlstm.mlstm_scan_bwd(*args, saved, dy))
+        split, span, idle, host = mlstm_bwd_kernel_split(
+            mlstm, timer, args, saved, dy)
+        gap = ms - sum(split.values())
+        print(f"  {label}: {ms} ms a call; device ms by kernel (profiler, "
+              f"each call as timed, mean of 5): {split}; ms less their sum "
+              f"{gap:.4f}; a call's span {span:.4f} ms, the device idle "
+              f"inside it {idle:.4f} ms; the host enqueues a call in "
+              f"{host:.4f} ms (behind the timer's device-side wait)")
         out.append(dict(
             path=path, shape=[b, h, t, dh], schedule=sched.label,
             max_abs_err=err, gate_max_abs_err=gate_err, bit_identical=True,
-            kernels_ms=split,
-            ms=timer.ms(lambda: mlstm.mlstm_scan_bwd(*args, saved, dy)),
+            kernels_ms=split, gap_ms=gap, span_ms=span, idle_ms=idle,
+            host_ms=host,
+            ms=ms,
             states_ms=timer.ms(lambda: mlstm._forward(
                 *args, return_state=False, train=True)),
             # autograd through a Python loop over T: up to 10 s a call,
@@ -1237,22 +1276,49 @@ def mlstm_bwd_cases(dev, timer, randn):
     return out
 
 
-def mlstm_bwd_kernel_split(mlstm, args, saved, dy) -> dict:
-    """Device ms a call of the mLSTM backward's four kernels, the mean of
-    5 calls under the profiler."""
+def mlstm_bwd_kernel_split(mlstm, timer, args, saved, dy):
+    """The mLSTM backward's four kernels under the profiler, 5 calls each
+    prepared as :meth:`Timer.ms` prepares one (the L2 flushed, then a
+    device-side wait while the host enqueues): device ms by kernel (the
+    mean over the launches the profiler reports: it has dropped a few of
+    the 20); a call's span, first kernel's start to last kernel's end,
+    and the device's idle ms inside it (means over the calls whose four
+    kernels it reports, told apart by the wait between calls); the
+    host's ms to enqueue a call (median)."""
     mlstm.mlstm_scan_bwd(*args, saved, dy)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
+    host = []
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(5):
+            timer.flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            t0 = time.perf_counter()
             mlstm.mlstm_scan_bwd(*args, saved, dy)
+            host.append(1e3 * (time.perf_counter() - t0))
         torch.cuda.synchronize()
-    split = {}
-    for name, (_, ms) in _device_kernels(prof).items():
-        m = re.search(r"mlstm_bwd_(\w+?)_kernel", name)
-        if m:
-            split[m.group(1)] = split.get(m.group(1), 0.0) + ms / 5
-    return split
+    durs, spans = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        m = re.search(r"mlstm_bwd_(\w+?)_kernel", ev.name())
+        if ev.device_type() == torch.autograd.DeviceType.CUDA and m:
+            durs.setdefault(m.group(1), []).append(ev.duration_ns() / 1e6)
+            spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    split = {k: statistics.mean(v) for k, v in durs.items()}
+    spans.sort()
+    # a call's kernels follow each other within microseconds; calls are
+    # a millisecond's wait apart
+    calls = [[spans[0]]]
+    for sp in spans[1:]:
+        if sp[0] - calls[-1][-1][1] > 300_000:
+            calls.append([])
+        calls[-1].append(sp)
+    whole = [c for c in calls if len(c) == 4] or [[(0, float("nan"))]]
+    span = statistics.mean(c[-1][1] - c[0][0] for c in whole) / 1e6
+    idle = statistics.mean(sum(b[0] - a[1] for a, b in zip(c, c[1:]))
+                           for c in whole) / 1e6
+    print(f"    profiler: {len(spans)} of 20 kernels reported, "
+          f"{sum(len(c) == 4 for c in calls)} of 5 calls whole")
+    return split, span, idle, statistics.median(host)
 
 
 # ---------------------------------------------------------------------------
@@ -1271,7 +1337,8 @@ KERNEL_RE = {"gemm": r"(^|::)gemm_kernel\b",
              "gemm_act": r"(^|::)gemm_act_kernel\b",
              # one call: the Q K^T kernel, then the chunkwise scan
              "mlstm_scan": r"(^|::)mlstm_(qk|scan)_kernel\b",
-             # one call: prep, the state pass, the gradients, the gates
+             # one call: prep, the state pass (dV), the gradients (dQ,
+             # dK), the gates
              "mlstm_scan_bwd":
                  r"(^|::)mlstm_bwd_(prep|state|grad|gate)_kernel\b"}
 # the prefill plan's executors on each path: the gated MLPs are served

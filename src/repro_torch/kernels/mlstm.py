@@ -57,17 +57,23 @@ the end-of-chunk state gradient dC (carried backward)::
     dC ← g_end·dC + dH̃ᵀ (gq∘Q)
 
 Four device kernels: a prep kernel per (chunk, head) forms the gates'
-weights, ``S∘D/den`` and ``dP∘D`` (fp32, L × L); a state pass runs the
-chunks backward, one block per 16 rows of dC, and writes each chunk's
-end-gradient; a gradient kernel per (64 columns, chunk, head) and output
-(dQ, dK or dV) takes the full Dh sum inside the block and writes its
-columns' share of the row dots; a gate kernel sums the shares in a fixed
-order and takes the reverse cumulative sum.  The same split-bf16 rule,
-no atomics: two launches are bit-identical.  :func:`bwd_schedule` gives
-the grids, footprints and scratch; :func:`chunkwise_bwd_model` the
-arithmetic on the CPU; :func:`repro_torch.kernels.ref.mlstm_bwd` is the
-plain version.  Bound: ``8·Dh² + 10·L·Dh`` operations a step and head,
-and the saved states read once (``PERF.md``).
+weights, ``(S∘D/den)ᵀ`` (fp32) and ``dP∘D`` (a bf16 pair), L × L each; a
+state pass, the forward's scan kernel run from the last chunk back with
+the tensors swapped (``dCᵀ ← g_end·dCᵀ + Qᵀ [gi∘dH̃ | gn]`` has the state
+update's shape, ``w∘(K dCᵀ)`` the inter-chunk product's and ``(S∘D)ᵀ
+dNum`` the intra-chunk one's), one block per 32 columns of dv of one
+head: it writes dV whole, and each chunk's end-gradient dC for dK, but
+not the last chunk's, which is zero; a gradient kernel per (64 columns,
+chunk, head) and output (dQ or dK) takes the full Dh sum inside the block
+through a TMA ring, the fp32 state tile split into a bf16 pair in
+registers as ``wgmma``'s A operand, and writes its columns' share of the
+row dots; a gate kernel sums the shares in a fixed order and takes the
+reverse cumulative sum.  The same split-bf16 rule, no atomics: two
+launches are bit-identical.  :func:`bwd_schedule` gives the grids,
+footprints and scratch; :func:`chunkwise_bwd_model` the arithmetic on
+the CPU, in the kernels' order; :func:`repro_torch.kernels.ref.mlstm_bwd`
+is the plain version.  Bound: ``8·Dh² + 10·L·Dh`` operations a step and
+head, and the saved states read once (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -95,10 +101,17 @@ MAX_STAGES = 8                    # Q/K ring stages the kernel can hold
 QK_STAGES = 4                     # the Q Kᵀ kernel's ring
 CHUNK_BUFFERS = 2                 # the gate scan runs a chunk ahead
 MAX_BH = 65535                    # (batch, head) pairs: grid dimension y
-# the backward: rows of dC a state-pass block owns, and columns a gradient
-# block owns of one of dQ, dK, dV
-BWD_ROWS = 16
+# the backward's gradient kernel: columns of dQ or dK a block owns, and
+# its ring's stages
 BWD_COLS = 64
+GRAD_STAGES = 3
+# the backward's state pass: one ring stage an owner.  Slot s is then
+# filled for owner s only, so an owner's parity wait, which knows only
+# that its own previous tile has landed, finds the slot's previous phase
+# complete whatever order TMA completes loads in.  At six stages a slot's
+# previous tile was another owner's, and the card gave other bits now and
+# then, then a launch failure; eight do not fit.
+BWD_STATE_STAGES = OWNERS
 
 
 def dk_tiles(head_dim: int) -> int:
@@ -371,40 +384,59 @@ def _launch(q, k, v, i_pre, f_pre, sched: Schedule, return_state: bool,
 
 def prep_smem_bytes() -> int:
     """Dynamic shared memory of one prep block (csrc/mlstm_bwd.cu:
-    prep_smem_bytes must agree): Q, K, dh and V tiles of 64 steps x 64
-    columns (bf16, rows padded by 8) and 16 fp32 arrays of L steps."""
-    return 4 * CHUNK * 72 * 2 + 16 * CHUNK * 4
+    prep_smem_bytes must agree): two stages of Q, K, dh and V tiles of 64
+    steps x 64 columns (bf16, rows padded by 8) and of h's (fp32, rows
+    padded by 4), and 16 fp32 arrays of L steps."""
+    return 2 * (4 * CHUNK * 72 * 2 + CHUNK * 68 * 4) + 16 * CHUNK * 4
 
 
-def state_smem_bytes(dh: int) -> int:
-    """... of one state-pass block: the chunk's Q (L rows of Dh + 8
-    bf16), the hi / lo pair of its 16 rows' weighted dh (16 x (L + 8)
-    bf16 each) and 4 fp32 arrays of L steps."""
-    return CHUNK * (dh + 8) * 2 + 2 * BWD_ROWS * (CHUNK + 8) * 2 \
-        + 4 * CHUNK * 4
+def _bwd_slot_bytes() -> int:
+    # a Q and a K tile (L rows x 64 columns, bf16) and the end-gradient's
+    # hi / lo pair for one 64-row tile of dCᵀ (32 columns of dC x 64, bf16)
+    return 2 * CHUNK * 128 + 2 * 32 * 128
+
+
+def _bwd_chunk_bytes() -> int:
+    # one chunk buffer: gi∘dh's hi and lo and dh (32 x L bf16 each, K-major
+    # [dv][t]), gn's hi / lo pair (8 x L), (S∘D/den)ᵀ (L rows of 64 + 8
+    # fp32), dh's 32 columns as loaded (L x 32 bf16) and the chunk's
+    # weights (gi, gn, w, g_end: 4 L fp32); 1 KB-aligned
+    raw = (3 * 32 * 128 + 1024 + CHUNK * 72 * 4 + CHUNK * 32 * 2
+           + 4 * CHUNK * 4)
+    return -(-raw // 1024) * 1024
+
+
+def bwd_state_smem_bytes(stages: int) -> int:
+    """... of one state-pass block (csrc/mlstm_bwd.cu: state_smem_bytes):
+    1 KB of alignment slack, the ring, the two chunk buffers and 256 B of
+    mbarriers; the same at every head dim."""
+    return (1024 + stages * _bwd_slot_bytes()
+            + CHUNK_BUFFERS * _bwd_chunk_bytes() + 256)
 
 
 def grad_smem_bytes() -> int:
-    """... of one gradient block: two stages of the Dh contraction (an
-    L x 64 bf16 tile, a 64 x 64 fp32 tile, rows padded), then the L x L
-    fp32 matrix and an L x 64 bf16 tile (in the same bytes), the row
-    weights and the n row (4 fp32 arrays of 64) and the row dots' warp
-    shares (4 x 64 fp32)."""
-    stage = CHUNK * 72 * 2 + 64 * 68 * 4
-    return 2 * stage + 4 * 64 * 4 + 4 * 64 * 4
+    """... of one gradient block: 1 KB of slack, GRAD_STAGES ring stages
+    (a 64-step x 64-column bf16 box of dh or V and a 64 x 64 fp32 tile of
+    the saved state or its gradient), the Q and K boxes and dS's bf16 pair
+    (L x L each), 7 fp32 arrays of 64 (the columns' scale, the rank-1
+    term's weight and values, the row dots' four warp shares) and 64 B of
+    mbarriers."""
+    return (1024 + GRAD_STAGES * 3 * CHUNK * 128 + 4 * CHUNK * 128
+            + 7 * 64 * 4 + 64)
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdSchedule:
     """What a backward call launches: the chunks, the column tiles of a
-    gradient block, each kernel's grid and shared memory, and its fp32
-    scratch: the end-gradient of each chunk's state (``grad_state``, the
-    size of the forward's saved states), each chunk's two L × L matrices
-    and weights (``chunk``), and the row dots' column shares
-    (``dots``)."""
+    gradient block, the state pass's ring depth, each kernel's grid and
+    shared memory, and its fp32 scratch: the end-gradient of each chunk's
+    state but the last (``grad_state``, zero at one chunk), each chunk's
+    two L × L matrices and weights (``chunk``), and the row dots' column
+    shares (``dots``)."""
     chunk: int
     n_chunks: int
     col_tiles: int
+    state_stages: int
     prep_grid: tuple[int, int]
     state_grid: tuple[int, int]
     grad_grid: tuple[int, int, int]
@@ -425,31 +457,28 @@ class BwdSchedule:
         g = self.grad_grid
         return (f"L={self.chunk}, prep {self.prep_grid[0]}x"
                 f"{self.prep_grid[1]}, state {self.state_grid[0]}x"
-                f"{self.state_grid[1]}, grad {g[0]}x{g[1]}x{g[2]}, gates "
-                f"{self.gate_grid}")
+                f"{self.state_grid[1]} ({self.state_stages} stages), grad "
+                f"{g[0]}x{g[1]}x{g[2]}, gates {self.gate_grid}")
 
 
 def bwd_schedule(b: int, h: int, t: int, dh: int) -> BwdSchedule:
     """The backward's launch for (B, H, T, Dh): prep blocks per (chunk,
-    head), state-pass blocks per 16 of dC's Dh + 1 rows and head,
-    gradient blocks per (64 columns x 3 outputs, chunk, head), one gate
-    block a head.  Refuses what :func:`schedule` refuses and a state pass
-    whose chunk of Q does not fit a block."""
+    head), state-pass blocks per 32 columns of dv and head, gradient
+    blocks per (64 columns x 2 outputs, chunk, head), one gate block a
+    head.  Refuses what :func:`schedule` refuses."""
     _check_shape(b, h, t, dh, "mlstm_scan_bwd")
     bh = b * h
     nc = -(-t // CHUNK)
     tiles = -(-dh // BWD_COLS)
-    st = state_smem_bytes(dh)
-    if st > SMEM_LIMIT:
-        raise ValueError(f"mlstm_scan_bwd: a state-pass block needs {st} B "
-                         f"of shared memory at Dh = {dh}")
+    stages = BWD_STATE_STAGES
     return BwdSchedule(
-        chunk=CHUNK, n_chunks=nc, col_tiles=tiles, prep_grid=(nc, bh),
-        state_grid=(-(-(dh + 1) // BWD_ROWS), bh),
-        grad_grid=(3 * tiles, nc, bh), gate_grid=bh,
-        prep_smem_bytes=prep_smem_bytes(), state_smem_bytes=st,
+        chunk=CHUNK, n_chunks=nc, col_tiles=tiles, state_stages=stages,
+        prep_grid=(nc, bh), state_grid=(dh // DV, bh),
+        grad_grid=(2 * tiles, nc, bh), gate_grid=bh,
+        prep_smem_bytes=prep_smem_bytes(),
+        state_smem_bytes=bwd_state_smem_bytes(stages),
         grad_smem_bytes=grad_smem_bytes(),
-        grad_state_bytes=4 * bh * nc * (dh + 1) * dh,
+        grad_state_bytes=4 * bh * (nc - 1) * (dh + 1) * dh,
         chunk_bytes=4 * bh * nc * (2 * CHUNK * CHUNK + 4 * CHUNK),
         dots_bytes=4 * bh * 2 * tiles * t)
 
@@ -683,13 +712,17 @@ def chunkwise_bwd_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m_prev: ``inv = 1/den``, ``dHn = −sign·(dh·h_fp32)/den`` (0 where
     the floor won), ``gi = gq·inv``, ``gn = gq·dHn``; ``S = Q Kᵀ`` and
     ``U = dh Vᵀ`` on the bf16 inputs; ``Pi = (S∘D)·inv``, ``dS = (inv·U
-    + dHn)∘D``.  The state pass from the last chunk, dC = 0:
-    ``dC ← g_end·dC + [gi∘dh | gn]ᵀ Q``.  Then per chunk, dC its
-    end-gradient and X its saved start state::
+    + dHn)∘D``.  The state pass walks the chunks from the last, dC = 0
+    there; at chunk c, dC its end-gradient, it forms::
+
+        dV = w∘(K dC[:Dh]ᵀ) + Piᵀ dh
+
+    keeps dC for dK unless c is the last chunk (dC is zero there), and
+    takes ``dC ← g_end·dC + [gi∘dh | gn]ᵀ Q``.  Then per chunk, X its
+    saved start state::
 
         dQ = gi∘(dh X[:Dh]) + gn ⊗ X[Dh] + dS K
-        dK = w∘(V dC[:Dh]) + w ⊗ dC[Dh] + dSᵀ Q
-        dV = w∘(K dC[:Dh]ᵀ) + Piᵀ dh
+        dK = w∘(V dC[:Dh]) + w ⊗ dC[Dh] + dSᵀ Q   (dSᵀ Q alone on the last)
 
     every fp32 operand of a product split into a bf16 hi/lo pair
     (``split=False``: rounded once), sums in fp32.  The gates from the
@@ -697,10 +730,53 @@ def chunkwise_bwd_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q·dq − k·dk over the whole sequence, df = σ(−f)·d log σ(f).  For the
     tests only."""
     b, h, t, d = q.shape
-    scale = d ** -0.5
     L = chunk
     nc = -(-t // L)
-    _, _, kept = _chunkwise(q, k, v, i_pre, f_pre, chunk, split)
+    per = _bwd_chunks(q, k, v, i_pre, f_pre, dh, L, split)
+    # the state pass, from the last chunk: dV, and the end-gradients
+    G = q.new_zeros((b, h, d + 1, d), dtype=torch.float32)
+    ends = [None] * nc
+    dq, dk, dv = (torch.empty((b, h, nc * L, d), dtype=torch.float32,
+                              device=q.device) for _ in range(3))
+    for c in reversed(range(nc)):
+        z = per[c]
+        sl = slice(c * L, (c + 1) * L)
+        dv[:, :, sl] = _sum_mm(z["K"], [x.transpose(-1, -2) for x in
+                                        _split(G[..., :d, :], split)]) \
+            * z["w"][..., None] + _mm(_split(z["Pi"].transpose(-1, -2),
+                                             split), z["dH"])
+        if c < nc - 1:
+            ends[c] = G
+        A = torch.cat([z["gi"][..., None] * z["dH"], z["gn"][..., None]], -1)
+        G = z["g_end"][..., None, None] * G + _mm(
+            [x.transpose(-1, -2) for x in _split(A, split)], z["Q"])
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L)
+        z = per[c]
+        X = z["X"]
+        gi, gn = z["gi"][..., None], z["gn"][..., None]
+        dq[:, :, sl] = _sum_mm(z["dH"], _split(X[..., :d, :], split)) * gi \
+            + gn * X[..., d:, :] + _mm(_split(z["dS"], split), z["K"])
+        dk[:, :, sl] = _grad_k(z, ends[c], split)
+    qf, kf = (F.pad(x.float(), (0, 0, 0, nc * L - t)) for x in (q, k))
+    qd = (qf * dq).sum(-1)[..., :t]
+    kd = (kf * dk).sum(-1)[..., :t]
+    dlf = torch.flip(torch.cumsum(torch.flip(qd - kd, [-1]), -1), [-1])
+    df = dlf * torch.sigmoid(-f_pre.float())
+    return (dq[:, :, :t].to(q.dtype), dk[:, :, :t].to(k.dtype),
+            dv[:, :, :t].to(v.dtype), kd, df)
+
+
+def _bwd_chunks(q, k, v, i_pre, f_pre, dh, L: int, split: bool
+                ) -> list[dict]:
+    """Per chunk what the prep kernel forms (and the operands the other
+    kernels read), for the forward :func:`chunkwise_model` runs with
+    ``split``: Q, K, V, dh and X (the saved start state) in fp32, the
+    weights w, g_end, gi, gn, and the L × L matrices Pi and dS."""
+    b, h, t, d = q.shape
+    scale = d ** -0.5
+    nc = -(-t // L)
+    _, _, kept = _chunkwise(q, k, v, i_pre, f_pre, L, split)
     qf, kf, vf, ig, lf = _padded(q, k, v, i_pre, f_pre, L)
     pad = nc * L - t
     dhf = F.pad(dh.float(), (0, 0, 0, pad))
@@ -717,8 +793,6 @@ def chunkwise_bwd_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         a, e = b_t - m_t, i_c - b_t
         gq = scale * torch.exp(b_t + m_prev[..., None] - m_t)
         b_end, m_end = b_t[..., -1], m_t[..., -1]
-        w = torch.exp(e + (b_end - m_end)[..., None])
-        g_end = torch.exp(b_end + m_prev - m_end)
         dn, sg = den[:, :, sl, 0], den[:, :, sl, 1]
         dH = dhf[:, :, sl]
         r = (dH * hf[:, :, sl]).sum(-1)
@@ -728,39 +802,26 @@ def chunkwise_bwd_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                   + e[..., None, :]), 0.0)
         S = Q @ K.transpose(-1, -2)
         U = dH @ V.transpose(-1, -2)
-        per.append(dict(Q=Q, K=K, V=V, dH=dH, w=w, g_end=g_end,
+        per.append(dict(Q=Q, K=K, V=V, dH=dH, X=kept["states"][:, :, c],
+                        w=torch.exp(e + (b_end - m_end)[..., None]),
+                        g_end=torch.exp(b_end + m_prev - m_end),
                         gi=gq * inv, gn=gq * dhn,
                         Pi=(S * D) * inv[..., None],
                         dS=(inv[..., None] * U + dhn[..., None]) * D))
-    # the state pass, from the last chunk
-    G = q.new_zeros((b, h, d + 1, d), dtype=torch.float32)
-    ends = [None] * nc
-    for c in reversed(range(nc)):
-        ends[c] = G
-        z = per[c]
-        A = torch.cat([z["gi"][..., None] * z["dH"], z["gn"][..., None]], -1)
-        G = z["g_end"][..., None, None] * G + _mm(
-            [x.transpose(-1, -2) for x in _split(A, split)], z["Q"])
-    dq, dk, dv = (torch.empty((b, h, nc * L, d), dtype=torch.float32,
-                              device=q.device) for _ in range(3))
-    for c in range(nc):
-        sl = slice(c * L, (c + 1) * L)
-        z, G = per[c], ends[c]
-        X = kept["states"][:, :, c]
-        gi, gn, w = z["gi"][..., None], z["gn"][..., None], z["w"][..., None]
-        dq[:, :, sl] = _sum_mm(z["dH"], _split(X[..., :d, :], split)) * gi \
-            + gn * X[..., d:, :] + _mm(_split(z["dS"], split), z["K"])
-        gs = _split(G[..., :d, :], split)
-        dk[:, :, sl] = _sum_mm(z["V"], gs) * w + w * G[..., d:, :] \
-            + _mm(_split(z["dS"].transpose(-1, -2), split), z["Q"])
-        dv[:, :, sl] = _sum_mm(z["K"], [x.transpose(-1, -2) for x in gs]) \
-            * w + _mm(_split(z["Pi"].transpose(-1, -2), split), z["dH"])
-    qd = (qf * dq).sum(-1)[..., :t]
-    kd = (kf * dk).sum(-1)[..., :t]
-    dlf = torch.flip(torch.cumsum(torch.flip(qd - kd, [-1]), -1), [-1])
-    df = dlf * torch.sigmoid(-f_pre.float())
-    return (dq[:, :, :t].to(q.dtype), dk[:, :, :t].to(k.dtype),
-            dv[:, :, :t].to(v.dtype), kd, df)
+    return per
+
+
+def _grad_k(z: dict, G: torch.Tensor | None, split: bool) -> torch.Tensor:
+    """A chunk's dK from its end-gradient G: ``w∘(V G[:Dh]) + w ⊗ G[Dh]
+    + dSᵀ Q``; with ``G=None`` (the last chunk, where G is zero) the last
+    term alone, as the gradient kernel runs it there."""
+    out = _mm(_split(z["dS"].transpose(-1, -2), split), z["Q"])
+    if G is None:
+        return out
+    d = G.shape[-1]
+    w = z["w"][..., None]
+    return _sum_mm(z["V"], _split(G[..., :d, :], split)) * w \
+        + w * G[..., d:, :] + out
 
 
 def _sum_mm(a: torch.Tensor, b_parts: list[torch.Tensor]) -> torch.Tensor:

@@ -747,7 +747,7 @@ def _on_a_fresh_thread(fn):
 
 
 @pytest.mark.parametrize("kernel", ["rg_lru_scan_bwd", "flash_attention_bwd",
-                                    "flash_attention"])
+                                    "flash_attention", "mlstm_scan_bwd"])
 def test_tensor_map_launchers_run_first_on_a_fresh_thread(dev, kernel):
     """A launcher that encodes TMA tensor maps, called first on a thread
     of its own, gives the bits it gives on the test's thread: the encoder
@@ -766,6 +766,15 @@ def test_tensor_map_launchers_run_first_on_a_fresh_thread(dev, kernel):
         def call(i):
             return rg_lru.rg_lru_scan_bwd(x, a, anchors, dh, sched=sched,
                                           **outs[i])
+    elif kernel == "mlstm_scan_bwd":
+        args, saved, dh = _mlstm_bwd_case(dev, 65, 1, 2, 200, 256)
+        sched = mlstm.bwd_schedule(1, 2, 200, 256)
+        outs = [dict(grads=tuple(torch.empty_like(t) for t in args),
+                     scratch=torch.empty((sched.scratch_bytes // 4,),
+                                         device=dev)) for _ in range(2)]
+
+        def call(i):
+            return mlstm.mlstm_scan_bwd(*args, saved, dh, **outs[i])
     else:
         q = _rand(dev, 61, 1, 8, 300, 128)
         k, v = _rand(dev, 62, 1, 2, 300, 128), _rand(dev, 63, 1, 2, 300, 128)
@@ -876,6 +885,10 @@ def test_mlstm_footprints_agree_with_the_launcher(dev):
                 for k in range(3)] == [s.prep_smem_bytes,
                                        s.state_smem_bytes,
                                        s.grad_smem_bytes]
+    assert s.state_smem_bytes == mlstm.bwd_state_smem_bytes(
+        mlstm.BWD_STATE_STAGES)
+    for dh in (0, 48, 1056):
+        assert _build.lib().rt_mlstm_bwd_smem_bytes(1, dh) == -1
 
 
 def _mlstm_bwd_case(dev, seed, b, h, t, dh):
@@ -902,6 +915,8 @@ MLSTM_BWD = [
     (1, 1, 7, 32),               # one partial chunk
     (3, 2, 64, 96),              # one whole chunk, a half column tile
     (1, 2, 129, 160),
+    (2, 3, 50, 320),             # one chunk: no end-gradient stored
+    (1, 2, 200, 544),            # Dh not a multiple of 256
 ]
 
 
@@ -938,6 +953,19 @@ def test_mlstm_bwd_two_launches_are_bit_identical(dev):
     g2 = mlstm.mlstm_scan_bwd(*args, saved, dh_)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_mlstm_bwd_is_bit_identical_over_many_launches(dev):
+    """200 launches at xlstm-1.3b's head dim over 8 chunks (the state
+    pass's chunk buffers reused, its ring cycled 32 times a block), each
+    the first's bits: a ring whose slots served another owner each time
+    gave other bits now and then, then a launch failure."""
+    args, saved, dh_ = _mlstm_bwd_case(dev, 39, 4, 4, 512, 1024)
+    first = mlstm.mlstm_scan_bwd(*args, saved, dh_)
+    for _ in range(199):
+        again = mlstm.mlstm_scan_bwd(*args, saved, dh_)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("b,h,t,dh", [(1, 2, 130, 128), (2, 1, 200, 96)])

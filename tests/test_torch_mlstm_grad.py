@@ -16,7 +16,10 @@ CPU.
   and di, df within 1e-3·max|g| + 1e-3·|g| (fp32: the row dots and the
   cumulative sum in another order than autodiff's).  Rounded once to
   bf16 instead of split into hi/lo pairs, the gates miss it.
-* ``mlstm.bwd_schedule``: footprints, grids, scratch and refusals.
+* ``mlstm.bwd_schedule``: footprints, grids, scratch and refusals; one
+  chunk keeps no end-gradient, and dropping the last chunk's (zero)
+  changes no bit of dK; the state pass and the gradient kernel's source
+  holds no ``mma.sync`` path.
 * The Function on CPU tensors runs the plain gradient; ``mlstm_block``
   with ``mlstm_chunk > 0`` and a reduced xlstm-1.3b train step with it
   against the reference's.
@@ -250,27 +253,93 @@ HEAD_DIMS = list(range(32, mlstm.MAX_HEAD_DIM + 1, 32))
 
 @pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_bwd_footprints_fit_a_block(dh):
+    """Every kernel fits a block at every head dim; the state pass's
+    footprint is the same at each: 1 KB of slack, one ring stage an owner
+    (four) of Q_j, K_j and G_j's pair (2·8 KB + 2·4 KB), two 36 KB chunk
+    buffers, 256 B of mbarriers (eight stages, two an owner, do not fit);
+    the gradient block's is small enough for two a streaming
+    multiprocessor."""
     s = mlstm.bwd_schedule(1, 4, 512, dh)
     for n in (s.prep_smem_bytes, s.state_smem_bytes, s.grad_smem_bytes):
         assert n <= mlstm.SMEM_LIMIT
-    assert s.state_smem_bytes == 64 * (dh + 8) * 2 + 2 * 16 * 72 * 2 + 1024
+    assert s.state_stages == mlstm.OWNERS == 4
+    assert s.state_smem_bytes == 1024 + 4 * 24_576 + 2 * 36_864 + 256
+    assert mlstm.bwd_state_smem_bytes(8) > mlstm.SMEM_LIMIT
+    assert 2 * (s.grad_smem_bytes + 1024) <= 233_472
     assert s.col_tiles == -(-dh // 64)
+    assert s.state_grid == (dh // 32, 4)
 
 
 def test_bwd_schedule_at_the_train_shape():
-    """(4, 4, 512, 1024): 8 chunks of 64; 65 state blocks a head (16 of
-    dC's 1025 rows each); 16 column tiles x 3 outputs; the end-gradients
-    as large as the saved states (0.54 GB)."""
+    """(4, 4, 512, 1024): 8 chunks of 64; 32 state-pass blocks a head
+    (32 columns of dv each), 4 ring stages; 16 column tiles x 2 outputs
+    (dQ, dK); the end-gradients of 7 of the 8 chunks (0.47 GB; the
+    last chunk's is zero and not stored)."""
     s = mlstm.bwd_schedule(4, 4, 512, 1024)
     assert (s.chunk, s.n_chunks, s.col_tiles) == (64, 8, 16)
-    assert s.prep_grid == (8, 16) and s.state_grid == (65, 16)
-    assert s.grad_grid == (48, 8, 16) and s.gate_grid == 16
+    assert s.state_stages == 4
+    assert s.prep_grid == (8, 16) and s.state_grid == (32, 16)
+    assert s.grad_grid == (32, 8, 16) and s.gate_grid == 16
     states = mlstm.saved_shapes(4, 4, 512, 1024)["states"]
-    assert s.grad_state_bytes == 4 * int(np.prod(states)) == 537_395_200
+    assert s.grad_state_bytes == 4 * int(np.prod(states)) * 7 // 8 \
+        == 470_220_800
     assert s.chunk_bytes == 4 * 16 * 8 * (2 * 64 * 64 + 4 * 64)
     assert s.dots_bytes == 4 * 16 * 2 * 16 * 512
-    assert s.label == ("L=64, prep 8x16, state 65x16, grad 48x8x16, gates "
-                       "16")
+    assert s.label == ("L=64, prep 8x16, state 32x16 (4 stages), grad "
+                       "32x8x16, gates 16")
+
+
+@pytest.mark.parametrize("t", [1, 37, 64])
+def test_bwd_schedule_of_one_chunk_keeps_no_end_gradient(t):
+    """T <= 64 is one chunk: its end-gradient is zero, so the state pass
+    stores none and dK reads none (``grad_state_bytes`` 0); the scratch
+    is the chunk's two L x L matrices, its weights and the row dots."""
+    s = mlstm.bwd_schedule(2, 3, t, 96)
+    assert s.n_chunks == 1 and s.grad_state_bytes == 0
+    assert s.grad_grid == (4, 1, 6)
+    assert s.scratch_bytes == 4 * 6 * (2 * 64 * 64 + 4 * 64) \
+        + 4 * 6 * 2 * 2 * t
+
+
+@pytest.mark.parametrize("t", [150, 64 * 3])
+def test_dropping_the_last_chunk_s_end_gradient_changes_no_bit(t):
+    """The last chunk's end-gradient is zero: dK there computed with it
+    (``w∘(V·0) + w ⊗ 0 + dSᵀ Q``) and without it (``dSᵀ Q`` alone, as the
+    gradient kernel runs it) are the same bits, ragged T or not, and the
+    model's dK over the last chunk is the latter."""
+    targs, tcot, _, _ = _bf16_case(1, 2, t, 32, 11)
+    per = mlstm._bwd_chunks(*targs, tcot, 64, True)
+    z = per[-1]
+    zero = torch.zeros(1, 2, 33, 32)
+    without = mlstm._grad_k(z, None, True)
+    assert torch.equal(mlstm._grad_k(z, zero, True), without)
+    assert without.abs().max() > 0
+    got = mlstm.chunkwise_bwd_model(*targs, tcot)[1]
+    last = 64 * (len(per) - 1)
+    assert torch.equal(got[:, :, last:],
+                       without[:, :, :t - last].to(torch.bfloat16))
+
+
+def test_state_pass_and_gradients_run_on_tma_and_wgmma():
+    """The state pass and the gradient kernel hold no warp-level
+    mma.sync, ldmatrix or cp.async path: their products are wgmma on
+    TMA-loaded tiles (only the prep kernel, about 5% of the call, stays
+    on mma.sync).  The state pass writes dV; the gradient kernel has two
+    roles."""
+    from pathlib import Path
+    src = (Path(mlstm.__file__).resolve().parent.parent / "csrc"
+           / "mlstm_bwd.cu").read_text()
+    start = src.index("mlstm_bwd_state_kernel(const")
+    end = src.index("mlstm_bwd_gate_kernel(const")
+    body = src[start:end]
+    for old in ("mma16816", "ldmatrix", "load_a(", "load_b_", "cp_async"):
+        assert old not in body, old
+    for part in ("tma_load_3d", "mbar_wait", "wgmma_n32<1>", "wgmma_n32_rs",
+                 "Wgmma<64, 0>::rs", "wgmma_n64_tss", "tma_store_3d",
+                 "p.dv +", "grad_block<0>", "grad_block<1>"):
+        assert part in body, part
+    assert "grad_block<2>" not in body
+    assert "mma16816" in src[:start]
 
 
 @pytest.mark.parametrize("b,h,t,dh", [
