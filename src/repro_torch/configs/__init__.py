@@ -15,6 +15,10 @@ _ARCH_MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "granite-20b": "granite_20b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "yi-6b": "yi_6b",
+    "qwen2-72b": "qwen2_72b",
 }
 
 ARCHS: tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -1,0 +1,19 @@
+"""yi-6b [dense] — 32L, d4096, 32H GQA kv=4, ff 11008, vocab 64000.
+Llama-architecture GQA.  [arXiv:2403.04652; hf]
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    head_dim=128,
+    mlp_act="silu",
+    mlp_gated=True,
+    rope_theta=5_000_000.0,
+)

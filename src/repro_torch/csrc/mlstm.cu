@@ -71,13 +71,17 @@
 //     of one warp on values passed by shuffles; b; the weights; w o V and
 //     w split into their pairs; V with its ones row) into one of two
 //     chunk buffers, a chunk ahead.
-//     The ring must be at least as deep as the four owners: an owner
-//     waits on its slot's full barrier by phase parity, and before tile nt
-//     it knows only that its own tile nt - 4 has landed.  With fewer than
-//     four stages the slot's previous tile, nt - stages > nt - 4, may not
-//     have landed yet; the barrier is then one phase behind, its parity
-//     matches the wait's, and the wait passes on a slot TMA is still
-//     filling (this faulted on the card at two and three stages).
+//     The ring's depth is a multiple of the four owners (four: eight do
+//     not fit), so that slot s only ever holds owner s mod 4's tiles (tile
+//     nt belongs to owner nt mod 4).  An owner waits on its slot's full
+//     barrier by phase parity, which is sound only if the slot's previous
+//     tile was its own, one it has waited for: with any other depth the
+//     slot's previous tile is another owner's, TMA may complete it after
+//     the waiting owner's own, the barrier is then a phase behind with
+//     the parity waited for, and the wait passes on a slot TMA is still
+//     filling (at six stages the backward's state pass, this kernel's
+//     shape, gave other bits and then a launch failure on the card; two
+//     and three stages faulted here).
 //   Registers bound the slice: 64 accumulators a thread at Dh = 1024;
 //   setmaxnreg gives the owners 96, the output group 64 and the aux 32.
 //   (A 128-step chunk was slower at every measured shape: PERF.md.)
@@ -492,9 +496,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < MTO; ++i) {
         const int nt = c * MTP + wg + OWNERS * i;
         const int slot = nt % p.stages;
-        // sound only with stages >= OWNERS: tile nt - stages, the slot's
-        // previous use, must have landed (this owner's nt - 4 has), or a
-        // barrier one phase behind shows the parity waited for
+        // sound only with stages a multiple of OWNERS: tile nt - stages,
+        // the slot's previous use, is then this owner's own and has
+        // landed, or a barrier one phase behind shows the parity waited
+        // for
         rt::mbar_wait(&full[slot], (nt / p.stages) & 1);
         uint8_t* st = ring + slot * C::SLOT;
         uint8_t* phi = st + 2 * C::TILE;
@@ -812,7 +817,8 @@ extern "C" int rt_mlstm_scan(const void* q, const void* k, const void* v,
                              int T, int Dh, int stages, void* stream) {
   if (BH <= 0 || BH > 65535 || T <= 0 || Dh <= 0 || Dh % DV ||
       Dh > 1024 ||
-      stages < OWNERS ||  // the owners' parity waits (see the source note)
+      stages < OWNERS || stages % OWNERS ||  // the owners' parity waits
+                                             // (see the source note)
       stages > MAX_STAGES || Cfg<64>::smem_bytes(stages) > 232448 ||
       (c != nullptr && (n == nullptr || m == nullptr)) ||
       (xs != nullptr && (ms == nullptr || hf == nullptr || dn == nullptr)))

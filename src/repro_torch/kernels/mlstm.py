@@ -105,12 +105,13 @@ MAX_BH = 65535                    # (batch, head) pairs: grid dimension y
 # its ring's stages
 BWD_COLS = 64
 GRAD_STAGES = 3
-# the backward's state pass: one ring stage an owner.  Slot s is then
-# filled for owner s only, so an owner's parity wait, which knows only
-# that its own previous tile has landed, finds the slot's previous phase
-# complete whatever order TMA completes loads in.  At six stages a slot's
-# previous tile was another owner's, and the card gave other bits now and
-# then, then a launch failure; eight do not fit.
+# the backward's state pass: one ring stage an owner, as the forward's
+# scan (stages_for).  Slot s is then filled for owner s only, so an
+# owner's parity wait, which knows only that its own previous tile has
+# landed, finds the slot's previous phase complete whatever order TMA
+# completes loads in.  At six stages a slot's previous tile was another
+# owner's, and the card gave other bits now and then, then a launch
+# failure; eight do not fit.
 BWD_STATE_STAGES = OWNERS
 
 
@@ -145,17 +146,23 @@ def smem_bytes_for(stages: int) -> int:
 
 
 def stages_for() -> int:
-    """The ring's depth: as many stages as fit, at most MAX_STAGES (7).
-    The kernel takes no fewer than :data:`OWNERS`.  Each owner warpgroup
-    waits on a slot's full barrier by phase parity, and before its tile nt
-    it knows only that its own tile nt − 4 has landed.  With fewer stages
-    than owners the slot's previous tile, nt − stages > nt − 4, may not
-    have landed: the barrier is one phase behind, shows the parity waited
-    for, and the owner reads a slot that TMA is still filling (at two and
-    three stages this faulted on the card)."""
-    n = MAX_STAGES
+    """The ring's depth: the largest multiple of :data:`OWNERS` that fits,
+    at most MAX_STAGES (4: eight do not fit).  Each owner warpgroup waits
+    on a slot's full barrier by phase parity, which is sound only if the
+    slot's previous tile was the owner's own: the owner has waited for
+    it, so the barrier cannot be a phase behind.  An owner's tiles are
+    every fourth (tile nt belongs to owner nt mod 4), so with a multiple
+    of four stages slot s only ever holds owner s mod 4's tiles.  With
+    any other depth a slot serves the owners in turn, and an owner knows
+    only that its own earlier tile has landed, not the other owner's tile
+    the slot held before: if TMA completes that one later, the wait sees
+    the parity it waits for a phase early and reads a slot TMA is still
+    filling (the backward's state pass, the same kernel shape, gave other
+    bits and then a launch failure at six stages on the card; this
+    kernel faulted at two and three)."""
+    n = MAX_STAGES - MAX_STAGES % OWNERS
     while smem_bytes_for(n) > SMEM_LIMIT:
-        n -= 1
+        n -= OWNERS
     assert n >= OWNERS, n
     return n
 

@@ -600,8 +600,14 @@ def serving_ftl_mode(cfg) -> str:
     ``cuda_partial_mlp`` (``gemm_act``, then ``gemm``) at every prefill
     bucket on the card.  ``'fused'`` for a gated one: the partial kernels
     take no gate, and under ``'auto'`` the planner would leave the gated
-    MLP to ``torch_partial_scan_mlp`` (ROADMAP, finding 2).  ``'off'``
-    for a stack with no MLP (xLSTM): there is nothing to plan."""
+    MLP to ``torch_partial_scan_mlp`` (ROADMAP, finding 2).  A MoE
+    config's shared experts are one gated MLP, run outside any plan with
+    the config's mode (as the reference's ``moe_layer`` runs them), so a
+    gated shared MLP takes ``'fused'`` too: the fused-MLP kernel at M =
+    the tokens routed together.  ``'off'`` for a stack with no MLP
+    (xLSTM; a MoE without shared experts): there is nothing to fuse."""
+    if cfg.is_moe:
+        return "fused" if cfg.shared_d_ff and cfg.mlp_gated else "off"
     if not cfg.d_ff:
         return "off"
     return "fused" if cfg.mlp_gated else "auto"

@@ -101,7 +101,8 @@ def build(args, cfg: ModelConfig | None = None) -> TrainLoop:
         step, make_batch, state,
         on_metrics=lambda s, m: print(
             f"step {s:6d} loss {m.get('loss', float('nan')):.4f} "
-            f"gnorm {m.get('grad_norm', 0):.3f} lr {m.get('lr', 0):.2e}",
+            f"gnorm {m.get('grad_norm', 0):.3f} lr {m.get('lr', 0):.2e}"
+            + (f" moe_aux {m['moe_aux']:.4f}" if "moe_aux" in m else ""),
             flush=True),
     )
     loop.block_plan = bp

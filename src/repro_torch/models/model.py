@@ -4,6 +4,8 @@
   ssm    — xLSTM: mLSTM blocks with every ``slstm_every``-th an sLSTM; no
            separate MLP (the projections live inside the block)
   hybrid — recurrentgemma: (rec, rec, local-attn) pattern + MLP each layer
+  moe    — the dense stack with each MLP replaced by a capacity-routed MoE
+           (+ its load-balance aux loss, summed over the layers in fp32)
 
 Layers are grouped into *pattern periods* as in the reference
 ``repro.models.model``: the params of each position-in-period are stacked
@@ -13,8 +15,8 @@ over the same stacked tensors.  Layers that do not fill a whole period
 (recurrentgemma: 38 = 12×3 + 2) are applied after the loop, from
 ``params["rem"]`` / ``cache["rem"]``; a stack shorter than one period
 (``xlstm-1.3b.reduced()``: 4 layers, period 8) has zero whole periods
-and only those.  Cross-attention, MoE FFNs and encoder–decoder configs
-are not ported yet and raise.  A pure-SSM stack has no plannable block:
+and only those.  Cross-attention and encoder–decoder configs are not
+ported yet and raise.  A pure-SSM stack has no plannable block:
 its plans are None, as in the reference.
 
 The serving plan machinery (``PREFILL_BUCKETS``, :func:`bucket_m`,
@@ -48,6 +50,7 @@ from repro_torch.models.layers import (
     mlp_layer,
     norm,
 )
+from repro_torch.models.moe import init_moe, moe_layer
 
 Params = dict[str, Any]
 
@@ -77,12 +80,12 @@ _KV_KINDS = {"attn", "local"}
 
 
 def _check_supported(cfg) -> None:
-    if cfg.is_encoder_decoder or cfg.is_moe or \
+    if cfg.is_encoder_decoder or \
             set(period_kinds(cfg)) - _KV_KINDS - _SELF_NORMED:
         raise NotImplementedError(
             f"{cfg.name!r} ({cfg.family}) needs layers the port does not "
-            f"have yet: it serves decoder-only attention, RG-LRU and xLSTM "
-            f"(mLSTM/sLSTM) stacks")
+            f"have yet: it serves decoder-only attention (dense or MoE), "
+            f"RG-LRU and xLSTM (mLSTM/sLSTM) stacks")
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -106,7 +109,8 @@ def tree_leaves(tree) -> list:
 
 def _init_layer(cfg, gen: torch.Generator, kind: str, device: torch.device,
                 lead: tuple[int, ...] = ()) -> Params:
-    """One attention or recurrent layer (+ MLP), stacked along ``lead``."""
+    """One attention or recurrent layer (+ MLP or MoE), stacked along
+    ``lead``."""
     dt = torch_dtype(cfg.dtype)
     if kind in _KV_KINDS:
         p: Params = {"ln1": init_norm(cfg.d_model, cfg.norm, dt, device,
@@ -116,7 +120,10 @@ def _init_layer(cfg, gen: torch.Generator, kind: str, device: torch.device,
         p = {"mix": MIXERS[kind].init(cfg, gen, dt, device, lead)}
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
-    if cfg.d_ff:
+    if cfg.is_moe:
+        p["ln2"] = init_norm(cfg.d_model, cfg.norm, dt, device, lead)
+        p["moe"] = init_moe(cfg, gen, dt, device, lead=lead)
+    elif cfg.d_ff:
         p["ln2"] = init_norm(cfg.d_model, cfg.norm, dt, device, lead)
         p["mlp"] = init_mlp(cfg, gen, dt, device, lead=lead)
     return p
@@ -126,12 +133,19 @@ def _window(cfg, kind: str) -> int | None:
     return cfg.local_window if kind == "local" else None
 
 
-def _apply_ffn(cfg, p: Params, x: torch.Tensor, plan=None) -> torch.Tensor:
-    """The MLP's residual delta; ``plan`` routes it through its BlockPlan
-    binding (serving's phase-split plans), None re-resolves."""
-    if "mlp" not in p:
-        return torch.zeros_like(x)
-    return mlp_layer(cfg, p["mlp"], norm(p["ln2"], x, cfg.norm), plan=plan)
+def _apply_ffn(cfg, p: Params, x: torch.Tensor, plan=None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The MLP's or MoE's residual delta and the router's aux loss (an
+    fp32 scalar; None without a router, so that a dense layer launches
+    nothing for it); ``plan`` routes an MLP through its BlockPlan binding
+    (serving's phase-split plans), None re-resolves.  A MoE takes no plan,
+    as in the reference."""
+    if "moe" in p:
+        return moe_layer(cfg, p["moe"], norm(p["ln2"], x, cfg.norm))
+    if "mlp" in p:
+        return mlp_layer(cfg, p["mlp"], norm(p["ln2"], x, cfg.norm),
+                         plan=plan), None
+    return torch.zeros_like(x), None
 
 
 def _apply_mixer(cfg, p: Params, kind: str, x: torch.Tensor, *,
@@ -144,15 +158,18 @@ def _apply_mixer(cfg, p: Params, kind: str, x: torch.Tensor, *,
 
 
 def _apply_layer(cfg, p: Params, kind: str, x: torch.Tensor, *,
-                 positions: torch.Tensor, plan=None) -> torch.Tensor:
-    """Pre-norm residual layer (full sequence)."""
+                 positions: torch.Tensor, plan=None
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Pre-norm residual layer (full sequence): (x, the router's aux loss
+    or None, as :func:`_apply_ffn`)."""
     if plan is not None and kind in _KV_KINDS and "mlp" in p:
         # BlockPlan-driven: projections, attention core and MLP dispatch
         # through their bound executors (registry.run_block)
         return block_layer(cfg, p, x, positions=positions, plan=plan,
-                           window=_window(cfg, kind))
+                           window=_window(cfg, kind)), None
     x = x + _apply_mixer(cfg, p, kind, x, positions=positions)
-    return x + _apply_ffn(cfg, p, x)
+    d, aux = _apply_ffn(cfg, p, x)
+    return x + d, aux
 
 
 # ===========================================================================
@@ -329,9 +346,10 @@ def _layers(cfg, params: Params):
 
 def layer_stream(cfg, params: Params, tokens: torch.Tensor, plan=None):
     """The eval forward's residual stream, one layer at a time: yields
-    ``(kind, layer params, x_in, x_out)`` for every layer in order, from
-    the embedded ``tokens`` (B, S).  ``forward`` is the last ``x_out``
-    through the final norm and the unembedding."""
+    ``(kind, layer params, x_in, x_out, aux)`` for every layer in order,
+    from the embedded ``tokens`` (B, S); ``aux`` is the layer's router aux
+    loss (fp32; None without a router).  ``forward`` is the last ``x_out``
+    through the final norm and the unembedding, and the sum of ``aux``."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, tokens)
     # cfg.remat under autograd: each layer keeps only its input and runs
@@ -341,8 +359,9 @@ def layer_stream(cfg, params: Params, tokens: torch.Tensor, plan=None):
     for kind, p in _layers(cfg, params):
         layer = functools.partial(_apply_layer, cfg, p, kind,
                                   positions=positions, plan=plan)
-        y = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-        yield kind, p, x, y
+        y, aux = (checkpoint(layer, x, use_reentrant=False) if remat
+                  else layer(x))
+        yield kind, p, x, y, aux
         x = y
 
 
@@ -352,10 +371,14 @@ def forward(cfg, params: Params, batch: dict[str, torch.Tensor]
     _check_supported(cfg)
     tokens = batch["tokens"]
     plan = _block_plan(cfg, tokens.shape[1], cfg.dtype, device=tokens.device)
-    for _, _, _, x in layer_stream(cfg, params, tokens, plan):
-        pass
+    # the layers' aux summed in fp32 in layer order, as the reference's
+    # scan carry sums it
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for _, _, _, x, a in layer_stream(cfg, params, tokens, plan):
+        if a is not None:
+            aux = aux + a
     x = norm(params["final_norm"], x, cfg.norm)
-    return _unembed(cfg, params, x), torch.zeros((), device=x.device)
+    return _unembed(cfg, params, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +400,7 @@ def _layer_prefill(cfg, p: Params, kind: str, x: torch.Tensor, *,
                                      causal=True, window=_window(cfg, kind),
                                      pad_to=max_seq, length=length)
     x = x + o
-    return x + _apply_ffn(cfg, p, x, plan=plan), cache
+    return x + _apply_ffn(cfg, p, x, plan=plan)[0], cache
 
 
 def _layer_decode(cfg, p: Params, kind: str, x: torch.Tensor,
@@ -390,7 +413,7 @@ def _layer_decode(cfg, p: Params, kind: str, x: torch.Tensor,
         o, cache = attention_decode(cfg, p["attn"], h, cache, pos,
                                     window=_window(cfg, kind))
     x = x + o
-    return x + _apply_ffn(cfg, p, x, plan=plan), cache
+    return x + _apply_ffn(cfg, p, x, plan=plan)[0], cache
 
 
 def _init_layer_cache(cfg, kind: str, batch: int, seq: int,

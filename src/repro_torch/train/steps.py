@@ -70,11 +70,17 @@ def init_train_state(cfg, generator: torch.Generator | int = 0, *,
 
 def make_loss_fn(cfg) -> Callable:
     """``loss_fn(params, batch) -> (loss, aux)``: next-token cross entropy
-    of ``forward`` with a 1e-4 z-loss, as the reference's."""
+    of ``forward`` with a 1e-4 z-loss, as the reference's; a MoE config
+    adds ``router_aux_weight`` times the layers' summed router aux loss
+    and reports that sum as ``moe_aux``."""
     def loss_fn(params: Params, batch: dict):
-        logits, _ = M.forward(cfg, params, batch)
+        logits, moe_aux = M.forward(cfg, params, batch)
         labels = batch["tokens"][:, 1:]
-        return cross_entropy(logits[:, :-1], labels, z_loss=1e-4)
+        loss, aux = cross_entropy(logits[:, :-1], labels, z_loss=1e-4)
+        if cfg.is_moe:
+            loss = loss + cfg.router_aux_weight * moe_aux
+            aux["moe_aux"] = moe_aux
+        return loss, aux
 
     return loss_fn
 

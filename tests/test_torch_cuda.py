@@ -336,6 +336,12 @@ def test_flash_smem_bytes_match_the_launcher(dev):
     (65, 64, 192, 72, True, False, "relu"),
     (256, 3072, 8192, 3072, True, False, "silu"),   # a prefill bucket
     (4, 4096, 12288, 4096, True, False, "gelu"),    # recurrentgemma decode
+    # qwen2-moe-a2.7b's shared experts (decode, a bucket) and
+    # moonshot-v1-16b-a3b's
+    (4, 2048, 5632, 2048, True, False, "silu"),
+    (1024, 2048, 5632, 2048, True, False, "silu"),
+    (4, 2048, 2816, 2048, True, False, "silu"),
+    (256, 2048, 2816, 2048, True, False, "silu"),
 ])
 def test_fused_mlp(dev, m, k, f, n, gated, bias, act):
     x = _rand(dev, 5, m, k)
@@ -968,6 +974,34 @@ def test_mlstm_bwd_is_bit_identical_over_many_launches(dev):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize("train", [False, True], ids=["serving", "training"])
+def test_mlstm_scan_is_bit_identical_over_many_launches(dev, train):
+    """200 launches with state at xlstm-1.3b's head dim over 8 chunks
+    (the ring cycled 32 times a block), each the first's bits, in the
+    serving build and in the training build (its saved tensors too): a
+    ring whose slots served another owner each time gave the backward's
+    state pass other bits now and then, then a launch failure."""
+    b, h, t, dh = 4, 4, 512, 1024
+    args = _mlstm_inputs(dev, 41, b, h, t, dh)
+    sched = mlstm.schedule(b, h, t, dh)
+    assert sched.stages % mlstm.OWNERS == 0
+
+    def run():
+        saved = ({n: torch.empty(sh, device=dev) for n, sh in
+                  mlstm.saved_shapes(b, h, t, dh).items()} if train
+                 else None)
+        out, st = mlstm.run_schedule(*args, sched, return_state=True,
+                                     saved=saved)
+        return [out, st["C"], st["n"], st["m"],
+                *(saved.values() if train else ())]
+
+    first = run()
+    for _ in range(199):
+        again = run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 @pytest.mark.parametrize("b,h,t,dh", [(1, 2, 130, 128), (2, 1, 200, 96)])
 def test_mlstm_training_forward_saves_the_model_s_tensors(dev, b, h, t, dh):
     """The training build's h is the serving build's, bit for bit, and
@@ -1069,3 +1103,44 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         mlstm.mlstm_scan(q, q, q, gate[..., :4], gate[..., :4])
     with pytest.raises(ValueError):                 # not contiguous
         mlstm.mlstm_scan(q.transpose(1, 2), q, q, gate, gate)
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+def test_moe_layer_on_the_card_matches_the_cpu(dev):
+    """One qwen2-moe-a2.7b layer at full width (60 experts of 1408, top-4,
+    the 5632-wide shared MLP on the fused-MLP kernel) on 256 tokens, bf16,
+    against the same layer on the CPU (the plain fused MLP): the fp32
+    router's choices compared (token, slot) by (token, slot), at most 1%
+    swapped (a near tie may fall either way after the card's fp32
+    product), and y, on the tokens whose choices agree, within the bf16
+    rule; the kernel launched once, the aux within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import tree_map
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              ftl_mode="fused")
+    p = moe.init_moe(cfg, torch.Generator().manual_seed(0), torch.bfloat16,
+                     torch.device("cpu"))
+    x = (torch.randn((1, 256, cfg.d_model),
+                     generator=torch.Generator().manual_seed(1))
+         ).to(torch.bfloat16)
+    pd = tree_map(lambda t: t.to(dev), p)
+    before = fused_mlp.launches
+    y, aux = moe.moe_layer(cfg, pd, x.to(dev))
+    assert fused_mlp.launches == before + 1
+    want, want_aux = moe.moe_layer(cfg, p, x)
+    _, _, idx = moe.route(cfg, pd, x.to(dev).reshape(1, 256, -1))
+    _, _, want_idx = moe.route(cfg, p, x.reshape(1, 256, -1))
+    same = (idx.cpu() == want_idx)[0]
+    assert float((~same).float().mean()) <= 0.01
+    rows = same.all(-1)
+    o, w = y.float().cpu()[0][rows], want.float()[0][rows]
+    assert bool(((o - w).abs() <= 2e-2 + 2e-2 * w.abs()).all()), \
+        float((o - w).abs().max())
+    assert abs(float(aux) - float(want_aux)) <= 1e-4

@@ -30,14 +30,40 @@ def test_every_footprint_fits_a_block(dh):
 
 
 def test_the_ring_is_as_deep_as_shared_memory_allows():
-    """As deep as fits, and never shallower than the four owner
-    warpgroups (an owner's parity wait is sound only then; see
-    ``stages_for``), beside two chunk buffers."""
+    """The deepest multiple of the four owner warpgroups that fits (an
+    owner's parity wait is sound only when each slot holds one owner's
+    tiles; see ``stages_for``), beside two chunk buffers."""
     stages = mlstm.stages_for()
-    assert stages == 7 >= mlstm.OWNERS
+    assert stages % mlstm.OWNERS == 0 and stages >= mlstm.OWNERS
+    assert stages == 4 == mlstm.BWD_STATE_STAGES
     assert mlstm.CHUNK_BUFFERS == 2
     assert mlstm.smem_bytes_for(stages) <= mlstm.SMEM_LIMIT
-    assert mlstm.smem_bytes_for(stages + 1) > mlstm.SMEM_LIMIT
+    assert mlstm.smem_bytes_for(stages + mlstm.OWNERS) > mlstm.SMEM_LIMIT
+
+
+def test_each_ring_slot_serves_one_owner():
+    """Tile nt of a chunk's round belongs to owner nt mod 4 (every
+    fourth tile, ``dk_tiles`` a multiple of four), and the ring's slot of
+    tile nt is nt mod stages: at the chosen depth every slot holds one
+    owner's tiles only, at six (a depth that fits) slots change owner."""
+    s = mlstm.schedule(1, 4, 256, 1024)
+    tiles = s.n_chunks * s.dk_tiles
+    owner = {}
+    for c in range(s.n_chunks):
+        for w in range(mlstm.OWNERS):
+            for i in range(s.tiles_per_owner):
+                owner[c * s.dk_tiles + w + mlstm.OWNERS * i] = w
+    assert sorted(owner) == list(range(tiles))
+
+    def owners_of_slots(stages):
+        slots = {}
+        for nt, w in owner.items():
+            slots.setdefault(nt % stages, set()).add(w)
+        return slots
+
+    assert all(len(w) == 1 for w in owners_of_slots(s.stages).values())
+    assert mlstm.smem_bytes_for(6) <= mlstm.SMEM_LIMIT
+    assert any(len(w) > 1 for w in owners_of_slots(6).values())
 
 
 @pytest.mark.parametrize("t", BUCKETS)
@@ -90,4 +116,4 @@ def test_schedule_refuses_what_the_kernel_does_not_take(b, h, t, dh):
 
 def test_label_names_the_chunk_stages_and_grids():
     assert mlstm.schedule(1, 4, 2048, 1024).label == \
-        "L=64, 7 stages, grid 32x4 + qk 128"
+        "L=64, 4 stages, grid 32x4 + qk 128"

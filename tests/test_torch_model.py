@@ -1,10 +1,11 @@
 """The port's model against the JAX package's on the same weights.
 
-``llama3.2-3b.reduced()`` in fp32: the JAX ``init_params`` tree goes
-through ``params_from_numpy``; ``forward``, ``prefill`` (with
-``last_pos``) and ``decode_step`` (with a vector ``pos``) give the same
-logits within 1e-4, and the same KV caches.  Both sides plan on the same
-explicit default target.
+The dense configs' ``.reduced()`` in fp32 (llama3.2-3b, yi-6b, and
+qwen2-72b with its QKV bias): the JAX ``init_params`` tree goes through
+``params_from_numpy``; ``forward``, ``prefill`` (with ``last_pos``) and
+``decode_step`` (with a vector ``pos``) give the same logits within
+1e-4, and the same KV caches.  Both sides plan on the same explicit
+default target.
 """
 import dataclasses
 
@@ -26,11 +27,17 @@ from repro_torch.core import hw as thw  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+DENSE = ["llama3.2-3b", "yi-6b", "qwen2-72b"]
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def arch(request):
+    return request.param
 
 
 @pytest.fixture(scope="module")
-def weights():
-    jcfg = dataclasses.replace(jconfigs.get_config("llama3.2-3b").reduced(),
+def weights(arch):
+    jcfg = dataclasses.replace(jconfigs.get_config(arch).reduced(),
                                remat=False)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     return jp, jax.tree.map(np.asarray, jp)
@@ -45,10 +52,10 @@ def same_target():
     thw.set_default_target(None)
 
 
-def _cfgs(mode):
-    return (dataclasses.replace(jconfigs.get_config("llama3.2-3b").reduced(),
+def _cfgs(mode, arch="llama3.2-3b"):
+    return (dataclasses.replace(jconfigs.get_config(arch).reduced(),
                                 remat=False, ftl_mode=mode),
-            dataclasses.replace(tconfigs.get_config("llama3.2-3b").reduced(),
+            dataclasses.replace(tconfigs.get_config(arch).reduced(),
                                 remat=False, ftl_mode=mode))
 
 
@@ -60,9 +67,9 @@ def _close(t, j):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
 
 
-def test_param_tree_matches_reference_structure(weights):
+def test_param_tree_matches_reference_structure(weights, arch):
     jnp_tree = weights[1]
-    _, tcfg = _cfgs("off")
+    _, tcfg = _cfgs("off", arch)
     tp = TM.init_params(tcfg, 0, device="cpu")
     flat = lambda t: {k: v.shape for k, v in _flatten(t)}  # noqa: E731
     assert flat(tp) == flat(jnp_tree)
@@ -95,9 +102,9 @@ def test_init_scales_follow_the_reference():
 
 
 @pytest.mark.parametrize("mode", ["off", "auto", "fused"])
-def test_forward_matches_reference(weights, mode):
+def test_forward_matches_reference(weights, arch, mode):
     jp, npp = weights
-    jcfg, tcfg = _cfgs(mode)
+    jcfg, tcfg = _cfgs(mode, arch)
     toks = _tokens(2, 16, jcfg.vocab_size)
     jl, _ = JM.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
     tl, _ = TM.forward(tcfg, params_from_numpy(npp, "cpu"),
@@ -106,10 +113,10 @@ def test_forward_matches_reference(weights, mode):
 
 
 @pytest.mark.parametrize("mode", ["off", "fused"])
-def test_prefill_and_vector_decode_match_reference(weights, mode):
+def test_prefill_and_vector_decode_match_reference(weights, arch, mode):
     jp, npp = weights
     tp = params_from_numpy(npp, "cpu")
-    jcfg, tcfg = _cfgs(mode)
+    jcfg, tcfg = _cfgs(mode, arch)
     toks = _tokens(2, 16, jcfg.vocab_size, seed=1)
     # bucket-padded prompt: the real last token sits at index 10
     jl, jc = JM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, max_seq=32,
@@ -133,10 +140,10 @@ def test_prefill_and_vector_decode_match_reference(weights, mode):
         pos = pos + 1
 
 
-def test_scalar_decode_matches_reference(weights):
+def test_scalar_decode_matches_reference(weights, arch):
     jp, npp = weights
     tp = params_from_numpy(npp, "cpu")
-    jcfg, tcfg = _cfgs("off")
+    jcfg, tcfg = _cfgs("off", arch)
     toks = _tokens(1, 8, jcfg.vocab_size, seed=2)
     _, jc = JM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, max_seq=16)
     _, tc = TM.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)},
@@ -177,16 +184,26 @@ def test_local_window_prefill_and_decode_match_reference():
 
 
 def test_unported_families_raise():
-    """MoE FFNs and encoder–decoder configs are not ported (the ssm family
-    this test used is, since the xLSTM slice)."""
+    """Encoder–decoder configs are not ported (the ssm family this test
+    used is, since the xLSTM slice, and MoE since the MoE slice)."""
     base = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
                 vocab_size=16, dtype="float32")
-    for cfg in (tconfigs.ModelConfig(name="moe", family="moe", d_ff=0,
-                                     n_experts=4, moe_d_ff=16, **base),
-                tconfigs.ModelConfig(name="audio", family="audio", d_ff=64,
-                                     is_encoder_decoder=True, **base)):
-        with pytest.raises(NotImplementedError):
-            TM.init_params(cfg, 0, device="cpu")
+    cfg = tconfigs.ModelConfig(name="audio", family="audio", d_ff=64,
+                               is_encoder_decoder=True, **base)
+    with pytest.raises(NotImplementedError):
+        TM.init_params(cfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",
+                                  "yi-6b", "qwen2-72b"])
+def test_new_configs_match_reference(name):
+    """The port's copies of the MoE and remaining dense configs equal the
+    reference's, and build at ``.reduced()``."""
+    assert dataclasses.asdict(tconfigs.get_config(name)) == \
+        dataclasses.asdict(jconfigs.get_config(name))
+    cfg = tconfigs.get_config(name).reduced()
+    p = TM.init_params(cfg, 0, device="cpu")
+    assert ("moe" in p["layers"]["pos0"]) == cfg.is_moe
 
 
 def test_bucket_m_ladder():

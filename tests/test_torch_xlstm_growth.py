@@ -148,8 +148,8 @@ def walk(reduced: bool = False, s: int = 32, n_dec: int = 4,
                                            kind))
         tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
         ja, jb = jx.apply[kind](jp, ja), jx.apply[kind](jp, jb)
-        ta = TM._apply_layer(tcfg, tp, kind, ta, positions=tpos)
-        tb = TM._apply_layer(tcfg, tp, kind, tb, positions=tpos)
+        ta, _ = TM._apply_layer(tcfg, tp, kind, ta, positions=tpos)
+        tb, _ = TM._apply_layer(tcfg, tp, kind, tb, positions=tpos)
         forced = _port_serve(tcfg, tp, kind,
                              params_from_numpy({"y": np.asarray(jy)},
                                                "cpu")["y"], s)
