@@ -68,12 +68,14 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    (which the kernel is held to), the work this design does (split-bf16
    products, the Q K^T scratch) and the step-by-step fp32 recurrence's.
    The mLSTM backward (``csrc/mlstm_bwd.cu``) is held against
-   ``ref.mlstm_bwd`` (dq, dk, dv in bf16 by the rule above; di, df in
-   fp32 within 1e-3 (max|plain| + |plain|)) on NaN-filled outputs at the
-   train path's (16, 4, 128, 1024), (4, 4, 512, 1024), (1, 4, 2048,
-   1024), a ragged (2, 2, 1000, 128) and (1, 4, 600, 1024), two launches
-   bit-identical (100 at (4, 4, 512, 1024)), beside
-   the function's bound, the bound with the saved states read once, the
+   ``ref.mlstm_bwd`` on the kernel's own sides of the denominator's max
+   (its saved ``den``: where the max's arguments tie within rounding the
+   two scans may take different sides, whose gradients differ) (dq, dk,
+   dv in bf16 by the rule above; di, df in fp32 within 1e-3 (max|plain|
+   + |plain|)) on NaN-filled outputs at the train path's (16, 4, 128,
+   1024), (4, 4, 512, 1024), (1, 4, 2048, 1024), a ragged (2, 2, 1000,
+   128) and (1, 4, 600, 1024), two launches bit-identical (100 at (4, 4,
+   512, 1024)), beside the function's bound, the bound with the saved states read once, the
    design's, and the training forward's time; each row prints its
    schedule (the state pass's grid and ring stages, the gradient grid)
    and is profiled by kernel with each call prepared as it is timed
@@ -170,6 +172,51 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    further each layer, in the JAX reference as in the port
    (``tests/test_torch_xlstm_growth.py``), so GEMMs of other shapes part
    by O(1) logits after 24 layers.
+10a. Serve whisper-base at full width and depth (6 encoder + 6 decoder
+   layers, bf16, 97,250,304 random parameters from a seed, loaded after
+   xlstm-1.3b's are freed) with ``ftl_mode='auto'``: 8 requests with
+   decoder prompts of 4-224 tokens, 4 slots, a dense cache (``self`` KV
+   of ``max_seq`` 448, whisper's decoder context, and the ``cross`` K and
+   V of the 1500 frames), one (1, 1500, 512) N(0, 1) frame set from a
+   numpy seed shared by every request as the engine's ``extras``.  The
+   MLP bindings are printed: the decoder's at M = 1 and every bucket bind
+   ``cuda_partial_mlp``; the encoder's at M = 1500 binds
+   ``torch_unfused_mlp`` on the ``h100`` target, so it runs no kernel.
+   From them every prefill launches flash attention 18 times (6 encoder
+   layers, 6 decoder self- and 6 cross-attentions) and ``gemm_act`` and
+   ``gemm`` 6 times each, every decode step ``gemm_act`` and ``gemm`` 6
+   times and flash none (a decode step's attention, the cross-attention's
+   too, is the plain masked attention, as in the reference).  The model
+   plans no encoder-decoder block, so the block plan is not executed.
+10b. whisper-base's checks, by phase 2's rule against the plain path
+   (``ftl_mode='off'`` with ``ops.attention``'s plain version) on a
+   200-token prompt: the encoder's output; each encoder and decoder
+   layer's attention (the decoder's self- and cross-attention) and MLP
+   deltas, without the residual, on the plain stream's own input.  The
+   prefill's logits are held by ``_logits_agree``, as every served
+   path's (by phase 2's rule they read 1.27 of it on the card).  Then the
+   engine's greedy tokens for the 200-token prompt (bucket 256) against
+   the model's own loop on the unpadded prompt and on the padded bucket
+   (each engine slot decodes at its own position; the reference's engine
+   decodes encoder-decoder slots at the largest one).
+10c. Serve llama-3.2-vision-90b at full width, its depth cut to 10
+   layers (two periods of 4 self-attention + 1 cross-attention layers;
+   10,657,898,498 parameters, 21.3 GB of bf16, loaded after whisper's are
+   freed), ``ftl_mode='fused'``: 8 requests of 128-960 tokens, 4 slots, a
+   dense cache (cross layers cannot page), ``max_seq`` 1024, one (1, 1600,
+   8192) N(0, 1) image-embedding set from a seed as ``extras``.  Every
+   cross layer's ``xgate`` is set to 1.0 for the whole phase: at the
+   reference's zero init ``tanh(0) o = 0`` would hide any
+   cross-attention fault from every check.  Every prefill launches flash
+   attention 10 times (8 causal self-attentions, 2 cross-attentions over
+   the 1600 image tokens), every prefill and decode step the fused MLP 10
+   times, and the serving run launches no ``gemm`` (its projections are
+   plain matmuls; the block plan's execution launches it apart).
+10d. The VLM's checks: each cross layer's ungated output on the plain
+   stream's own input, the flash kernel's against the plain attention's,
+   by phase 2's rule; a 256-token prefill's logits against the plain
+   path's; the engine's greedy tokens for a 200-token prompt against the
+   model's own loop on the unpadded prompt and on the padded bucket.
 11. Train llama3.2-3b at full width (3,212,749,824 parameters, bf16
    weights, fp32 AdamW moments, random weights from a seed, loaded after
    xlstm-1.3b's are freed) through ``repro_torch.launch.train.build``: 4
@@ -209,13 +256,21 @@ Phases, in order (any failure ends the run with a non-zero exit code):
 14. One JSON line for the kernels, then the result line.
 
 Phase 1 also holds the fused MLP's footprint at the MoE configs' shared
-experts (2048 -> 5632 and 2048 -> 2816, gated) and the mLSTM scan's at
-its ring depth, a multiple of its four owner warpgroups.  Phase 2 also
-holds flash attention at qwen2-moe-a2.7b's MHA 16/16 (T = 1024) beside
-SDPA, the fused MLP at its shared experts' 2048 -> 5632 -> 2048 (M =
-1024, 256, 4) beside the unfused chain, and launches the mLSTM scan 100
-times with state at (4, 4, 512, 1024) in each build, each the first's
-bits.
+experts (2048 -> 5632 and 2048 -> 2816, gated) and at
+llama-3.2-vision-90b's MLP (8192 -> 28672, gated), and the mLSTM scan's
+at its ring depth, a multiple of its four owner warpgroups.  Phase 2
+also holds flash attention at qwen2-moe-a2.7b's MHA 16/16 (T = 1024),
+at whisper-base's encoder (8/8, 1500 x 1500, head_dim 64, not causal)
+and at llama-3.2-vision-90b's cross-attention (64/8, 1024 queries over
+1600 image tokens, head_dim 128, not causal) and causal self-attention
+(T = 1024) beside SDPA, the fused MLP at qwen2-moe-a2.7b's shared
+experts' 2048 -> 5632 -> 2048 (M = 1024, 256, 4) and at the VLM's 8192
+-> 28672 -> 8192 (M = 1024, 4) beside the unfused chain, ``gemm_act``
+and ``gemm`` at whisper-base's MLP (512 -> 2048 -> 512, M = 256 and 4),
+and launches the mLSTM scan 100 times with state at (4, 4, 512, 1024) in
+each build, each the first's bits.  The ``kernels`` line keeps each
+kernel's headline on the path it had before phases 10a-10d were added;
+their launches are in ``launches_by_path``.
 
 It exits non-zero, printing no result, when no CUDA device is visible,
 and when it stands alone without the rest of the repository.
@@ -252,7 +307,8 @@ FP32_FLOPS = 67e12
 N_PARAMS = {"qwen2-moe-a2.7b": 14_315_735_040,
             "recurrentgemma-9b": 10_444_984_320,
             "granite-20b": 20_318_651_392,
-            "xlstm-1.3b": 1_944_285_520}
+            "xlstm-1.3b": 1_944_285_520,
+            "whisper-base": 97_250_304}
 
 # kernel vs plain version, elementwise: |k - p| <= ATOL + RTOL * |p| (the
 # JAX kernel tests' bf16 tolerance: both round fp32 sums to bf16, in
@@ -266,6 +322,17 @@ STATE_ATOL = STATE_RTOL = 1e-3
 LLAMA, MOE, RG, GRANITE, XLSTM = ("llama3.2-3b", "qwen2-moe-a2.7b",
                                   "recurrentgemma-9b", "granite-20b",
                                   "xlstm-1.3b")
+# the encoder–decoder and the cross-attention VLM, served after them
+WHISPER, VLM = "whisper-base", "llama-3.2-vision-90b"
+# llama-3.2-vision-90b at full width, its depth cut to two periods of (4
+# self-attention + 1 cross-attention) layers: 21.3 GB of bf16 weights (100
+# layers would be 175 GB); count_params of that config
+VLM_SERVE_LAYERS = 10
+VLM_SERVE_PARAMS = 10_657_898_498
+# every cross layer's gate, tanh(xgate), for the whole VLM phase: at the
+# reference's zero init tanh(0) o = 0 would hide any cross-attention fault
+# from every check downstream of it
+VLM_XGATE = 1.0
 # qwen2-moe-a2.7b's served path against its plain path, end to end.
 # Layer 0 routes the same input on both sides; after it the shared
 # experts' bf16 rounding (the kernel rounds once from fp32, the plain
@@ -284,8 +351,9 @@ MOE_SWAP_LIMIT = 0.5
 # the paper's own op (benchmarks/bench_paper_mlp.py): ViT-B's first MLP
 # half, 3072 tokens, 768 -> 3072, gelu + bias; on no serving path
 VIT_B = "vit-b (paper op)"
-# whisper-base's cross-attention (head_dim 64, Tq != Tk, not causal); the
-# encoder-decoder family is not served yet
+# whisper-base's cross-attention (head_dim 64, Tq != Tk, not causal) at
+# its decoder's whole context, 448 queries (its served prefills are a
+# bucket of queries over the 1500 frames)
 WHISPER_X = "whisper-base (cross-attention)"
 # the training path: llama3.2-3b at full width through the trainer
 TRAIN = "llama3.2-3b (train)"
@@ -317,6 +385,10 @@ GATE_SHARE = 1e-3
 GRAD_RTOL = 2e-2
 
 N_TIMED = 20
+# profiles taken of one call pattern while the profiler reports fewer of
+# its kernels than wanted: it drops a few of the first launches in a
+# profile, and in one run dropped every launch of one profile
+PROFILE_TRIES = 3
 
 
 def check(cond: bool, what: str) -> None:
@@ -475,14 +547,22 @@ def compare(out: torch.Tensor, want: torch.Tensor, label: str, *,
     return max_err
 
 
-def kernel_cases(dev, timer):
-    from repro_torch.kernels import gemm, ref
-
-    gen = torch.Generator(device=dev).manual_seed(1234)
+def normal_bf16(dev, seed: int):
+    """``randn(*shape, scale=1.0)``: N(0, scale^2) bf16 tensors from one
+    generator seeded ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             torch.bfloat16)
+
+    return randn
+
+
+def kernel_cases(dev, timer):
+    from repro_torch.kernels import gemm, ref
+
+    randn = normal_bf16(dev, 1234)
 
     results = {"gemm": [], "flash_attention": [],
                "flash_attention_bwd": [], "fused_mlp": [],
@@ -501,7 +581,11 @@ def kernel_cases(dev, timer):
                             (GRANITE, (2048, 24576, 6144)),
                             (GRANITE, (128, 24576, 6144)),
                             (GRANITE, (2048, 6144, 6144)),
-                            (GRANITE, (2048, 6144, 128))):
+                            (GRANITE, (2048, 6144, 128)),
+                            # whisper-base's partial MLP's down projection
+                            # at a prefill bucket and at the 4 decode slots
+                            (WHISPER, (256, 2048, 512)),
+                            (WHISPER, (4, 2048, 512))):
         x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
         label = f"gemm ({m}x{k})@({k}x{n})"
         sched = tile_loop(label, x, w)
@@ -527,6 +611,10 @@ def kernel_cases(dev, timer):
         dev, timer, randn, 2048, 5632, 2048, "silu", (1024, 256, 4), MOE)
     results["fused_mlp"] += fused_mlp_cases(
         dev, timer, randn, 4096, 12288, 4096, "gelu", (4096, 1024, 4), RG)
+    # llama-3.2-vision-90b's MLP: its largest prefill bucket and the four
+    # decode slots (1.41 GB of weights)
+    results["fused_mlp"] += fused_mlp_cases(
+        dev, timer, randn, 8192, 28672, 8192, "silu", (1024, 4), VLM)
     results["rg_lru_scan"] = rg_lru_cases(dev, timer, randn)
     results["rg_lru_scan_bwd"] = rg_lru_bwd_cases(dev, timer, randn)
     results["gemm_act"] = gemm_act_cases(dev, timer, randn)
@@ -560,8 +648,11 @@ def flash_cases(dev, timer, randn):
     128, causal; recurrentgemma-9b's
     local attention (MQA 16/1, head_dim 256, window 2048) at T = 4096 and
     1024; whisper-base's cross-attention (8/8 heads, head_dim 64, not
-    causal, 448 queries over 1500 keys; on no served path yet).  Each
-    row prints its schedule and its time at the other tile height.  The
+    causal, 448 queries over 1500 keys) and its encoder (1500 over 1500,
+    not causal); llama-3.2-vision-90b's cross-attention (64/8 heads, a
+    1024 bucket over 1600 image tokens, not causal) and self-attention
+    (T = 1024, causal).  Each row prints its schedule and its time at the
+    other tile height.  The
     one PyTorch call is SDPA: causal where the window is at least T (the
     same function), with a boolean window mask at T = 4096."""
     from repro_torch.kernels import flash_attention, ref
@@ -581,7 +672,13 @@ def flash_cases(dev, timer, randn):
              1.5),
             (RG, (1, 16, 1, 1024, 1024, 256), dict(causal=True, window=win),
              1.5),
-            (WHISPER_X, (1, 8, 8, 448, 1500, 64), dict(causal=False), 1.0)]
+            (WHISPER_X, (1, 8, 8, 448, 1500, 64), dict(causal=False), 1.0),
+            # whisper-base's encoder over its 1500 frames
+            (WHISPER, (1, 8, 8, 1500, 1500, 64), dict(causal=False), 1.0),
+            # llama-3.2-vision-90b's cross-attention (a 1024 bucket over
+            # the 1600 image tokens) and its causal self-attention
+            (VLM, (1, 64, 8, 1024, 1600, 128), dict(causal=False), 1.0),
+            (VLM, (1, 64, 8, 1024, 1024, 128), dict(causal=True), 1.0)]
     for path, (b_, hq, hk, tq, tk, dh), kw, sc in rows:
         q, kk, v = (randn(b_, hq, tq, dh, scale=sc),
                     randn(b_, hk, tk, dh, scale=sc), randn(b_, hk, tk, dh))
@@ -778,15 +875,21 @@ def bwd_kernel_split(flash_attention, q, k, v, o, lse, do, kw) -> dict:
     flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(5):
-            flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-    split = {}
-    for name, (_, ms) in _device_kernels(prof).items():
-        m = re.search(r"(dsum|dkdv|split_sum|dq)_kernel", name)
-        if m:
-            split[m.group(1)] = split.get(m.group(1), 0.0) + ms / 5
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            # a wait first: the events the profiler drops are the first
+            torch.cuda._sleep(2_000_000)
+            for _ in range(5):
+                flash_attention.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw)
+            torch.cuda.synchronize()
+        split = {}
+        for name, (_, ms) in _device_kernels(prof).items():
+            m = re.search(r"(dsum|dkdv|split_sum|dq)_kernel", name)
+            if m:
+                split[m.group(1)] = split.get(m.group(1), 0.0) + ms / 5
+        if set(split) >= {"dsum", "dkdv", "dq"}:
+            break
     check(set(split) >= {"dsum", "dkdv", "dq"},
           f"flash backward kernels missing from the profile: {split}")
     return split
@@ -1007,9 +1110,9 @@ def rg_lru_bwd_cases(dev, timer, randn):
 def gemm_act_cases(dev, timer, randn):
     """``act(x @ w + b)`` against its plain version: granite-20b's up
     projection at a long and a short prefill bucket, the paper's ViT-B
-    op, and a ragged case (no dimension a multiple of 8, relu, no
-    bias).  The one PyTorch call that computes the same function is
-    cuBLASLt's bias + activation epilogue (``torch._addmm_activation``:
+    op, a ragged case (no dimension a multiple of 8, relu, no bias) and
+    whisper-base's up projection at M = 256 and 4.  The one PyTorch call
+    that computes the same function is cuBLASLt's bias + activation epilogue (``torch._addmm_activation``:
     gelu in the tanh form, or relu)."""
     from repro_torch.kernels import gemm_act, ref
 
@@ -1018,7 +1121,11 @@ def gemm_act_cases(dev, timer, randn):
             (GRANITE, (2048, 6144, 24576), "gelu", True),
             (GRANITE, (128, 6144, 24576), "gelu", True),
             (VIT_B, (3072, 768, 3072), "gelu", True),
-            ("ragged", (1001, 1003, 3005), "relu", False)):
+            ("ragged", (1001, 1003, 3005), "relu", False),
+            # whisper-base's partial MLP's up projection at a prefill
+            # bucket and at the 4 decode slots
+            (WHISPER, (256, 512, 2048), "gelu", True),
+            (WHISPER, (4, 512, 2048), "gelu", True)):
         x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
         b = randn(n, scale=0.5) if bias else None
         label = (f"gemm_act ({m}x{k})@({k}x{n}) {act} "
@@ -1260,7 +1367,9 @@ def mlstm_cases(dev, timer, randn):
 def mlstm_bwd_cases(dev, timer, randn):
     """The mLSTM backward kernels (``csrc/mlstm_bwd.cu``) against
     ``ref.mlstm_bwd`` (autograd through the plain scan, in checkpointed
-    chunks) on the training forward's saved tensors, dh ~ N(0, 1), the
+    chunks, each step's denominator on the side the kernel's forward took:
+    ``saved['den']``) on the training forward's saved tensors, dh ~ N(0,
+    1), the
     outputs NaN-filled first: dq, dk, dv in bf16 by phase 2's rule, di
     and df in fp32 within GATE_SHARE * (max|plain| + |plain|), the
     largest share printed; two launches bit-identical (100 at (4, 4, 512,
@@ -1278,8 +1387,10 @@ def mlstm_bwd_cases(dev, timer, randn):
     is profiled by kernel (``kernels_ms``, each call prepared as for
     ``ms``); ``gap_ms`` is ``ms`` less the kernels' sum, ``span_ms`` a
     call's first kernel start to last kernel end, ``idle_ms`` the
-    device's idle time inside it, ``host_ms`` the host's time to enqueue
-    a call.  No single PyTorch call computes this gradient."""
+    device's idle time inside it (the three None where the profiler,
+    asked up to PROFILE_TRIES times, reported none or no whole call),
+    ``host_ms`` the host's time to enqueue a call.  No single PyTorch
+    call computes this gradient."""
     from repro_torch.kernels import mlstm, ref
 
     out = []
@@ -1306,7 +1417,18 @@ def mlstm_bwd_cases(dev, timer, randn):
         scratch = torch.full((sched.scratch_bytes // 4,), nan, device=dev)
         got = mlstm.mlstm_scan_bwd(*args, saved, dy, grads=grads,
                                    scratch=scratch)
-        want = ref.mlstm_bwd(*args, dy)
+        want = ref.mlstm_bwd(*args, dy, branch=saved["den"][..., 1])
+        # where a gradient breaks the rule: its (b, h, t) rows by chunk and
+        # head
+        for j, n in enumerate("qkv"):
+            over = ((got[j].float() - want[j].float()).abs() > ATOL + RTOL
+                    * want[j].float().abs()).any(-1).nonzero()
+            if len(over):
+                print(f"  {label} d{n}: the rule broken in {len(over)} "
+                      f"(b, h, t) rows: chunks "
+                      f"{sorted(set((over[:, 2] // sched.chunk).tolist()))}"
+                      f", heads {sorted(set(over[:, 1].tolist()))}, "
+                      f"batches {sorted(set(over[:, 0].tolist()))}")
         err = max(compare(got[j], want[j], f"{label} d{n}")
                   for j, n in enumerate("qkv"))
         gate_err = max(compare(
@@ -1339,12 +1461,14 @@ def mlstm_bwd_cases(dev, timer, randn):
         ms = timer.ms(lambda: mlstm.mlstm_scan_bwd(*args, saved, dy))
         split, span, idle, host = mlstm_bwd_kernel_split(
             mlstm, timer, args, saved, dy)
-        gap = ms - sum(split.values())
+        # not measured (None) where the profiler reported no launch of
+        # one of the four kernels
+        gap = ms - sum(split.values()) if len(split) == 4 else None
         print(f"  {label}: {ms} ms a call; device ms by kernel (profiler, "
               f"each call as timed, mean of 5): {split}; ms less their sum "
-              f"{gap:.4f}; a call's span {span:.4f} ms, the device idle "
-              f"inside it {idle:.4f} ms; the host enqueues a call in "
-              f"{host:.4f} ms (behind the timer's device-side wait)")
+              f"{gap}; a call's span {span} ms, the device idle inside it "
+              f"{idle} ms; the host enqueues a call in {host:.4f} ms "
+              f"(behind the timer's device-side wait)")
         out.append(dict(
             path=path, shape=[b, h, t, dh], schedule=sched.label,
             max_abs_err=err, gate_max_abs_err=gate_err, bit_identical=True,
@@ -1369,44 +1493,57 @@ def mlstm_bwd_kernel_split(mlstm, timer, args, saved, dy):
     """The mLSTM backward's four kernels under the profiler, 5 calls each
     prepared as :meth:`Timer.ms` prepares one (the L2 flushed, then a
     device-side wait while the host enqueues): device ms by kernel (the
-    mean over the launches the profiler reports: it has dropped a few of
-    the 20); a call's span, first kernel's start to last kernel's end,
-    and the device's idle ms inside it (means over the calls whose four
-    kernels it reports, told apart by the wait between calls); the
+    mean over the launches the profiler reports: it drops a few of the
+    20, and has once dropped them all, so a profile with no whole call is
+    taken again, up to :data:`PROFILE_TRIES` times); a call's span, first
+    kernel's start to last kernel's end, and the device's idle ms inside
+    it (means over the calls whose four kernels it reports, told apart by
+    the wait between calls; None where no profile held a whole call); the
     host's ms to enqueue a call (median)."""
     mlstm.mlstm_scan_bwd(*args, saved, dy)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    host = []
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(5):
-            timer.flush.zero_()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        host = []
+        with torch.profiler.profile(activities=acts) as prof:
+            # a wait first: the events the profiler drops are the first
             torch.cuda._sleep(2_000_000)
-            t0 = time.perf_counter()
-            mlstm.mlstm_scan_bwd(*args, saved, dy)
-            host.append(1e3 * (time.perf_counter() - t0))
-        torch.cuda.synchronize()
-    durs, spans = {}, []
-    for ev in prof.profiler.kineto_results.events():
-        m = re.search(r"mlstm_bwd_(\w+?)_kernel", ev.name())
-        if ev.device_type() == torch.autograd.DeviceType.CUDA and m:
-            durs.setdefault(m.group(1), []).append(ev.duration_ns() / 1e6)
-            spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+            for _ in range(5):
+                timer.flush.zero_()
+                torch.cuda._sleep(2_000_000)
+                t0 = time.perf_counter()
+                mlstm.mlstm_scan_bwd(*args, saved, dy)
+                host.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        durs, spans = {}, []
+        for ev in prof.profiler.kineto_results.events():
+            m = re.search(r"mlstm_bwd_(\w+?)_kernel", ev.name())
+            if ev.device_type() == torch.autograd.DeviceType.CUDA and m:
+                durs.setdefault(m.group(1), []).append(
+                    ev.duration_ns() / 1e6)
+                spans.append((ev.start_ns(),
+                              ev.start_ns() + ev.duration_ns()))
+        spans.sort()
+        # a call's kernels follow each other within microseconds; calls
+        # are a millisecond's wait apart
+        calls = []
+        for sp in spans:
+            if not calls or sp[0] - calls[-1][-1][1] > 300_000:
+                calls.append([])
+            calls[-1].append(sp)
+        whole = [c for c in calls if len(c) == 4]
+        print(f"    profiler (profile {attempt}): {len(spans)} of 20 "
+              f"kernels reported, {len(whole)} of 5 calls whole")
+        if whole:
+            break
     split = {k: statistics.mean(v) for k, v in durs.items()}
-    spans.sort()
-    # a call's kernels follow each other within microseconds; calls are
-    # a millisecond's wait apart
-    calls = [[spans[0]]]
-    for sp in spans[1:]:
-        if sp[0] - calls[-1][-1][1] > 300_000:
-            calls.append([])
-        calls[-1].append(sp)
-    whole = [c for c in calls if len(c) == 4] or [[(0, float("nan"))]]
+    if not whole:
+        print(f"    profiler: no whole call in {PROFILE_TRIES} profiles: "
+              f"span and idle not measured")
+        return split, None, None, statistics.median(host)
     span = statistics.mean(c[-1][1] - c[0][0] for c in whole) / 1e6
     idle = statistics.mean(sum(b[0] - a[1] for a, b in zip(c, c[1:]))
                            for c in whole) / 1e6
-    print(f"    profiler: {len(spans)} of 20 kernels reported, "
-          f"{sum(len(c) == 4 for c in calls)} of 5 calls whole")
     return split, span, idle, statistics.median(host)
 
 
@@ -1442,17 +1579,28 @@ WANT_EXECUTORS = {LLAMA: {**_PREFILL, "mlp": "cuda_fused_mlp"},
                   MOE: {**_PREFILL, "mlp": "cuda_fused_mlp"},
                   RG: {**_PREFILL, "mlp": "cuda_fused_mlp"},
                   GRANITE: {**_PREFILL, "mlp": "cuda_partial_mlp"},
-                  XLSTM: None}
+                  XLSTM: None,
+                  # the report of whisper-base's plan (its decoder block):
+                  # the model plans no encoder–decoder block, as the
+                  # reference, and each MLP resolves its own executor
+                  WHISPER: {**_PREFILL, "mlp": "cuda_partial_mlp"},
+                  VLM: {**_PREFILL, "mlp": "cuda_fused_mlp"}}
 # launches each prefill and each decode step must make, where the path
 # fixes the count: qwen2-moe-a2.7b's 24 attention layers at prefill and
 # its shared experts, one fused MLP a layer, at prefill and decode; one
 # RG-LRU scan in each of recurrentgemma-9b's 26 recurrent layers and one
-# mLSTM scan in each of the served xlstm-1.3b's 21 mLSTM layers at prefill
+# mLSTM scan in each of the served xlstm-1.3b's 21 mLSTM layers at
+# prefill; the served llama-3.2-vision-90b's 8 self- and 2 cross-attention
+# layers at prefill (a decode step's attention is the plain masked one)
+# and its 10 MLPs at prefill and decode; whisper-base's follow from its
+# MLP bindings (encdec_launches)
 PER_CALL = {MOE: {"flash_attention": (24, 0), "fused_mlp": (24, 24)},
-            RG: {"rg_lru_scan": (26, 0)}, XLSTM: {"mlstm_scan": (21, 0)}}
-# kernels a path must not launch: qwen2-moe-a2.7b runs its projections as
-# plain matmuls (a MoE layer takes no block plan), so no GEMM kernel
-ABSENT = {MOE: ("gemm",)}
+            RG: {"rg_lru_scan": (26, 0)}, XLSTM: {"mlstm_scan": (21, 0)},
+            VLM: {"flash_attention": (10, 0), "fused_mlp": (10, 10)}}
+# kernels a path's serving run must not launch: qwen2-moe-a2.7b and
+# llama-3.2-vision-90b run their projections as plain matmuls (a prefill
+# takes the plan for an MLP alone), and neither has a GEMM in its MLP
+ABSENT = {MOE: ("gemm",), VLM: ("gemm",)}
 
 
 def requests(cfg, lens_range, seed: int = 0):
@@ -1492,17 +1640,23 @@ def load_model(arch: str, dev, mode: str, **cut):
 
 def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
                 want: dict | None, per_call: dict | None = None,
-                absent: dict | None = None):
+                absent: dict | None = None, extras: dict | None = None):
     """Serve 8 requests (4 slots, 32 new tokens each) twice: under the
     profiler with every launch counter of ``modules`` and ``absent`` set
     to 0 just before and read just after, then unprofiled for the serving
     times.  ``want``: the prefill plan's executors (None: no plannable
     block); ``per_call``: launches each prefill and each decode step must
-    make, by kernel, as (prefill, decode step); ``absent``: kernels whose
-    launch counter must stay 0.  The block plan is executed once in each
-    run unless the model is a MoE: a MoE layer takes no plan (the model
-    plans only a layer with an MLP), so its plan runs no segment on the
-    path and executing it would launch GEMMs the path never runs."""
+    make, by kernel, as (prefill, decode step), counted after the block
+    plan's execution; ``absent``: kernels whose launch counter must stay
+    0 in the serving run (the block plan's execution aside); ``extras``:
+    the model inputs every request shares (frames, image embeddings).  The
+    block plan is executed once in each run, as the serve CLI does, where
+    the model runs the plan: not a MoE (a MoE layer takes no plan; the
+    model plans only a layer with an MLP) and not an encoder–decoder (it
+    plans no block, as the reference: each MLP resolves its own
+    executor), whose plans would launch GEMMs their paths never run.
+    Returns the launches the gates read: the path's kernels' over the
+    whole window, the absent kernels' in the serving run."""
     from repro_torch.core import hw
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.models import model as M
@@ -1526,13 +1680,13 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
     got = rep["prefill"] and rep["prefill"]["executors"]
     check(got == want, f"prefill executors {got} != {want}")
     t0 = time.perf_counter()
-    eng.warmup_compile()
+    eng.warmup_compile(extras)
     print(f"  warm-up (every bucket's prefill, one decode step) "
           f"{time.perf_counter() - t0} s")
 
     # --- the main path: counters from 0, under the profiler -------------
     absent = absent or {}
-    runs_plan = not cfg.is_moe
+    runs_plan = not (cfg.is_moe or cfg.is_encoder_decoder)
     for mod in (*modules.values(), *absent.values()):
         mod.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1542,28 +1696,32 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         blk = eng.execute_block_plan() if runs_plan else None
-        done = eng.run(requests(cfg, lens_range))
+        in_plan = {n: mod.launches
+                   for n, mod in (*modules.items(), *absent.items())}
+        done = eng.run(requests(cfg, lens_range), extras)
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.perf_counter() - t0)
     launches = {n: mod.launches for n, mod in modules.items()}
-    gone = {n: mod.launches for n, mod in absent.items()}
+    gone = {n: mod.launches - in_plan[n] for n, mod in absent.items()}
     prefills = eng.stats["prefills"] - s0["prefills"]
     steps = eng.stats["decode_steps"] - s0["decode_steps"]
-    print(f"  main path launches: {launches}"
-          + (f"; kernels off the path: {gone}" if absent else ""))
+    print(f"  main path launches: {launches} (the block plan's execution "
+          f"{in_plan})" + (f"; kernels off the path, in the serving run: "
+                           f"{gone}" if absent else ""))
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
     check(not any(gone.values()), f"a kernel off the path launched: {gone}")
     for name, (pre, step) in (per_call or {}).items():
-        check(launches[name] == pre * prefills + step * steps,
-              f"{name}: {launches[name]} launches in {prefills} prefills "
-              f"and {steps} decode steps, not {pre} a prefill and {step} "
-              f"a decode step")
+        served = launches[name] - in_plan[name]
+        check(served == pre * prefills + step * steps,
+              f"{name}: {served} launches in {prefills} prefills and "
+              f"{steps} decode steps, not {pre} a prefill and {step} a "
+              f"decode step")
     if want is None:
         check(blk is None, f"a block plan ran without a plannable block: "
               f"{blk}")
     elif not runs_plan:
-        print(f"  the plan is reported ({got}) but a MoE layer takes no "
+        print(f"  the plan is reported ({got}) but the model runs no "
               f"plan: execute_block_plan not called")
     else:
         check(blk is not None and blk["finite"] and blk["executors"] == want,
@@ -1584,8 +1742,11 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
             k[0] += 1
             k[1] += ev.duration_ns() / 1e6
     check(bool(kern), "the profiler recorded no device kernel")
+    # (where the block plan's execution launched an absent kernel, its
+    # counter alone tells the serving run's launches apart)
     for name in absent:
-        check(not any(re.search(KERNEL_RE[name], n) for n in kern),
+        check(in_plan[name] > 0 or not any(re.search(KERNEL_RE[name], n)
+                                           for n in kern),
               f"{name} kernel in the profiler's device-kernel list")
     for name in modules:
         hits = [n for n in kern if re.search(KERNEL_RE[name], n)]
@@ -1609,7 +1770,7 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
     blk = eng.execute_block_plan() if runs_plan else None
     s0 = dict(eng.stats)
     t0 = time.perf_counter()
-    done = eng.run(requests(cfg, lens_range, seed=1))
+    done = eng.run(requests(cfg, lens_range, seed=1), extras)
     wall = time.perf_counter() - t0
     check(len(done) == 8 and all(len(r.out) == 32 for r in done),
           "timed run: every request must return 32 tokens")
@@ -1642,22 +1803,25 @@ def serve_phase(dev, cfg, params, modules, *, max_seq: int, lens_range,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def served_vs_plain(cfg, params, dev, n_tokens: int):
+def served_vs_plain(cfg, params, dev, n_tokens: int,
+                    extras: dict | None = None):
     from repro_torch.models import model as M
 
     rng = np.random.default_rng(7)
     toks = torch.as_tensor(rng.integers(2, cfg.vocab_size,
                                         size=(1, n_tokens)), device=dev)
-    served, _ = M.prefill(cfg, params, {"tokens": toks})
+    batch = {"tokens": toks, **(extras or {})}
+    served, _ = M.prefill(cfg, params, batch)
     plain, _ = M.prefill(dataclasses.replace(cfg, ftl_mode="off"), params,
-                         {"tokens": toks})
+                         batch)
     _logits_agree(served, plain, f"prefill {n_tokens} tokens, "
                   f"{cfg.ftl_mode} against plain")
 
 
 @torch.no_grad()
 def _model_greedy(cfg, params, dev, tokens: np.ndarray, n_new: int,
-                  max_seq: int, last_pos: int | None = None):
+                  max_seq: int, last_pos: int | None = None,
+                  extras: dict | None = None):
     """The model's own greedy prefill + decode_step loop on one prompt:
     (tokens, top-2 logit gaps).  The token is ``torch.argmax``'s, the
     first of equal logits, as the engine (and the JAX reference's engine)
@@ -1665,8 +1829,8 @@ def _model_greedy(cfg, params, dev, tokens: np.ndarray, n_new: int,
     from repro_torch.models import model as M
 
     t = torch.as_tensor(tokens, device=dev)[None].long()
-    logits, cache = M.prefill(cfg, params, {"tokens": t}, max_seq=max_seq,
-                              last_pos=last_pos)
+    logits, cache = M.prefill(cfg, params, {"tokens": t, **(extras or {})},
+                              max_seq=max_seq, last_pos=last_pos)
     pos = len(tokens) if last_pos is None else last_pos + 1
     out, gaps = [], []
     for i in range(n_new):
@@ -1682,14 +1846,17 @@ def _model_greedy(cfg, params, dev, tokens: np.ndarray, n_new: int,
 
 @torch.no_grad()
 def engine_vs_model(cfg, params, dev, n_prompt: int, n_new: int = 8, *,
-                    max_seq: int = 4096, padded_loop: bool = False):
+                    max_seq: int = 4096, padded_loop: bool = False,
+                    extras: dict | None = None):
     """The engine's greedy tokens for one prompt (padded to its bucket)
     against the model's own prefill + decode_step loop on the unpadded
     prompt.  ``padded_loop`` (xlstm-1.3b) also holds them against the
     model's loop on the padded bucket with ``last_pos``, which runs the
     engine's GEMM shapes: the random-weight stack amplifies a GEMM's
     rounding difference about 1.3 times a layer (PERF.md), so that gate
-    holds the engine's slot plumbing apart from any rounding."""
+    holds the engine's slot plumbing apart from any rounding.  ``extras``:
+    the model inputs the engine shares with every request (frames, image
+    embeddings), given to the loop's prefill too."""
     from repro_torch.core import hw
     from repro_torch.launch.serve import Request, ServeEngine
     from repro_torch.models import model as M
@@ -1699,9 +1866,10 @@ def engine_vs_model(cfg, params, dev, n_prompt: int, n_new: int = 8, *,
     eng = ServeEngine(cfg, params, batch_slots=1, max_seq=max_seq,
                       target=hw.H100, eos_id=-1, device=dev)
     check(n_prompt not in eng.buckets, f"{n_prompt} is a bucket length")
-    got = eng.run([Request(0, prompt, n_new)])[0].out
+    got = eng.run([Request(0, prompt, n_new)], extras)[0].out
     bucket = M.bucket_m(n_prompt, eng.buckets)
-    want, gaps = _model_greedy(cfg, params, dev, prompt, n_new, max_seq)
+    want, gaps = _model_greedy(cfg, params, dev, prompt, n_new, max_seq,
+                               extras=extras)
     print(f"  {n_prompt}-token prompt (bucket {bucket}, window "
           f"{cfg.local_window}): engine {got}, model loop on the unpadded "
           f"prompt {want} ({'equal' if got == want else 'DIFFER'}); the "
@@ -1710,7 +1878,7 @@ def engine_vs_model(cfg, params, dev, n_prompt: int, n_new: int = 8, *,
         padded = np.zeros(bucket, np.int32)
         padded[:n_prompt] = prompt
         on_pad, _ = _model_greedy(cfg, params, dev, padded, n_new, max_seq,
-                                  last_pos=n_prompt - 1)
+                                  last_pos=n_prompt - 1, extras=extras)
         print(f"  model loop on the padded bucket, last_pos "
               f"{n_prompt - 1}: {on_pad} "
               f"({'equal' if got == on_pad else 'DIFFER'})")
@@ -1780,10 +1948,6 @@ def moe_served_vs_plain(cfg, params, dev, n_tokens: int):
     positions = torch.arange(n_tokens, device=dev)
     off = dataclasses.replace(cfg, ftl_mode="off")
 
-    def share(got, want):
-        d = (got.float() - want.float()).abs()
-        return float((d / (ATOL + RTOL * want.float().abs())).max())
-
     worst = {"attention": 0.0, "moe": 0.0}
     for kind, p, x_in, _, _ in M.layer_stream(off, params, toks):
         mix = [M._apply_mixer(c, p, kind, x_in, positions=positions)
@@ -1797,8 +1961,8 @@ def moe_served_vs_plain(cfg, params, dev, n_tokens: int):
             ffn.append((d, rec[0]))
         check(torch.equal(ffn[0][1], ffn[1][1]), "a layer routes the same "
               "input differently on the served and the plain path")
-        worst["attention"] = max(worst["attention"], share(*mix))
-        worst["moe"] = max(worst["moe"], share(ffn[0][0], ffn[1][0]))
+        worst["attention"] = max(worst["attention"], rule_share(*mix))
+        worst["moe"] = max(worst["moe"], rule_share(ffn[0][0], ffn[1][0]))
     print(f"  every layer on the plain stream's input: the same routing on "
           f"both paths; largest share of {ATOL} + {RTOL}|plain delta| used "
           f"by the served delta {worst}")
@@ -1831,6 +1995,179 @@ def moe_served_vs_plain(cfg, params, dev, n_tokens: int):
           f"{float(aux_r)} against {float(aux_p)}")
     _logits_agree(served, plain, f"forward of {n_tokens} tokens, "
                   f"{cfg.ftl_mode} against plain, routed alike")
+
+
+def rule_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest share of phase 2's rule, ATOL + RTOL * |want|, that
+    |got - want| uses."""
+    d = (got.float() - want.float()).abs()
+    return float((d / (ATOL + RTOL * want.float().abs())).max())
+
+
+def model_extras(cfg, dev) -> dict:
+    """The stub frontends' inputs every request shares, N(0, 1) from a
+    numpy seed, batch 1: whisper's frame embeddings, the VLM's image
+    embeddings."""
+    rng = np.random.default_rng(3)
+    if cfg.is_encoder_decoder:
+        name, n = "frames", cfg.encoder_seq
+    elif cfg.family == "vlm":
+        name, n = "image_embeds", cfg.n_image_tokens
+    else:
+        return {}
+    x = rng.standard_normal((1, n, cfg.d_model), dtype=np.float32)
+    return {name: torch.from_numpy(x).to(dev, torch.bfloat16)}
+
+
+def encdec_launches(cfg, dev, buckets) -> dict:
+    """whisper-base's launches a prefill and a decode step, from the MLP
+    bindings its layers resolve (the model plans no encoder–decoder
+    block, as the reference: each MLP resolves its executor at its own M
+    under the config's mode on the default target).  Flash attention runs
+    every encoder layer and each decoder layer's self- and
+    cross-attention at prefill; a decode step's attention is the plain
+    masked attention (the cross-attention's too, as in the reference).
+    The partial MLP (``gemm_act``, then ``gemm``) runs in each layer
+    whose M binds ``cuda_partial_mlp``: every decoder layer (checked at
+    M = 1 and every bucket), and the encoder's only if its M does."""
+    from repro_torch.core import hw
+    from repro_torch.core.ftl import registry
+
+    def bound(m):
+        return registry.mlp_executor(
+            cfg.ftl_mode, m=m, d_model=cfg.d_model, d_ff=cfg.d_ff,
+            dtype=cfg.dtype, gated=cfg.mlp_gated, act=cfg.mlp_act,
+            device=dev).name
+
+    dec = {m: bound(m) for m in (1, *buckets)}
+    enc = bound(cfg.encoder_seq)
+    print(f"  MLP bindings on {hw.default_target().name} under "
+          f"ftl_mode={cfg.ftl_mode}: the encoder's (M = {cfg.encoder_seq}) "
+          f"{enc}; the decoder's by M {dec}")
+    check(set(dec.values()) == {"cuda_partial_mlp"},
+          f"a decoder MLP binds no partial MLP: {dec}")
+    n, n_enc = cfg.n_layers, cfg.n_encoder_layers
+    pre = n + (n_enc if enc == "cuda_partial_mlp" else 0)
+    return {"flash_attention": (n_enc + 2 * n, 0), "gemm_act": (pre, n),
+            "gemm": (pre, n)}
+
+
+@torch.no_grad()
+def encdec_served_vs_plain(cfg, params, dev, frames, n_tokens: int):
+    """whisper-base's served path (``cfg.ftl_mode``) against the plain
+    path on one prompt padded to its bucket, as the engine prefills it
+    (the planner binds the partial MLP at a bucket's M, and the unfused
+    chain at 200), by phase 2's rule.  The encoder's output against the
+    plain path's (``ftl_mode='off'`` with ``ops.attention``'s plain
+    version; the encoder's MLP binds the unfused chain under both modes,
+    so this holds its six flash attentions).  Each layer's MLP delta,
+    without the residual, on the plain stream's own input against
+    ``ftl_mode='off'``'s.  Each attention on that stream, every encoder
+    layer's and each decoder layer's self- and cross-attention (to the
+    plain encoder's output), against ``ops.attention``'s plain version.
+    The prefill's logits at the prompt's last token are held by
+    ``_logits_agree``, as every served path's: six decoder layers carry
+    the MLP's rounding (each delta within 0.16 of the rule) to 1.27 of it
+    at a logit of 0.23 on the card (0.031 apart), so the rule's share is
+    printed, not gated."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import attention_layer, norm
+
+    rng = np.random.default_rng(7)
+    bucket = M.bucket_m(n_tokens)
+    padded = np.zeros((1, bucket), np.int64)
+    padded[0, :n_tokens] = rng.integers(2, cfg.vocab_size, size=n_tokens)
+    toks = torch.as_tensor(padded, device=dev)
+    off = dataclasses.replace(cfg, ftl_mode="off")
+    enc = M._encode(cfg, params, frames)
+    with plain_ops(("attention",)):
+        enc_p = M._encode(off, params, frames)
+    compare(enc, enc_p, f"encoder output over {frames.shape[1]} frames, "
+            f"{cfg.n_encoder_layers} layers, {cfg.ftl_mode} against plain")
+    pos_f = torch.arange(frames.shape[1], device=dev)
+    pos_t = torch.arange(bucket, device=dev)
+    worst = {}
+
+    def walk(stack, x, steps):
+        """Each layer's steps on the plain stream from ``x``: (name, delta
+        fn, is the attention)."""
+        for pp in M._periods(stack):
+            p = pp["pos0"]
+            for name, fn, attn in steps:
+                want = fn(off, p, x)
+                if attn:
+                    with plain_ops(("attention",)):
+                        got, want = want, fn(off, p, x)
+                else:
+                    got = fn(cfg, p, x)
+                worst[name] = max(worst.get(name, 0.0),
+                                  rule_share(got, want))
+                x = x + (got if attn else want)
+
+    x = frames + M._sinusoid(frames.shape[1], cfg.d_model,
+                             device=dev).to(frames.dtype)
+    walk(params["enc_layers"], x, (
+        ("encoder attention, kernel against plain",
+         lambda c, p, x: attention_layer(
+             c, p["attn"], norm(p["ln1"], x, c.norm), positions=pos_f,
+             causal=False, use_rope=False), True),
+        (f"encoder MLP, {cfg.ftl_mode} against off",
+         lambda c, p, x: M._apply_ffn(c, p, x)[0], False)))
+    walk(params["layers"], M._dec_embed(off, params, toks), (
+        ("self-attention, kernel against plain",
+         lambda c, p, x: M._dec_self(c, p, x, pos_t), True),
+        ("cross-attention, kernel against plain",
+         lambda c, p, x: M._dec_cross(c, p, x, enc_p, pos_t), True),
+        (f"decoder MLP, {cfg.ftl_mode} against off",
+         lambda c, p, x: M._apply_ffn(c, p, x)[0], False)))
+    print(f"  every layer on the plain stream's input ({n_tokens}-token "
+          f"prompt padded to {bucket}): largest share of {ATOL} + "
+          f"{RTOL}|plain delta| used by the served delta {worst}")
+    check(max(worst.values()) <= 1.0, "a layer's served delta differs "
+          "from its plain delta beyond tolerance")
+    batch = {"tokens": toks, "frames": frames}
+    served, _ = M.prefill(cfg, params, batch, last_pos=n_tokens - 1)
+    want, _ = M.prefill(off, params, batch, last_pos=n_tokens - 1)
+    print(f"  the logits' largest share of phase 2's rule "
+          f"{rule_share(served, want)} (not gated)")
+    _logits_agree(served, want, f"prefill of {n_tokens} tokens in bucket "
+                  f"{bucket}, {cfg.ftl_mode} against off")
+
+
+@torch.no_grad()
+def cross_vs_plain(cfg, params, dev, image, n_tokens: int):
+    """The VLM's cross layers on the plain stream's own input (``forward``
+    under ``ftl_mode='off'`` with ``ops.attention``'s plain version): each
+    layer's ungated output o, the flash kernel's against the plain
+    attention's, by phase 2's rule."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import attention_layer, norm
+
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size,
+                                        size=(1, n_tokens)), device=dev)
+    positions = torch.arange(n_tokens, device=dev)
+    off = dataclasses.replace(cfg, ftl_mode="off")
+
+    def o(p, x):
+        return attention_layer(cfg, p["attn"], norm(p["ln1"], x, cfg.norm),
+                               positions=positions, causal=False,
+                               kv_source=image, use_rope=False)
+
+    shares = []
+    with plain_ops(("attention",)):
+        inputs = [(p, x_in) for kind, p, x_in, _, _ in M.layer_stream(
+            off, params, toks, ctx=image) if kind == "cross"]
+        want = [o(p, x) for p, x in inputs]
+    for (p, x), w in zip(inputs, want):
+        shares.append(rule_share(o(p, x), w))
+    print(f"  each of the {len(shares)} cross layers on the plain stream's "
+          f"input ({n_tokens} tokens over {image.shape[1]} image tokens): "
+          f"largest share of {ATOL} + {RTOL}|plain o| used by the kernel's "
+          f"ungated o {shares}")
+    check(len(shares) == cfg.n_layers // cfg.cross_attn_every
+          and max(shares) <= 1.0, "a cross layer's output differs from its "
+          "plain version beyond tolerance")
 
 
 def _logits_agree(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -2346,7 +2683,8 @@ def main() -> int:
     from repro_torch.kernels import (_build, flash_attention, fused_mlp,
                                      gemm, gemm_act, mlstm, rg_lru)
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serving_ftl_mode
+    from repro_torch.launch.serve import _default_buckets, serving_ftl_mode
+    from repro_torch.models import model as M
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2370,7 +2708,9 @@ def main() -> int:
                           (6144, 24576, False),
                           # the MoE configs' shared experts: qwen2-moe's
                           # and moonshot's
-                          (2048, 5632, True), (2048, 2816, True)):
+                          (2048, 5632, True), (2048, 2816, True),
+                          # llama-3.2-vision-90b's MLP
+                          (8192, 28672, True)):
         for m in (4, *PREFILL_BUCKETS):
             s = fused_mlp.schedule(m, k_, f_, k_, gated)
             got = _build.lib().rt_fused_mlp_smem_bytes(
@@ -2456,25 +2796,66 @@ def main() -> int:
              GRANITE: (("gemm", "flash_attention", "gemm_act"),
                        dict(max_seq=2048, lens_range=(128, 1920)), 256),
              XLSTM: (("mlstm_scan",),
-                     dict(max_seq=2048, lens_range=(128, 1920)), 1000)}
+                     dict(max_seq=2048, lens_range=(128, 1920)), 1000),
+             # whisper's decoder context is 448 tokens
+             WHISPER: (("gemm", "flash_attention", "gemm_act"),
+                       dict(max_seq=448, lens_range=(4, 224)), 200),
+             VLM: (("flash_attention", "fused_mlp"),
+                   dict(max_seq=1024, lens_range=(128, 960)), 256)}
+    # served at full width with the depth cut: (layers, count_params there)
+    cuts = {XLSTM: (XLSTM_SERVE_LAYERS, XLSTM_SERVE_PARAMS),
+            VLM: (VLM_SERVE_LAYERS, VLM_SERVE_PARAMS)}
     launches = {}
     for arch, (names, serve_kw, n_plain) in paths.items():
         mode = serving_ftl_mode(get_config(arch))
-        cut = {"n_layers": XLSTM_SERVE_LAYERS} if arch == XLSTM else {}
+        cut = {"n_layers": cuts[arch][0]} if arch in cuts else {}
         print(f"== serve {arch}, full width"
-              + (f", {XLSTM_SERVE_LAYERS} layers" if cut else "")
+              + (f", {cut['n_layers']} layers" if cut else "")
               + f", ftl_mode={mode} (at {time.perf_counter() - t_start} s)")
         cfg, params, n_params = load_model(arch, dev, mode, **cut)
-        want_params = XLSTM_SERVE_PARAMS if cut else N_PARAMS.get(arch)
+        want_params = cuts[arch][1] if cut else N_PARAMS.get(arch)
         if want_params is not None:
             check(n_params == want_params, f"{n_params} parameters, the "
                   f"reference counts {want_params}")
+        extras = model_extras(cfg, dev)
+        per_call = PER_CALL.get(arch)
+        if cfg.is_encoder_decoder:
+            print(f"  encoder {cfg.n_encoder_layers} layers over "
+                  f"{cfg.encoder_seq} frames, frames N(0, 1) from a seed")
+            per_call = encdec_launches(cfg, dev, _default_buckets(
+                serve_kw["max_seq"], 16))
+        if cfg.family == "vlm":
+            for key, kind in zip(params["layers"], M.period_kinds(cfg)):
+                if kind == "cross":
+                    params["layers"][key]["xgate"].fill_(VLM_XGATE)
+            print(f"  xgate set to {VLM_XGATE} in every cross layer for this "
+                  f"phase (tanh {float(np.tanh(VLM_XGATE))}); image "
+                  f"embeddings ({cfg.n_image_tokens}, {cfg.d_model}) N(0, 1) "
+                  f"from a seed")
         launches[arch] = serve_phase(
             dev, cfg, params, {n: kernels[n] for n in names},
-            want=WANT_EXECUTORS[arch], per_call=PER_CALL.get(arch),
+            want=WANT_EXECUTORS[arch], per_call=per_call,
             absent={n: kernels[n] for n in ABSENT.get(arch, ())},
-            **serve_kw)
-        if cfg.is_moe:
+            extras=extras, **serve_kw)
+        if cfg.is_encoder_decoder:
+            print(f"== {arch}: served path against the plain path, engine "
+                  f"against model at the bucket (at "
+                  f"{time.perf_counter() - t_start} s)")
+            encdec_served_vs_plain(cfg, params, dev, extras["frames"],
+                                   n_plain)
+            engine_vs_model(cfg, params, dev, n_plain,
+                            max_seq=serve_kw["max_seq"], padded_loop=True,
+                            extras=extras)
+        elif cfg.family == "vlm":
+            print(f"== {arch}: cross layers and logits against the plain "
+                  f"path, engine against model at the bucket (at "
+                  f"{time.perf_counter() - t_start} s)")
+            cross_vs_plain(cfg, params, dev, extras["image_embeds"], n_plain)
+            served_vs_plain(cfg, params, dev, n_plain, extras)
+            engine_vs_model(cfg, params, dev, 200,
+                            max_seq=serve_kw["max_seq"], padded_loop=True,
+                            extras=extras)
+        elif cfg.is_moe:
             print(f"== {arch}: served path against the plain path, engine "
                   f"against model at the bucket (at "
                   f"{time.perf_counter() - t_start} s)")
@@ -2524,12 +2905,13 @@ def main() -> int:
         "mlstm_scan_bwd": ("src/repro_torch/csrc/mlstm_bwd.cu",
                            "the gradient of src/repro/kernels/mlstm.py:68"),
     }
-    # each kernel's headline is the last served path that runs it:
-    # "launches" is that path's main-path count and the headline numbers
-    # its first case; "launches_by_path" gives every path's own count,
-    # "cases" every shape
+    # each kernel's headline is the last of the first five served paths
+    # that runs it (the paths served since keep the headlines where they
+    # were): "launches" is that path's main-path count and the headline
+    # numbers its first case; "launches_by_path" gives every path's own
+    # count, "cases" every shape
     head_path = {n: arch for arch, (names, _, _) in paths.items()
-                 for n in names}
+                 if arch in (LLAMA, MOE, RG, GRANITE, XLSTM) for n in names}
     head_path["flash_attention_bwd"] = TRAIN
     head_path["rg_lru_scan_bwd"] = RG_TRAIN
     head_path["mlstm_scan_bwd"] = XLSTM_TRAIN

@@ -1,7 +1,7 @@
 """Architecture registry of the PyTorch port: ``get_config("<arch-id>")``.
 
-The port's own copy of ``repro.configs`` for the architectures it serves
-so far.  Arch ids use the reference's dashes; module names use
+The port's own copy of ``repro.configs``: every architecture of the
+reference.  Arch ids use the reference's dashes; module names use
 underscores.
 """
 from __future__ import annotations
@@ -19,6 +19,8 @@ _ARCH_MODULES = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "yi-6b": "yi_6b",
     "qwen2-72b": "qwen2_72b",
+    "whisper-base": "whisper_base",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
 }
 
 ARCHS: tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -220,16 +220,18 @@ def _order_array(order: tuple[int, ...]):
 
 def run_schedule(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  s: Schedule, *, causal: bool, window: int | None,
-                 q_offset: int, lse: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 q_offset: int, lse: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """Attention by the kernel on schedule ``s``, for checked CUDA
     operands with ``k.shape[2] > 0`` (what :func:`flash_attention` launches
     with :func:`plan`; ``chip_smoke.py`` times other schedules with it).
     ``lse``, where given, is a (B, Hq, Tq) fp32 tensor the kernel fills
-    with each row's logsumexp.  Counts no launch."""
+    with each row's logsumexp; ``out``, where given, a contiguous tensor
+    like ``q`` the kernel writes o into (the card tests fill it with NaN
+    first).  Counts no launch."""
     b, hq, tq, dh = q.shape
     _, hk, tk, _ = k.shape
-    o = torch.empty_like(q)
+    o = torch.empty_like(q) if out is None else out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _build.lib().rt_flash_attention(

@@ -216,10 +216,13 @@ def rg_lru_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
 # mLSTM (xLSTM) — matrix-memory recurrence, stabilized
 # ---------------------------------------------------------------------------
 
-def _mlstm_steps(C, n, m, qf, kf, vf, ig, fg, scale: float):
+def _mlstm_steps(C, n, m, qf, kf, vf, ig, fg, scale: float, branch=None):
     """The stabilized recurrence over the steps of ``qf`` … ``fg`` (fp32,
     (B, H, t, Dh) and (B, H, t)) from the state ``C``, ``n``, ``m``:
     returns the new state and the fp32 h of each step (B, H, t, Dh).
+    ``branch`` (B, H, t), where given, picks each step's side of the
+    denominator's max instead of the comparison: ±1 takes ``±nᵀq̃`` (the
+    sign of nᵀq̃ where |nᵀq̃| won), 0 the floor ``exp(-m)``.
     Every product is an elementwise fp32 product summed in fp32 (no
     matrix product, so no TF32)."""
     hs = []
@@ -234,7 +237,11 @@ def _mlstm_steps(C, n, m, qf, kf, vf, ig, fg, scale: float):
         n = f_[..., None] * n + i_[..., None] * kt
         qs = qf[:, :, s] * scale
         num = (C * qs[..., None, :]).sum(-1)
-        den = torch.maximum((n * qs).sum(-1).abs(), torch.exp(-m_new))
+        nq, floor = (n * qs).sum(-1), torch.exp(-m_new)
+        if branch is None:
+            den = torch.maximum(nq.abs(), floor)
+        else:
+            den = torch.where(branch[..., s] != 0, branch[..., s] * nq, floor)
         hs.append(num / den[..., None])
         m = m_new
     return C, n, m, torch.stack(hs, 2)
@@ -274,11 +281,12 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _chunk_scan(q, k, v, i_pre, f_pre, chunk: int):
+def _chunk_scan(q, k, v, i_pre, f_pre, chunk: int, branch=None):
     """The plain scan in chunks of ``chunk`` steps (the last may be
     shorter), each chunk's steps under ``torch.utils.checkpoint`` when
     autograd records them: the backward pass keeps only the state at the
-    chunk boundaries and runs each chunk again.  (fp32 h, C, n, m)."""
+    chunk boundaries and runs each chunk again.  (fp32 h, C, n, m).
+    ``branch`` as :func:`_mlstm_steps`'s, over all T steps."""
     scale = q.shape[-1] ** -0.5
     C, n, m = _zero_state(q)
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -288,7 +296,8 @@ def _chunk_scan(q, k, v, i_pre, f_pre, chunk: int):
     for t0 in range(0, q.shape[2], chunk):
         sl = slice(t0, t0 + chunk)
         args = (C, n, m, qf[:, :, sl], kf[:, :, sl], vf[:, :, sl],
-                ig[..., sl], fg[..., sl], scale)
+                ig[..., sl], fg[..., sl], scale,
+                None if branch is None else branch[..., sl])
         C, n, m, hc = (checkpoint(_mlstm_steps, *args, use_reentrant=False)
                        if remat else _mlstm_steps(*args))
         hs.append(hc)
@@ -322,18 +331,25 @@ BWD_CHUNK = 64
 
 
 def mlstm_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              i_pre: torch.Tensor, f_pre: torch.Tensor, dh: torch.Tensor
-              ) -> tuple[torch.Tensor, ...]:
+              i_pre: torch.Tensor, f_pre: torch.Tensor, dh: torch.Tensor,
+              branch: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
     """(dq, dk, dv, di, df) of :func:`mlstm_scan`'s h for the cotangent
     ``dh``: autograd through the plain recurrence, the reference's
     gradient (the TPU kernel has no backward of its own: ``jax.grad``
     differentiates the plain scan).  The scan runs again here in chunks
     of :data:`BWD_CHUNK` steps, each under a checkpoint, so that it keeps
     only the state at chunk boundaries.  dq, dk, dv in their inputs'
-    dtypes, di and df in fp32."""
+    dtypes, di and df in fp32.
+
+    ``branch`` (B, H, T) takes the gradient on a given side of each
+    step's denominator max (as :func:`_mlstm_steps`): the kernel's own
+    sides, from its saved ``den[..., 1]``.  Where |nᵀq̃| and exp(-m) tie
+    within rounding, the kernel's scan and the plain one may take
+    different sides, whose gradients differ (h is not differentiable
+    there); on the kernel's sides the two are the same function."""
     ins = [x.detach().requires_grad_() for x in (q, k, v, i_pre, f_pre)]
     with torch.enable_grad():
-        hs = _chunk_scan(*ins, BWD_CHUNK)[0].to(q.dtype)
+        hs = _chunk_scan(*ins, BWD_CHUNK, branch)[0].to(q.dtype)
         grads = torch.autograd.grad(hs, ins, dh, allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g
                  for x, g in zip(ins, grads))

@@ -16,7 +16,14 @@ The counterpart of the reference ``repro.launch.serve``:
   plan: its plans are None, the CLI says so, and ``execute_block_plan``
   returns None.
 * **Mixed sequence lengths** — each slot decodes at its own position
-  (vector ``pos`` through ``model.decode_step``).
+  (vector ``pos`` through ``model.decode_step``), an encoder–decoder's
+  too: its rows write, mask and take their sinusoids there.  (The
+  reference's engine decodes encoder–decoder slots at one scalar
+  position, the largest among the active slots.)
+* **Extras** — one dict of extra model inputs shared by every request
+  (``frames`` for an encoder–decoder, ``image_embeds`` for the VLM's
+  cross-attention), passed to every prefill; their K and V sit in the
+  dense cache's ``cross`` leaves, whole, and decode only reads them.
 * **Plan cache** — serving plans are keyed ``(cfg, bucketed m, dtype,
   target, phase)``; the bucket ladder and the decode plan are planned
   ahead, so steady state replans exactly zero times.
@@ -309,17 +316,19 @@ class ServeEngine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
-    def warmup_compile(self) -> None:
+    def warmup_compile(self, extras: dict[str, Any] | None = None) -> None:
         """Run every bucket's prefill step and one decode step once before
         serving (first-launch costs: the kernel library's load, library
         handles, the allocator), so latency measures serving.  Engine
         state is untouched: the paged decode writes only the scratch page
-        and the dense one a copy of the cache."""
+        and the dense one a copy of the cache.  ``extras``: as
+        :meth:`run`'s."""
+        extras = extras or {}
         for b in self.buckets:
             _, plan = self.plans.get(b, "prefill")
             fn = self._prefill_fn(b, plan)
             tokens = torch.zeros((1, b), dtype=torch.long, device=self.device)
-            fn(self.params, {"tokens": tokens}, b - 1)
+            fn(self.params, {"tokens": tokens, **extras}, b - 1)
         tok = torch.zeros((self.slots, 1), dtype=torch.long,
                           device=self.device)
         zero = torch.zeros((self.slots,), dtype=torch.long,
@@ -409,7 +418,8 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
-    def _admit(self, req: Request, slot: int) -> bool:
+    def _admit(self, req: Request, slot: int, extras: dict[str, Any]
+               ) -> bool:
         """Prefill one request at its bucketed length and splice its cache
         into the slot.  Returns False (admitting nothing) when the paged
         pool cannot cover the bucket — the request stays queued."""
@@ -433,8 +443,8 @@ class ServeEngine:
         # sits at plen-1 and decode overwrites the pad KV in place
         with obslib.span(f"serve:prefill:m{bucket}", "serve"):
             logits, cache1 = fn(self.params,
-                                {"tokens": self._tensor(padded)[None]},
-                                plen - 1)
+                                {"tokens": self._tensor(padded)[None],
+                                 **extras}, plen - 1)
             first = int(torch.argmax(logits[0, -1]))
             self._check_finite(logits)
         self.stats["prefill_s"] += time.perf_counter() - t0
@@ -442,6 +452,10 @@ class ServeEngine:
         if self.paged:
             self.kv.write_prefill(slot, cache1, bucket)
         else:
+            # the leaves of a layer, in order: KV (a bucket long, padded to
+            # max_seq here), a local ring, recurrent state, or a context's
+            # K and V (``cross``; an encoder–decoder's layers hold ``self``
+            # and ``cross``), which fill their slot and are never cut
             kinds, _, rem_kinds = M._layer_split(self.cfg)
             for top, sub in self.cache.items():
                 ax, layer_kinds = ((1, kinds) if top == "layers"
@@ -535,12 +549,17 @@ class ServeEngine:
         obslib.end()  # serve:decode_step
 
     def run(self, requests: list[Request],
+            extras: dict[str, Any] | None = None,
             arrivals: list[float] | None = None) -> list[Request]:
         """Serve ``requests`` to completion.
 
-        ``arrivals`` (seconds from run start, one per request, sorted)
-        switches to an open-loop arrival process; None keeps everything
-        arriving at t=0."""
+        ``extras``: extra model inputs shared by every request, batch 1 on
+        the engine's device (``frames`` (1, encoder_seq, d_model) for an
+        encoder–decoder, ``image_embeds`` (1, n_image_tokens, d_model) for
+        the VLM), as in the reference.  ``arrivals`` (seconds from run
+        start, one per request, sorted) switches to an open-loop arrival
+        process; None keeps everything arriving at t=0."""
+        extras = extras or {}
         if arrivals is not None:
             if len(arrivals) != len(requests):
                 raise ValueError("one arrival time per request")
@@ -561,7 +580,7 @@ class ServeEngine:
                     self._evict(i)
                 if (self.active[i] is None and queue
                         and queue[0].t_arrival <= now):
-                    if self._admit(queue[0], i):
+                    if self._admit(queue[0], i, extras):
                         queue.pop(0)
                         admitted_any = True
                     else:
@@ -605,7 +624,12 @@ def serving_ftl_mode(cfg) -> str:
     the config's mode (as the reference's ``moe_layer`` runs them), so a
     gated shared MLP takes ``'fused'`` too: the fused-MLP kernel at M =
     the tokens routed together.  ``'off'`` for a stack with no MLP
-    (xLSTM; a MoE without shared experts): there is nothing to fuse."""
+    (xLSTM; a MoE without shared experts): there is nothing to fuse.
+    So whisper-base (ungated gelu) is served ``'auto'``: its decoder's
+    MLPs bind ``cuda_partial_mlp`` at every bucket and at M = 1, while
+    its encoder's, at M = encoder_seq (1500), resolve to
+    ``torch_unfused_mlp`` on the ``h100`` target; and
+    llama-3.2-vision-90b (gated silu) ``'fused'``."""
     if cfg.is_moe:
         return "fused" if cfg.shared_d_ff and cfg.mlp_gated else "off"
     if not cfg.d_ff:
@@ -643,6 +667,15 @@ def main(argv: list[str] | None = None) -> None:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, ftl_mode=serving_ftl_mode(cfg))
     params = M.init_params(cfg, args.seed, device=device)
+    # the stub frontends' inputs, zeros as in the reference
+    extras: dict[str, torch.Tensor] = {}
+    dt = torch_dtype(cfg.dtype)
+    if cfg.family == "vlm":
+        extras["image_embeds"] = torch.zeros(
+            (1, cfg.n_image_tokens, cfg.d_model), dtype=dt, device=device)
+    if cfg.is_encoder_decoder:
+        extras["frames"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model),
+                                       dtype=dt, device=device)
 
     rng = np.random.default_rng(args.seed)
     # mixed prompt lengths exercise the bucket ladder + per-slot decode
@@ -676,12 +709,12 @@ def main(argv: list[str] | None = None) -> None:
               f"{exec_stats['ms']} ms, executors "
               f"{exec_stats['executors']}")
 
-    eng.warmup_compile()
+    eng.warmup_compile(extras)
     arrivals = (poisson_arrivals(args.requests, args.arrival_rate,
                                  args.seed)
                 if args.arrival_rate else None)
     t0 = time.perf_counter()
-    done = eng.run(reqs, arrivals=arrivals)
+    done = eng.run(reqs, extras, arrivals=arrivals)
     dt = time.perf_counter() - t0
     lat = sorted(r.latency_s for r in done)
     p50 = lat[len(lat) // 2] if lat else 0.0

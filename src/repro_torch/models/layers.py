@@ -1,6 +1,6 @@
 """Shared layers of the port: norms, RoPE, GQA attention (prefill and
-cached decode, full or local window) and the MLP with FTL as an execution
-mode.
+cached decode: full, local window or cross-attention to a context) and
+the MLP with FTL as an execution mode.
 
 Parameters are plain nested dicts of tensors, and every layer is a plain
 function ``f(cfg, params, x, ...)``, as in the reference
@@ -97,6 +97,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 def init_attention(cfg, gen: torch.Generator, dtype: torch.dtype,
                    device: torch.device, lead: tuple[int, ...] = ()
                    ) -> Params:
+    """Q, K, V and output projections; a cross-attention layer's are the
+    same shapes (its K and V project the context)."""
     d, h, hk, dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     kw = dict(dtype=dtype, device=device, lead=lead)
@@ -116,12 +118,15 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _qkv(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
-         use_rope: bool):
+         use_rope: bool, kv_source: torch.Tensor | None = None):
+    """q from ``x``; k and v from ``kv_source`` (a cross-attention
+    context, never roped) or from ``x``."""
     h, hk = cfg.n_heads, cfg.n_kv_heads
+    src = x if kv_source is None else kv_source
     q = _split_heads(linear(p["wq"], x), h)
-    k = _split_heads(linear(p["wk"], x), hk)
-    v = _split_heads(linear(p["wv"], x), hk)
-    if use_rope:
+    k = _split_heads(linear(p["wk"], src), hk)
+    v = _split_heads(linear(p["wv"], src), hk)
+    if use_rope and kv_source is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -129,7 +134,7 @@ def _qkv(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 def _attend(p: Params, q, k, v, *, causal: bool, window: int | None):
     """Attention core (the flash kernel for CUDA tensors) + output
-    projection; q (B, S, H, Dh), k/v (B, S, Hk, Dh)."""
+    projection; q (B, S, H, Dh), k/v (B, Sk, Hk, Dh)."""
     b, s, h, dh = q.shape
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2), causal=causal, window=window)
@@ -138,17 +143,21 @@ def _attend(p: Params, q, k, v, *, causal: bool, window: int | None):
 
 def attention_layer(cfg, p: Params, x: torch.Tensor, *,
                     positions: torch.Tensor, causal: bool = True,
-                    window: int | None = None, use_rope: bool = True
-                    ) -> torch.Tensor:
-    """Full-sequence self-attention (prefill / eval)."""
-    q, k, v = _qkv(cfg, p, x, positions, use_rope)
-    return _attend(p, q, k, v, causal=causal, window=window)
+                    window: int | None = None, use_rope: bool = True,
+                    kv_source: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention (prefill / eval): self-attention, or
+    cross-attention to ``kv_source`` (B, Sk, D), which is never causal
+    and never roped."""
+    q, k, v = _qkv(cfg, p, x, positions, use_rope, kv_source)
+    return _attend(p, q, k, v, causal=causal and kv_source is None,
+                   window=window)
 
 
 def attention_prefill(cfg, p: Params, x: torch.Tensor, *,
                       positions: torch.Tensor, causal: bool = True,
                       window: int | None = None, use_rope: bool = True,
-                      pad_to: int | None = None, length: int | None = None
+                      pad_to: int | None = None, length: int | None = None,
+                      kv_source: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, Params]:
     """Full-sequence attention that also returns the decode cache.
 
@@ -157,9 +166,15 @@ def attention_prefill(cfg, p: Params, x: torch.Tensor, *,
     right-pads the cache's seq dim so decode steps can append in place.
     ``length`` (≤ S) is the prompt's real length when ``x`` is padded on
     the right: the ring holds the ``window`` positions before it (a full
-    cache keeps the padding's KV, which decode overwrites and masks)."""
-    q, k, v = _qkv(cfg, p, x, positions, use_rope)
-    out = _attend(p, q, k, v, causal=causal, window=window)
+    cache keeps the padding's KV, which decode overwrites and masks).
+    With ``kv_source`` (cross-attention) the cache is the context's K
+    and V, whole and unpadded: ``pad_to`` and ``length`` are the
+    queries', and apply only to self-attention."""
+    q, k, v = _qkv(cfg, p, x, positions, use_rope, kv_source)
+    out = _attend(p, q, k, v, causal=causal and kv_source is None,
+                  window=window)
+    if kv_source is not None:
+        return out, {"k": k, "v": v}
     s = k.shape[1]
     n = s if length is None else length
     if window is not None and n >= window:
@@ -198,19 +213,28 @@ def masked_decode_attention(q: torch.Tensor, k: torch.Tensor,
 
 def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
                      pos: torch.Tensor, *, window: int | None = None,
-                     use_rope: bool = True) -> tuple[torch.Tensor, Params]:
+                     cross: bool = False, use_rope: bool = True
+                     ) -> tuple[torch.Tensor, Params]:
     """One-token decode against a KV cache (full or ring-buffered local).
 
     ``pos`` is a scalar tensor (every row appends at one position) or a
     ``(B,)`` vector (continuous batching at mixed lengths: each row writes
     its new KV at its own position and masks its own prefix).  The new KV
     is written into ``cache`` in place, where the reference rebuilds the
-    arrays; the returned cache is the same tensors."""
+    arrays; the returned cache is the same tensors.  ``cross``: the cache
+    is a context's K and V from the prefill, read whole and never
+    written, with no rope (``pos`` is not read)."""
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b = x.shape[0]
+    q = _split_heads(linear(p["wq"], x), h)              # (B, 1, H, Dh)
+    if cross:
+        k = cache["k"]
+        mask = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
+        o = masked_decode_attention(q.transpose(1, 2), k, cache["v"], mask)
+        return linear(p["wo"], o.transpose(1, 2).reshape(b, 1, h * dh)), \
+            cache
     pos = torch.as_tensor(pos, device=x.device)
     vec = pos.dim() == 1
-    q = _split_heads(linear(p["wq"], x), h)              # (B, 1, H, Dh)
     k_new = _split_heads(linear(p["wk"], x), hk)         # (B, 1, Hk, Dh)
     v_new = _split_heads(linear(p["wv"], x), hk)
     if use_rope:

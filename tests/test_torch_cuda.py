@@ -227,6 +227,28 @@ def test_flash_attention_schedules(dev, case, want_block_q, block_q):
            ref.attention(q, k, v, **kw))
 
 
+@pytest.mark.parametrize("b,hq,hk,tq,tk,dh", [
+    (1, 8, 8, 1500, 1500, 64),      # whisper-base's encoder
+    (1, 64, 8, 1024, 1600, 128),    # llama-3.2-vision-90b's cross-attention
+])
+def test_flash_attention_not_causal_on_nan_outputs(dev, b, hq, hk, tq, tk,
+                                                   dh):
+    """The encoder–decoder's and the VLM's served shapes, not causal with
+    Tq != Tk or T not a tile multiple: the output filled with NaN first,
+    so a row the kernel leaves unwritten shows; two launches give the same
+    bits."""
+    q = _rand(dev, 21, b, hq, tq, dh)
+    k, v = _rand(dev, 22, b, hk, tk, dh), _rand(dev, 23, b, hk, tk, dh)
+    kw = dict(causal=False, window=None, q_offset=0)
+    s = flash_attention.plan(q, k, **kw)
+    outs = []
+    for _ in range(2):
+        out = torch.full_like(q, float("nan"))
+        outs.append(flash_attention.run_schedule(q, k, v, s, out=out, **kw))
+    _close(outs[0], ref.attention(q, k, v, **kw))
+    assert torch.equal(outs[0], outs[1])
+
+
 @pytest.mark.parametrize("b,hq,hk,tq,tk,dh,causal,window,q_offset", [
     (2, 24, 8, 300, 333, 128, True, None, 0),
     (1, 8, 8, 448, 500, 64, False, None, 0),

@@ -161,6 +161,31 @@ def test_plain_gradient_satisfies_the_m_frozen_identities(seed, i_scale,
         <= 1e-5 * float(df.abs().max())
 
 
+@pytest.mark.parametrize("seed,i_scale,f_shift", [(0, 1.0, 3.0),
+                                                  (1, 3.0, 0.0)])
+def test_plain_gradient_takes_the_given_branches(seed, i_scale, f_shift):
+    """``branch`` sets each step's side of the denominator's max: at the
+    sides the chunkwise forward saves (``den[..., 1]``, as the kernel's
+    training build does), which are the plain scan's own away from a tie,
+    the gradient is the one taken without it, bit for bit; with one
+    step's side turned to the floor, dq changes at that step."""
+    args, cot = _inputs(1, 2, 80, 16, seed=seed, scale=0.5,
+                        i_scale=i_scale, f_shift=f_shift)
+    targs = [torch.from_numpy(a) for a in args]
+    dh = torch.from_numpy(cot)
+    _, saved = mlstm.chunkwise_model(*targs, saved=True)
+    branch = saved["den"][..., 1]
+    assert set(branch.unique().tolist()) <= {-1.0, 0.0, 1.0}
+    want = tref.mlstm_bwd(*targs, dh)
+    got = tref.mlstm_bwd(*targs, dh, branch=branch)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    b_, h_, t_ = (branch != 0).nonzero()[-1].tolist()
+    flipped = branch.clone()
+    flipped[b_, h_, t_] = 0.0
+    dq = tref.mlstm_bwd(*targs, dh, branch=flipped)[0]
+    assert not torch.allclose(dq[b_, h_, t_], want[0][b_, h_, t_])
+
+
 # ---------------------------------------------------------------------------
 # the backward kernel's arithmetic
 # ---------------------------------------------------------------------------

@@ -184,14 +184,24 @@ def test_local_window_prefill_and_decode_match_reference():
 
 
 def test_unported_families_raise():
-    """Encoder–decoder configs are not ported (the ssm family this test
-    used is, since the xLSTM slice, and MoE since the MoE slice)."""
+    """Every family of the reference builds now (encoder–decoder and
+    cross-attention since the whisper/VLM slice); a stack whose layer
+    kinds the port does not build still raises, at every entry point,
+    naming the kinds it builds."""
     base = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
                 vocab_size=16, dtype="float32")
-    cfg = tconfigs.ModelConfig(name="audio", family="audio", d_ff=64,
-                               is_encoder_decoder=True, **base)
-    with pytest.raises(NotImplementedError):
-        TM.init_params(cfg, 0, device="cpu")
+    cfg = tconfigs.ModelConfig(name="odd", family="hybrid", d_ff=64,
+                               block_pattern=("attn", "conv"), **base)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    for call in (lambda: TM.init_params(cfg, 0, device="cpu"),
+                 lambda: TM.init_cache(cfg, 1, 8, device="cpu"),
+                 lambda: TM.forward(cfg, {}, {"tokens": toks}),
+                 lambda: TM.prefill(cfg, {}, {"tokens": toks})):
+        with pytest.raises(NotImplementedError,
+                           match=r"\['conv'\].*attn, local window, cross"):
+            call()
+    for name in ("whisper-base", "llama-3.2-vision-90b"):
+        TM.init_params(tconfigs.get_config(name).reduced(), 0, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",
