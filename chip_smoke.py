@@ -253,7 +253,38 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    initial weights, the scans' after the steps (whose leaves, through
    the bf16 block's ill-conditioned backward, are printed).  xLSTM plans
    no block, so no step under ``ftl_mode='fused'`` is tried.
-14. One JSON line for the kernels, then the result line.
+14. Planner tooling on the card (``repro_torch.calib``, ``sim``,
+   ``tune``, ``obs``), with llama3.2-3b at full width: (a)
+   ``calib.microbench_sweep`` on the ``h100`` preset in bf16 (GEMMs
+   through the GEMM kernel at the served projections' shapes and 4096^3,
+   each launching it; activations; in-place copy-throughs of buffers the
+   preset homes whole in its L2 or whole in HBM; every row's sample is
+   ``calib.measure.CUDA_CALLS_PER_SAMPLE`` calls in one CUDA graph
+   replay), then ``calibrate``: every
+   fitted constant beside the preset's, each rate finite, positive and
+   within 5% of its datasheet peak; (b) ``calib.measure_block`` of the
+   full-width block at 1024 tokens (``ftl_mode='fused'``, the kernels),
+   held out of the fit and printed with its modeled/measured ratio on
+   the preset and on the fit, then the base and calibrated geomeans and
+   ``drift_gate``'s verdict; (c) ``plan_block`` of the full-width block
+   at 64 tokens with ``autotune=AutotuneConfig()`` (cuts, tiles, depths,
+   analytic and simulated runtimes), every stage bound to a CUDA
+   executor under ``'fused'`` (under ``'auto'`` a gated MLP planned
+   ``partial`` must raise), run through ``run_block`` with the launch
+   counters from 0 and held against the plain block by phase 2's rule;
+   (d) ``serve.main`` in-process (4 requests of 100-200 tokens, 33 new
+   each, ``max_seq`` 256, the weights of phase 3's seed) with ``--obs
+   --obs-trace --obs-metrics --trace``: the counters from 0 before it,
+   the block plan's execution (the drift probe, which runs the block's
+   projections on ``gemm``) and the warm-up counted apart from the
+   serving run, flash attention and the fused MLP launched in the
+   serving run, ``gemm`` in the probe; both traces parse and hold the
+   modeled lane (pid 0) and live ``serve:*`` spans (pid 1); the
+   Prometheus decode-step count equals ``stats['decode_steps']``; the
+   drift status is finite, and the full-width block's drift ratio is
+   printed on the preset and on the fit.  It ends with ``obs.disable()``
+   and the metrics registry cleared.
+15. One JSON line for the kernels, then the result line.
 
 Phase 1 also holds the fused MLP's footprint at the MoE configs' shared
 experts (2048 -> 5632 and 2048 -> 2816, gated) and at
@@ -281,6 +312,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2675,6 +2707,272 @@ def _flat_names(tree, pre=""):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: planner tooling on the card
+# ---------------------------------------------------------------------------
+
+# the calibration sweep on the h100 preset, through repro_torch.calib in
+# bf16: GEMMs at the served projections' shapes and at 4096^3 through the
+# GEMM kernel; activations; in-place copy-throughs of buffers the
+# preset's first fit homes whole in its 50 MB L2 (1, 8 and 16 MiB) or
+# whole in HBM (64, 128 and 256 MiB), so that each level gets three rows
+# of its own.  Each sample is calib.measure.CUDA_CALLS_PER_SAMPLE calls
+# in one CUDA graph replay: one call takes a few µs to tens of µs, under
+# the host's launch and synchronize (about 30 µs a sample), and one-call
+# L2 rows fitted an L2 rate of 1.9e13 B/s on an NVIDIA H100 80GB HBM3 at
+# 700 W
+CALIB_GEMMS = ((256, 3072, 3072), (1024, 3072, 3072), (1024, 3072, 8192),
+               (4096, 4096, 4096))
+CALIB_ACTS = (1 << 20, 1 << 22, 1 << 23)
+CALIB_DMA = (1 << 20, 8 << 20, 16 << 20, 64 << 20, 128 << 20, 256 << 20)
+CALIB_REPEATS, CALIB_WARMUP = 20, 2
+# each fitted rate is held under its datasheet peak, within 5%: the bf16
+# tensor cores' for the GEMM, fp32 outside them for the activations
+# (PyTorch computes a bf16 activation in fp32), HBM's for HBM; the data
+# sheet gives no L2 rate, so the preset's order-of-magnitude figure
+# stands for it
+PEAK_SLACK = 1.05
+# the simulator-scored search replays every candidate plan in Python
+# (about 30 s at 64 tokens on one CPU core, 72 s at 128), so the tuned
+# full-width block is planned at the 64-token prefill bucket
+TUNE_M = 64
+# the block held out of the fit, at the llama serving phase's max_seq
+BLOCK_M = 1024
+TOOLING = "llama3.2-3b (planner tooling)"
+
+
+def _preset_constant(base, name: str) -> float:
+    """The preset's value of a fitted constant (``rate:<engine>:<kind>``,
+    ``bw:<level>``, ``dma_setup:<level>``): the engine-less ``h100``
+    prices every kind at ``flops``."""
+    kind, *rest = name.split(":")
+    if kind == "rate":
+        return base.flops
+    lv = {lv.name: lv for lv in base.levels}[rest[0]]
+    return lv.bw_bytes_per_s if kind == "bw" else lv.dma_setup_s
+
+
+@contextlib.contextmanager
+def launches_in(cls, methods, kernels: dict):
+    """Within: the launches of ``kernels`` made inside the calls of each
+    of ``cls``'s ``methods``, summed by method (the counters count at
+    launch, on the host)."""
+    made = {name: dict.fromkeys(kernels, 0) for name in methods}
+
+    def counted(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            before = {k: mod.launches for k, mod in kernels.items()}
+            try:
+                return fn(*args, **kw)
+            finally:
+                for k, mod in kernels.items():
+                    made[name][k] += mod.launches - before[k]
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in methods:
+            stack.enter_context(mock.patch.object(
+                cls, name, counted(name, getattr(cls, name))))
+        yield made
+
+
+@torch.no_grad()
+def tooling_phase(dev, kernels: dict) -> dict:
+    """Phase 14: (a) the calibration sweep and fit, (b) the held-out
+    full-width block, (c) the tuned full-width block against the plain
+    block, (d) ``serve.main`` with every obs flag.  Returns the serving
+    run's launches of the path's kernels (flash attention and the fused
+    MLP; llama's prefill runs its projections as plain matmuls), counted
+    from 0 before ``serve.main``, less the block plan's execution and the
+    warm-up inside it."""
+    from repro_torch import calib, obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import hw
+    from repro_torch.core.ftl import executor_block, registry
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.tune import AutotuneConfig
+
+    base = hw.H100
+    gemm = kernels["gemm"]
+
+    # --- (a) the sweep and the fit ----------------------------------------
+    t0 = time.perf_counter()
+    before = gemm.launches
+    ms = calib.microbench_sweep(
+        base=base, gemm_shapes=CALIB_GEMMS, elementwise_sizes=CALIB_ACTS,
+        dma_sizes=CALIB_DMA, repeats=CALIB_REPEATS, warmup=CALIB_WARMUP,
+        dtype=torch.bfloat16, device=dev)
+    # one launch outside each row's graph, its sample's calls inside it
+    calls = calib.measure.CUDA_CALLS_PER_SAMPLE
+    want = len(CALIB_GEMMS) * (1 + calls)
+    check(gemm.launches - before == want, f"the GEMM rows launched the "
+          f"kernel {gemm.launches - before} times, not {want}")
+    check(all(m.segments[0].repeat == calls for m in ms),
+          f"a row's sample is not {calls} calls")
+    for m in ms:
+        seg = m.segments[0]
+        print(f"  {m.name}: {1e6 * m.measured_s} us (min of "
+              f"{CALIB_REPEATS}; {seg.repeat} calls, "
+              f"{1e6 * m.measured_s / seg.repeat} us each); bytes a call "
+              f"{dict(seg.bytes_by_level)}, FLOPs {dict(seg.flops_by_kind)}")
+    print(f"  sweep {time.perf_counter() - t0} s")
+
+    # --- (b) the full-width block, held out of the fit --------------------
+    cfg = get_config(LLAMA)
+    mode = serve.serving_ftl_mode(cfg)
+    t0 = time.perf_counter()
+    blocks = calib.measure_block(LLAMA, BLOCK_M, base=base, repeats=10,
+                                 warmup=2, dtype=torch.bfloat16, device=dev,
+                                 reduced=False, ftl_mode=mode)
+    print(f"  measure_block({LLAMA}, m={BLOCK_M}, full width, ftl_mode="
+          f"{mode}) {time.perf_counter() - t0} s")
+
+    res = calib.calibrate(ms + blocks, base=base)
+    print("  " + res.summary().replace("\n", "\n  "))
+    peaks = {"rate:core:gemm": BF16_FLOPS,
+             "rate:core:elementwise": FP32_FLOPS,
+             "bw:hbm": HBM_BPS,
+             "bw:l2": _preset_constant(base, "bw:l2")}
+    for name, val in res.fitted:
+        preset = _preset_constant(base, name)
+        print(f"  fitted {name}: {val} (preset {preset}; x{val / preset})")
+        check(math.isfinite(val), f"{name} = {val} is not finite")
+        if name.startswith("dma_setup:"):
+            check(val >= 0, f"{name} = {val} is negative")
+            continue
+        check(val > 0, f"{name} = {val} is not positive")
+        check(name in peaks, f"no datasheet peak known for {name}")
+        check(val <= PEAK_SLACK * peaks[name], f"{name} = {val} is above "
+              f"{PEAK_SLACK} x its peak {peaks[name]}")
+    for r in res.residuals:
+        if not r.in_fit:
+            print(f"  held out {r.name}: measured {1e3 * r.measured_s} ms, "
+                  f"modeled/measured {r.base_ratio} on {base.name}, "
+                  f"{r.calibrated_ratio} on {res.target.name}")
+    print(f"  geomean modeled/measured {res.base_geomean_ratio} "
+          f"({base.name}) -> {res.geomean_ratio} ({res.target.name})")
+    print(f"  drift_gate: {json.dumps(calib.drift_gate(res))}")
+
+    # --- (c) the tuned full-width block against the plain block -----------
+    t0 = time.perf_counter()
+    plan = registry.plan_block(dataclasses.replace(cfg, ftl_mode="auto"),
+                               m=TUNE_M, target=base,
+                               autotune=AutotuneConfig(), device=dev)
+    tune = plan.tune
+    check(tune is not None, "plan_block(autotune=) returned no tune")
+    print(f"  {tune.summary()} ({time.perf_counter() - t0} s)")
+    print(f"  tuned: schedule {plan.schedule} (MLP {plan.mlp_schedule}, "
+          f"attention {plan.attention_schedule}), cuts {plan.chain.cuts()}, "
+          f"depths {[(lv.name, lv.buffer_depth) for lv in plan.target.levels]}"
+          f", analytic {1e3 * plan.chain.modeled_runtime_s} ms, simulated "
+          f"{1e3 * tune.sim_runtime_s} ms (analytic-best plan simulated "
+          f"{1e3 * tune.baseline_sim_runtime_s} ms)")
+    for seg, b in zip(plan.chain.segments, plan.bindings):
+        print(f"    [{seg.lo}:{seg.hi}] x{seg.repeat} {b.kind} -> "
+              f"{b.executor}: tiles {dict(seg.plan.tiles)}")
+    execs = executor_block.resolved_executors(plan, m=TUNE_M, ftl_mode=mode)
+    print(f"  on the card under ftl_mode={mode}: {execs}")
+    check(all(registry.get(e).backend == "cuda" for e in execs.values()),
+          f"the tuned plan binds no CUDA executor for a stage: {execs}")
+    bcfg = dataclasses.replace(cfg, ftl_mode=mode)
+    params = M._init_layer(bcfg, torch.Generator(device=dev).manual_seed(0),
+                           "attn", dev)
+    x = normal_bf16(dev, 14)(1, TUNE_M, cfg.d_model)
+    positions = torch.arange(TUNE_M, device=dev)
+    if cfg.mlp_gated and plan.mlp_schedule == "partial":
+        try:
+            registry.run_block(plan, params, x, positions=positions,
+                               ftl_mode="auto")
+        except ValueError as e:
+            print(f"  under ftl_mode=auto the gated MLP planned partial "
+                  f"raises: {e}")
+        else:
+            check(False, "a gated MLP planned partial ran under 'auto'")
+    for mod in kernels.values():
+        mod.launches = 0
+    y = registry.run_block(plan, params, x, positions=positions,
+                           ftl_mode=mode)
+    torch.cuda.synchronize()
+    ran = {n: mod.launches for n, mod in kernels.items()}
+    print(f"  tuned block launches: {ran}")
+    check(all(v > 0 for v in ran.values()),
+          f"a kernel of the tuned block never launched: {ran}")
+    with plain_ops(("attention",)):
+        plain = layers.block_layer(dataclasses.replace(cfg, ftl_mode="off"),
+                                   params, x, positions=positions)
+    compare(y, plain, f"tuned block (m={TUNE_M}) against the plain block")
+    del params, x, y, plain
+
+    # --- (d) serve.main with every obs flag -------------------------------
+    out = ROOT / "build" / "obs"
+    out.mkdir(parents=True, exist_ok=True)
+    paths = {k: out / f"{k}" for k in ("obs_trace.json", "trace.json",
+                                       "metrics.prom")}
+    # the exported metrics describe this serving run alone
+    obs.metrics.REGISTRY.reset()
+    for mod in kernels.values():
+        mod.launches = 0
+    with launches_in(serve.ServeEngine,
+                     ("execute_block_plan", "warmup_compile"),
+                     kernels) as made:
+        eng = serve.main([
+            "--arch", LLAMA, "--requests", "4", "--slots", "4",
+            "--prompt-len", "200", "--max-new", "33", "--max-seq", "256",
+            "--block-size", "16", "--target", base.name, "--obs",
+            "--obs-trace", str(paths["obs_trace.json"]),
+            "--obs-metrics", str(paths["metrics.prom"]),
+            "--trace", str(paths["trace.json"])])
+    torch.cuda.synchronize()
+    total = {n: mod.launches for n, mod in kernels.items()}
+    probe, warm = made["execute_block_plan"], made["warmup_compile"]
+    served = {n: total[n] - probe[n] - warm[n] for n in kernels}
+    print(f"  launches in serve.main --obs: {total}; the block plan's "
+          f"execution (drift probe) {probe}, the warm-up {warm}, the "
+          f"serving run {served}")
+    check(probe["gemm"] > 0, f"the block plan's execution launched no "
+          f"gemm: {probe}")
+    launches = {n: served[n] for n in ("flash_attention", "fused_mlp")}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the path never launched in the serving run: "
+          f"{launches}")
+    for name in ("obs_trace.json", "trace.json"):
+        doc = json.loads(paths[name].read_text())
+        xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+        modeled = [e for e in xs if e["pid"] == 0]
+        live = [e for e in xs if e["pid"] == 1]
+        print(f"  {name}: {len(modeled)} modeled events (pid 0), "
+              f"{len(live)} live spans (pid 1), "
+              f"{len(doc['otherData']['metrics'])} metrics")
+        check(bool(modeled) and any(e["name"].startswith("serve:")
+                                    for e in live),
+              f"{name} lacks the modeled lane or live serve:* spans")
+    text = paths["metrics.prom"].read_text()
+    (line,) = [ln for ln in text.splitlines()
+               if ln.startswith("serve_decode_step_seconds_count")]
+    steps = eng.stats["decode_steps"]
+    print(f"  {line}; stats decode_steps {steps}")
+    check(float(line.split()[-1]) == steps,
+          "the Prometheus decode-step count is not the engine's")
+    st = eng.drift.status()
+    print(f"  drift: {json.dumps(st)}")
+    check(math.isfinite(st["geomean_ratio"]), "drift geomean not finite")
+    row = [m for m in eng.drift.measurements() if m.name == "block_exec"][-1]
+    ratio = eng.stats["block_exec"]["drift_ratio"]
+    check(math.isfinite(ratio) and ratio > 0, f"block drift ratio {ratio}")
+    print(f"  full-width block (m=256) drift ratio modeled/measured: "
+          f"{ratio} on {base.name}, "
+          f"{calib.modeled_measurement_s(res.target, row) / row.measured_s}"
+          f" on {res.target.name} (measured {1e3 * row.measured_s} ms)")
+    del eng
+    obs.disable()
+    obs.metrics.REGISTRY.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2882,6 +3180,11 @@ def main() -> int:
         print(f"== train {path.label}, full width, through the trainer (at "
               f"{time.perf_counter() - t_start} s)")
         launches[path.label] = train_phase(dev, card, counters, path)
+    print(f"== planner tooling on the card (at "
+          f"{time.perf_counter() - t_start} s)")
+    launches[TOOLING] = tooling_phase(
+        dev, {n: kernels[n] for n in ("gemm", "flash_attention",
+                                      "fused_mlp")})
     print(f"  total {time.perf_counter() - t_start} s")
 
     meta = {

@@ -13,7 +13,12 @@ at run time against the activation's platform and shapes.  A plan made
 for the card runs unchanged on CPU tensors because each disqualified
 binding falls back, per segment, to the highest-priority executor that
 does qualify.  This is a choice of executor by device and shape made
-before anything runs — never a retry after a kernel fails.
+before anything runs — never a retry after a kernel fails.  On the card,
+though, a prefill plan under ``'auto'`` is the kernels' plan: a stage
+that would run a plain PyTorch executor on a CUDA tensor (a gated MLP
+planned ``partial``, which the gate-less partial kernels cannot take, or
+a binding whose kernel no longer qualifies) raises instead
+(:func:`_stage_executor`); :func:`resolved_executors` reports it.
 """
 
 from __future__ import annotations
@@ -72,22 +77,37 @@ def _sub_schedule(plan: registry.BlockPlan, kind: str) -> str:
 
 
 def _stage_executor(plan: registry.BlockPlan, kind: str,
-                    ctx: registry.ExecContext) -> registry.Executor:
-    """The plan's bound executor for ``kind``, or the runtime rebind."""
+                    ctx: registry.ExecContext, mode: str,
+                    strict: bool = True) -> registry.Executor:
+    """The plan's bound executor for ``kind``, or the runtime rebind.
+
+    ``strict``: on the card, in a prefill plan under ``'auto'``, a stage
+    that lands on a plain PyTorch executor raises (a report passes
+    ``strict=False`` and names that executor)."""
     bound = None
+    ex = None
     for b in plan.bindings:
         if b.kind == kind:
-            ex = registry.get(b.executor)
-            if ex.qualifies(ctx):
-                return ex
             bound = b.executor
+            if registry.get(bound).qualifies(ctx):
+                ex = registry.get(bound)
             break
-    fb = registry.find(kind, ctx)
-    if bound is not None and fb.name != bound:
-        _C_REQUALIFIED.labels(kind=kind).inc()
-        if fb.backend == "torch":
-            _C_TORCH_FALLBACK.labels(kind=kind).inc()
-    return fb
+    if ex is None:
+        ex = registry.find(kind, ctx)
+        if bound is not None and ex.name != bound:
+            _C_REQUALIFIED.labels(kind=kind).inc()
+            if ex.backend == "torch":
+                _C_TORCH_FALLBACK.labels(kind=kind).inc()
+    if (strict and mode == "auto" and ctx.platform == "cuda"
+            and ctx.phase == "prefill" and ex.backend == "torch"):
+        raise ValueError(
+            f"the {plan.target.name} prefill plan has no CUDA executor for "
+            f"its {kind} stage (schedule {ctx.schedule}, m={ctx.m}, "
+            f"planned {bound}): {ex.name} is plain PyTorch"
+            + ("; the partial-MLP kernels take no gate, run a gated MLP "
+               "with ftl_mode='fused'" if kind == "mlp" and ctx.gated
+               and ctx.schedule == "partial" else ""))
+    return ex
 
 
 def _bind_target(ex: registry.Executor, target) -> registry.Executor:
@@ -96,15 +116,18 @@ def _bind_target(ex: registry.Executor, target) -> registry.Executor:
                                                          target=target))
 
 
-def _resolve_gemm(plan, mode, m, dtype, plat=None) -> registry.Executor:
+def _resolve_gemm(plan, mode, m, dtype, plat=None,
+                  strict=True) -> registry.Executor:
     if mode == "off":
         return _bind_target(registry.get("torch_gemm"), plan.target)
     ctx = _runtime_ctx(plan, "gemm", plan.schedule, m, dtype,
                        plat or plan.platform)
-    return _bind_target(_stage_executor(plan, "gemm", ctx), plan.target)
+    return _bind_target(_stage_executor(plan, "gemm", ctx, mode, strict),
+                        plan.target)
 
 
-def _resolve_attention(plan, mode, m, dtype, plat=None) -> registry.Executor:
+def _resolve_attention(plan, mode, m, dtype, plat=None,
+                       strict=True) -> registry.Executor:
     plat = plat or plan.platform
     if mode == "off":
         # the baseline attention path is the platform's default attention
@@ -113,11 +136,12 @@ def _resolve_attention(plan, mode, m, dtype, plat=None) -> registry.Executor:
         return _bind_target(registry.find("attention", ctx), plan.target)
     ctx = _runtime_ctx(plan, "attention", _sub_schedule(plan, "attention"),
                        m, dtype, plat)
-    return _bind_target(_stage_executor(plan, "attention", ctx), plan.target)
+    return _bind_target(_stage_executor(plan, "attention", ctx, mode,
+                                        strict), plan.target)
 
 
 def _resolve_mlp(plan, mode, m, dtype, *, d_model=None, d_ff=None,
-                 gated=None, plat=None) -> registry.Executor:
+                 gated=None, plat=None, strict=True) -> registry.Executor:
     cfg = plan.cfg
     plat = plat or plan.platform
     if mode in ("off", "fused", "scan"):
@@ -133,7 +157,8 @@ def _resolve_mlp(plan, mode, m, dtype, *, d_model=None, d_ff=None,
             act=cfg.mlp_act, target=plan.target, device=plat)
     ctx = _runtime_ctx(plan, "mlp", _sub_schedule(plan, "mlp"), m, dtype,
                        plat)
-    return _bind_target(_stage_executor(plan, "mlp", ctx), plan.target)
+    return _bind_target(_stage_executor(plan, "mlp", ctx, mode, strict),
+                        plan.target)
 
 
 # public names for the per-stage resolvers: the serving path
@@ -155,9 +180,10 @@ def resolved_executors(plan: registry.BlockPlan, *, m: int | None = None,
     dtype = dtype or plan.dtype
     mode = ftl_mode if ftl_mode is not None else plan.cfg.ftl_mode
     return {
-        "gemm": _resolve_gemm(plan, mode, m, dtype).name,
-        "attention": _resolve_attention(plan, mode, m, dtype).name,
-        "mlp": _resolve_mlp(plan, mode, m, dtype).name,
+        "gemm": _resolve_gemm(plan, mode, m, dtype, strict=False).name,
+        "attention": _resolve_attention(plan, mode, m, dtype,
+                                        strict=False).name,
+        "mlp": _resolve_mlp(plan, mode, m, dtype, strict=False).name,
     }
 
 
@@ -193,7 +219,8 @@ def run_block(
     ``mlp``).  ``cfg.ftl_mode`` (overridable per call) keeps its meaning:
     ``'off'`` pins the baseline executors, ``'fused'``/``'scan'`` force
     that MLP executor, ``'auto'`` makes the plan's bindings
-    authoritative."""
+    authoritative (on the card a prefill stage without a CUDA executor
+    raises: :func:`_stage_executor`)."""
     from repro_torch.models import layers as L  # lazy: no cycle
 
     cfg = plan.cfg

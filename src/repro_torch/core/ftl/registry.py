@@ -355,6 +355,11 @@ class BlockPlan:
     cfg: object = None
     m: int = 0
     dtype: str = ""
+    # set when the plan came out of the DES-scored autotuner
+    # (repro_torch.tune.TuneResult); the chain above is then the tuned
+    # chain and chain.target may be a depth-modified variant of the
+    # request's target
+    tune: object = None
     # serving regime the plan was made for: 'prefill' or 'decode'
     phase: str = "prefill"
 
@@ -419,11 +424,21 @@ def _freeze(d: Mapping[str, int] | None):
 def _plan_block_cached(cfg, m: int, dtype: str | None,
                        target: hwlib.Target, sharded: tuple | None,
                        plat: str, residual: bool,
-                       phase: str = "prefill") -> BlockPlan:
+                       autotune=None, phase: str = "prefill") -> BlockPlan:
     g = graph.block_graph(cfg, m=m, dtype=dtype, residual=residual)
-    chain = partition.plan_chain(g, target=target,
-                                 sharded_sizes=dict(sharded) if sharded
-                                 else None)
+    sharded_d = dict(sharded) if sharded else None
+    tune_result = None
+    if autotune is not None:
+        from repro_torch.tune import autotune_chain  # lazy: pulls in sim
+        tune_result = autotune_chain(g, target=target, config=autotune,
+                                     sharded_sizes=sharded_d)
+        chain = tune_result.chain
+        # bindings qualify against the tuned hierarchy (possibly
+        # depth-modified), the one the chain was scored on
+        target = chain.target
+    else:
+        chain = partition.plan_chain(g, target=target,
+                                     sharded_sizes=sharded_d)
     shell = BlockPlan(chain=chain, bindings=(), platform=plat, cfg=cfg,
                       m=m, dtype=dtype or cfg.dtype, phase=phase)
     sub = {"mlp": shell.mlp_schedule, "attention": shell.attention_schedule}
@@ -443,7 +458,8 @@ def _plan_block_cached(cfg, m: int, dtype: str | None,
         bindings.append(GroupBinding(segment=seg, kind=kind,
                                      executor=find(kind, ctx).name))
     return BlockPlan(chain=chain, bindings=tuple(bindings), platform=plat,
-                     cfg=cfg, m=m, dtype=dtype or cfg.dtype, phase=phase)
+                     cfg=cfg, m=m, dtype=dtype or cfg.dtype,
+                     tune=tune_result, phase=phase)
 
 
 def plan_block(
@@ -454,6 +470,7 @@ def plan_block(
     target: hwlib.Target | None = None,
     sharded_sizes: Mapping[str, int] | None = None,
     residual: bool = True,
+    autotune=None,
     phase: str = "prefill",
     device: torch.device | str | None = None,
 ) -> BlockPlan:
@@ -461,6 +478,14 @@ def plan_block(
     (None → the default target) and bind every planned fusion group to the
     best qualifying executor for ``device``'s platform (None → a CUDA
     device when there is one).
+
+    ``autotune`` (a :class:`repro_torch.tune.AutotuneConfig`) swaps the
+    analytic argmin for the simulator-scored search: the chain is the
+    DES-runtime-optimal candidate and ``BlockPlan.tune`` carries the
+    :class:`~repro_torch.tune.TuneResult`.  The config is part of the
+    plan-cache key, so tuned and untuned plans never alias.  A tuned
+    ``buffer_depth`` is a figure of the model: the kernels pick their own
+    ring stages.
 
     ``phase`` ('prefill' | 'decode') runs the same partition DP at the
     regime's own shape; decode plans never bind the kernels.  Phase is
@@ -473,7 +498,7 @@ def plan_block(
     with obs.span(f"plan_block:{phase}", "planner"):
         return _plan_block_cached(cfg, m, dtype, target,
                                   _freeze(sharded_sizes), platform(device),
-                                  residual, phase)
+                                  residual, autotune, phase)
 
 
 # ---------------------------------------------------------------------------

@@ -475,6 +475,24 @@ class Target:
         return max(self.engine_times(flops_by_kind).values(), default=0.0)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def calibrated(measurements, base: "Target | None" = None) -> "Target":
+        """A preset-shaped target with constants *fitted from measured
+        wall-clock runs* (``repro_torch.calib``): same level names,
+        capacities, ports and engine structure as ``base`` (default: the
+        process default target), but effective per-level bandwidth / DMA
+        setup and per-engine FLOP/s solved by non-negative least squares
+        over the shared roofline model.  ``measurements`` is a sequence of
+        :class:`repro_torch.calib.Measurement` (see
+        ``repro_torch.calib.microbench_sweep``).  For the fit diagnostics —
+        per-measurement residuals, the drift-gate statistics — call
+        :func:`repro_torch.calib.calibrate` directly; this returns only the
+        target."""
+        from repro_torch.calib import calibrate
+
+        return calibrate(measurements, base=base).target
+
+    # ------------------------------------------------------------------
     def describe(self) -> str:
         parts = [
             f"{lv.name} {_fmt_bytes(lv.capacity_bytes)}"

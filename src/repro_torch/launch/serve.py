@@ -32,6 +32,12 @@ The counterpart of the reference ``repro.launch.serve``:
   ``ftl_mode='fused'`` the MLP is the fused-MLP kernel in both regimes;
   under ``'auto'`` (the CLI's mode for an ungated MLP,
   :func:`serving_ftl_mode`) the plan's binding decides.
+* **Telemetry** (``obs=True``, the CLI's ``--obs``) — spans, the
+  reference's gauges, counter and decode-step histogram, a collector that
+  re-reads ``stats`` and ``plan_report()`` at scrape time, and an online
+  drift monitor fed by :meth:`ServeEngine.execute_block_plan` (the whole
+  planned block at the serving shape) and by a sampled decode step.  An
+  engine without it pays nothing.
 
 On the card (default)::
 
@@ -41,12 +47,19 @@ On the CPU at a reduced size::
 
   python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
       --device cpu --requests 3 --slots 2 --prompt-len 8 --max-new 6
+
+With telemetry: ``--obs`` prints the drift monitor's summary after the
+run, ``--obs-trace PATH`` writes the merged live+modeled Perfetto
+timeline, ``--obs-metrics PATH`` the Prometheus text (both imply
+``--obs``); ``--trace PATH`` writes the decode plan's simulated timeline
+(with ``--obs``: the merged one, after the run).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+import weakref
 from typing import Any
 
 import numpy as np
@@ -62,6 +75,10 @@ from repro_torch.launch import kv_cache as KV
 from repro_torch.models import model as M
 from repro_torch.train import steps as S
 
+# how often an obs-enabled engine samples a decode step into the drift
+# monitor (report-only rows; whole-block rows come from
+# execute_block_plan)
+_DRIFT_SAMPLE_EVERY = 16
 
 @dataclasses.dataclass
 class Request:
@@ -186,14 +203,18 @@ class ServeEngine:
     dense per-slot cache, ``kv_blocks`` shrinks the physical pool below
     ``slots * max_seq / block_size``).  ``device`` None means the CUDA
     card, and raises when there is none; the CPU runs only when asked
-    for."""
+    for.  ``obs`` turns on telemetry: span recording, per-step gauges and
+    the drift monitor, which prices on ``drift_target`` (None: the
+    planning target) within ``drift_band`` (None: ``obs.DEFAULT_BAND``)."""
 
     def __init__(self, cfg, params, *, batch_slots: int, max_seq: int,
                  eos_id: int = 1, target: hw.Target | None = None,
                  block_size: int = 8, paged: bool | None = None,
                  kv_blocks: int | None = None,
                  buckets: tuple[int, ...] | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 obs: bool = False, drift_target: hw.Target | None = None,
+                 drift_band: tuple[float, float] | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -258,6 +279,65 @@ class ServeEngine:
             "block_exec": "n/a",
         }
         ftl_registry.register_counter_reset(self)
+
+        # telemetry: span recording + per-step gauges + the online drift
+        # monitor, all opt-in — a bare engine pays nothing
+        self.obs = bool(obs)
+        self.drift = None
+        if self.obs:
+            obslib.enable()
+            self.drift = obslib.DriftMonitor(
+                target=drift_target if drift_target is not None
+                else self.target,
+                **({"band": drift_band} if drift_band else {}))
+            self._g_active = obslib.gauge(
+                "serve_active_slots", "slots currently decoding")
+            self._g_queue = obslib.gauge(
+                "serve_queue_depth", "requests waiting for a slot")
+            self._g_kv_free = obslib.gauge(
+                "serve_kv_free_blocks", "paged-KV free physical blocks")
+            self._g_kv_occ = obslib.gauge(
+                "serve_kv_page_occupancy",
+                "fraction of the paged-KV pool in use")
+            self._c_evict = obslib.counter(
+                "serve_evictions_total", "slots freed (EOS/max-len)")
+            self._h_step = obslib.histogram(
+                "serve_decode_step_seconds", "wall-clock per decode step")
+            self._register_obs_collector()
+
+    def _register_obs_collector(self) -> None:
+        """Re-express ``plan_report()``/``stats`` on the metrics registry
+        at collect time.  Weakly bound: a dead engine's collector is a
+        no-op, never a leak."""
+        ref = weakref.ref(self)
+
+        def _collect(reg) -> None:
+            eng = ref()
+            if eng is None:
+                return
+            g_stat = reg.gauge("serve_stats",
+                               "ServeEngine.stats re-expressed", ("stat",))
+            for k in ("prefills", "decode_steps", "tokens", "replans"):
+                g_stat.labels(stat=k).set(eng.stats[k])
+            g_pc = reg.gauge("serve_plan_cache",
+                             "serving PlanCache counters", ("field",))
+            for k, v in eng.plans.counters().items():
+                g_pc.labels(field=k).set(v)
+            rep = eng.plan_report()
+            g_plan = reg.gauge(
+                "serve_plan_segments",
+                "planned segments per serving regime (0 = no plan)",
+                ("phase", "schedule"))
+            for phase in ("prefill", "decode"):
+                e = rep[phase]
+                if e is not None:
+                    g_plan.labels(phase=phase, schedule=e["schedule"]) \
+                        .set(len(e["cuts"]) + 1)
+            reg.gauge("serve_decode_differs_from_prefill",
+                      "1 when the decode DP picked different cuts") \
+                .set(float(rep["decode_differs_from_prefill"]))
+
+        obslib.register_collector(_collect)
 
     def reset_counters(self) -> None:
         """Called by ``registry.clear_plan_caches``: the replan counter
@@ -350,8 +430,10 @@ class ServeEngine:
         Executes one transformer block of the engine's own parameters
         through ``registry.run_block`` on a (1, max_seq, d_model)
         activation, requalifying every binding on this device; records
-        the resolved executors and the wall-clock time in ``stats``.
-        Returns None when the model has no plannable block."""
+        the resolved executors and the wall-clock time in ``stats`` and,
+        with telemetry on, the block's modeled/measured ratio on the
+        drift monitor (``drift_ratio``).  Returns None when the model has
+        no plannable block."""
         if self.block_plan is None:
             return None
         p, kind = self._first_block_params()
@@ -383,6 +465,11 @@ class ServeEngine:
             "finite": bool(torch.isfinite(y).all()),
         }
         self.stats["block_exec"] = entry
+        if self.drift is not None:
+            # the gated drift feed: a whole planned block, wall-clocked at
+            # the serving shape
+            entry["drift_ratio"] = self.drift.observe_chain(
+                self.block_plan, dt, name="block_exec", kind="block")
         return entry
 
     def _first_block_params(self):
@@ -486,6 +573,8 @@ class ServeEngine:
             self.pos[slot] = 0
             if self.paged:
                 self.kv.release(slot)
+        if self.obs:
+            self._c_evict.inc()
 
     def step(self):
         """One batched decode step for all active slots (each at its own
@@ -547,6 +636,27 @@ class ServeEngine:
                 r.t_done = now
         self.stats["decode_steps"] += 1
         obslib.end()  # serve:decode_step
+        if self.obs:
+            self._observe_step(time.perf_counter() - t0)
+
+    def _observe_step(self, dt: float) -> None:
+        """Per-step gauges + a sampled drift row (obs-enabled engines)."""
+        self._h_step.observe(dt)
+        self._g_active.set(sum(1 for r in self.active
+                               if r is not None and not r.done))
+        if self.paged:
+            free = self.kv.free_blocks
+            self._g_kv_free.set(free)
+            self._g_kv_occ.set(1.0 - free / max(self.kv.num_blocks, 1))
+        if (self.drift is not None and self.decode_plan is not None
+                and self.stats["decode_steps"] % _DRIFT_SAMPLE_EVERY == 0):
+            # report-only row: a decode step runs the per-block plan
+            # n_layers times (plus head and dispatch the block plan is
+            # never charged for), so the modeled side is scaled to match;
+            # the whole-block rows of execute_block_plan are the gated ones
+            self.drift.observe_chain(
+                self.decode_plan, dt, name="decode_step", kind="decode",
+                scale=max(self.cfg.n_layers, 1))
 
     def run(self, requests: list[Request],
             extras: dict[str, Any] | None = None,
@@ -572,6 +682,8 @@ class ServeEngine:
         done: list[Request] = []
         while queue or any(r is not None for r in self.active):
             now = time.perf_counter()
+            if self.obs:
+                self._g_queue.set(len(queue))
             admitted_any = False
             for i in range(self.slots):
                 r = self.active[i]
@@ -618,8 +730,9 @@ def serving_ftl_mode(cfg) -> str:
     ``'auto'`` for an ungated MLP: the planner's ``partial`` schedule binds
     ``cuda_partial_mlp`` (``gemm_act``, then ``gemm``) at every prefill
     bucket on the card.  ``'fused'`` for a gated one: the partial kernels
-    take no gate, and under ``'auto'`` the planner would leave the gated
-    MLP to ``torch_partial_scan_mlp`` (ROADMAP, finding 2).  A MoE
+    take no gate, and under ``'auto'`` the planner would bind the gated
+    MLP to ``torch_partial_scan_mlp``, which a run on the card refuses
+    (``executor_block._stage_executor``; ROADMAP, finding 2).  A MoE
     config's shared experts are one gated MLP, run outside any plan with
     the config's mode (as the reference's ``moe_layer`` runs them), so a
     gated shared MLP takes ``'fused'`` too: the fused-MLP kernel at M =
@@ -637,7 +750,9 @@ def serving_ftl_mode(cfg) -> str:
     return "fused" if cfg.mlp_gated else "auto"
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> ServeEngine:
+    """The serve CLI; returns the engine it served with (its ``stats``,
+    ``drift`` and ``plan_report()`` for tools)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -659,7 +774,27 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' "
                     "only when asked for)")
+    ap.add_argument("--trace", default=None,
+                    help="write a Chrome-tracing timeline of the decode "
+                    "plan's simulated schedule to this path (with --obs: "
+                    "the merged live+modeled timeline, written post-run)")
+    ap.add_argument("--obs", action="store_true",
+                    help="enable runtime telemetry (spans, gauges, the "
+                    "online drift monitor)")
+    ap.add_argument("--obs-trace", default=None,
+                    help="write the merged live+modeled Perfetto "
+                    "timeline to this path after the run (implies --obs)")
+    ap.add_argument("--obs-metrics", default=None,
+                    help="write a Prometheus text exposition of the "
+                    "metrics registry to this path after the run "
+                    "(implies --obs)")
     args = ap.parse_args(argv)
+    if args.obs_trace or args.obs_metrics:
+        args.obs = True
+    if args.trace and args.obs_trace and args.trace == args.obs_trace:
+        ap.error("--trace and --obs-trace point at the same path "
+                 f"({args.trace}); they would silently overwrite each "
+                 "other — give them distinct paths")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -689,7 +824,8 @@ def main(argv: list[str] | None = None) -> None:
     eng = ServeEngine(cfg, params, batch_slots=args.slots,
                       max_seq=args.max_seq, target=target,
                       block_size=args.block_size,
-                      paged=False if args.dense_kv else None, device=device)
+                      paged=False if args.dense_kv else None, device=device,
+                      obs=args.obs)
     report = eng.plan_report()
     print(f"FTL serving plans on {report['target']} "
           f"(buckets {report['buckets']}, "
@@ -707,7 +843,17 @@ def main(argv: list[str] | None = None) -> None:
     if exec_stats is not None:
         print(f"block plan executed @ m={args.max_seq}: "
               f"{exec_stats['ms']} ms, executors "
-              f"{exec_stats['executors']}")
+              f"{exec_stats['executors']}"
+              + (f", modeled/measured {exec_stats['drift_ratio']}"
+                 if "drift_ratio" in exec_stats else ""))
+    if args.trace and not args.obs:
+        # modeled-only timeline (pre-run: it needs no live spans); with
+        # --obs the trace is written post-run as the merged view instead
+        from repro_torch.sim import write_chrome_trace
+        plan = eng.decode_plan or eng.block_plan
+        if plan is not None:
+            write_chrome_trace(plan, args.trace)
+            print(f"decode-plan timeline written to {args.trace}")
 
     eng.warmup_compile(extras)
     arrivals = (poisson_arrivals(args.requests, args.arrival_rate,
@@ -730,6 +876,23 @@ def main(argv: list[str] | None = None) -> None:
           f"warmup), {eng.stats['replans']} decode replans")
     for r in done[:3]:
         print(f"  req {r.rid}: {len(r.out)} tokens: {r.out[:10]}...")
+
+    if args.obs:
+        if eng.drift is not None and eng.drift.n_observed:
+            st = eng.drift.status()
+            print(f"drift monitor on {st['target']}: geomean "
+                  f"modeled/measured {st['geomean_ratio']} "
+                  f"({'in' if st['in_band'] else 'OUT OF'} band "
+                  f"{tuple(st['band'])}, {st['n_observed']} observations)")
+        plan = eng.decode_plan or eng.block_plan
+        for path in (args.obs_trace, args.trace):
+            if path:
+                obslib.write_merged_trace(path, chain=plan)
+                print(f"merged live+modeled timeline written to {path}")
+        if args.obs_metrics:
+            obslib.write_prometheus(args.obs_metrics)
+            print(f"Prometheus metrics written to {args.obs_metrics}")
+    return eng
 
 
 if __name__ == "__main__":

@@ -17,6 +17,11 @@ On the card, full width::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
       --steps 4 --batch 4 --seq 1024 --accum 2
+
+``--obs`` records ``train_step`` spans and the straggler/heartbeat
+metrics on :mod:`repro_torch.obs`; ``--obs-trace PATH`` writes the merged
+live+modeled timeline over the block plan, ``--obs-metrics PATH`` the
+Prometheus text (both imply ``--obs``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import logging
 
 import torch
 
+from repro_torch import obs as obslib
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ftl import executor_block
@@ -131,6 +137,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--obs", action="store_true",
+                    help="runtime telemetry: train_step spans + straggler/"
+                    "heartbeat metrics on the repro_torch.obs registry")
+    ap.add_argument("--obs-trace", default=None,
+                    help="merged live+modeled Chrome-tracing JSON "
+                    "(implies --obs)")
+    ap.add_argument("--obs-metrics", default=None,
+                    help="Prometheus text exposition written post-run "
+                    "(implies --obs)")
     ap.add_argument("--heartbeat-dir", default=None,
                     help="shared dir for per-process heartbeat stamps")
     ap.add_argument("--device", default=None,
@@ -142,6 +157,10 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = parser().parse_args(argv)
+    if args.obs_trace or args.obs_metrics:
+        args.obs = True
+    if args.obs:
+        obslib.enable()
     loop = build(args)
     loop.run()
     if loop.metrics_log:
@@ -154,6 +173,17 @@ def main(argv: list[str] | None = None) -> None:
         print(f"stragglers: {len(flagged)} flagged step(s), worst "
               f"step {worst.step} at {worst.seconds:.3f}s "
               f"(ema {loop.monitor.ema:.3f}s)")
+    elif args.obs:
+        print(f"stragglers: none flagged over {len(loop.monitor.history)} "
+              f"steps (ema {loop.monitor.ema:.3f}s)"
+              if loop.monitor.ema is not None else "stragglers: no steps ran")
+
+    if args.obs_trace:
+        obslib.write_merged_trace(args.obs_trace, chain=loop.block_plan)
+        print(f"wrote merged trace to {args.obs_trace}")
+    if args.obs_metrics:
+        obslib.write_prometheus(args.obs_metrics)
+        print(f"wrote metrics to {args.obs_metrics}")
 
 
 if __name__ == "__main__":

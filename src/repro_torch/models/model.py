@@ -246,22 +246,27 @@ def _periods(stack: Params):
 
 
 @functools.lru_cache(maxsize=256)
-def _block_plan_cached(cfg, m: int, dtype: str, target, plat: str):
+def _block_plan_cached(cfg, m: int, dtype: str, target, plat: str,
+                       autotune=None):
     if cfg.is_moe or cfg.ftl_mode == "off":
         return None
     try:
         return ftl_registry.plan_block(cfg, m=m, dtype=dtype, target=target,
-                                       device=plat)
+                                       autotune=autotune, device=plat)
     except (ValueError, InfeasibleError):
         return None
 
 
-def _block_plan(cfg, m: int, dtype: str, target=None, device=None):
+def _block_plan(cfg, m: int, dtype: str, target=None, device=None,
+                autotune=None):
     """Cached whole-block FTL plan for the forward pass, or None when
-    there is nothing to plan (``ftl_mode='off'``, MoE)."""
+    there is nothing to plan (``ftl_mode='off'``, MoE).  ``autotune`` (a
+    :class:`repro_torch.tune.AutotuneConfig`) is part of the cache key: a
+    DES-tuned plan and the analytic plan for the same shapes never
+    alias."""
     target = target if target is not None else hw.default_target()
     return _block_plan_cached(cfg, m, dtype, target,
-                              ftl_registry.platform(device))
+                              ftl_registry.platform(device), autotune)
 
 
 # ---------------------------------------------------------------------------

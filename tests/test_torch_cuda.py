@@ -1166,3 +1166,56 @@ def test_moe_layer_on_the_card_matches_the_cpu(dev):
     assert bool(((o - w).abs() <= 2e-2 + 2e-2 * w.abs()).all()), \
         float((o - w).abs().max())
     assert abs(float(aux) - float(want_aux)) <= 1e-4
+
+
+def test_wallclock_waits_for_the_device(dev):
+    """``calib.wallclock_s`` times the work, not its launch: a call that
+    enqueues a device-side sleep of about 30 ms and returns at once on
+    the host must time at least that long."""
+    from repro_torch.calib import wallclock_s
+
+    t = torch.zeros(1, device=dev)
+
+    def sleepy():
+        torch.cuda._sleep(50_000_000)   # ~30 ms at the H100's 1.7 GHz
+        return [t + 1]
+
+    assert wallclock_s(sleepy, repeats=2, warmup=0) >= 0.01
+
+
+def test_measure_gemms_times_the_kernel_and_refuses_fp32(dev):
+    """A GEMM row's sample replays the kernel's calls from one CUDA
+    graph: one launch outside the graph, the sample's calls inside it,
+    none at replay; the features repeat the sample's calls."""
+    from repro_torch.calib import measure, measure_gemms
+
+    before = gemm.launches
+    (row,) = measure_gemms([(256, 512, 256)], repeats=1, warmup=0,
+                           dtype=torch.bfloat16, device=dev)
+    calls = measure.CUDA_CALLS_PER_SAMPLE
+    assert gemm.launches == before + 1 + calls and row.measured_s > 0
+    assert row.segments[0].repeat == calls
+    with pytest.raises(TypeError, match="bfloat16"):
+        measure_gemms([(256, 512, 256)], repeats=1, warmup=0, device=dev)
+
+
+def test_sampled_calls_replay_a_graph(dev):
+    """``measure._sampled`` on the card runs its calls as one CUDA graph
+    replay: each replay of the in-place pass adds the sample's calls to
+    the buffer; the DMA and activation rows repeat that many calls."""
+    from repro_torch.calib import measure
+
+    calls = measure.CUDA_CALLS_PER_SAMPLE
+    x = torch.zeros(1 << 16, dtype=torch.float32, device=dev)
+    sample, n = measure._sampled(measure._add_one, x)
+    assert n == calls and sample() is x
+    torch.cuda.synchronize()
+    # the call outside the graph, the capture (which runs nothing), one
+    # replay
+    assert bool((x == 1 + calls).all())
+    rows = measure.measure_dma_proxy([1 << 20], repeats=1, warmup=0,
+                                     dtype=torch.bfloat16, device=dev)
+    rows += measure.measure_elementwise([1 << 20], repeats=1, warmup=0,
+                                        dtype=torch.bfloat16, device=dev)
+    assert all(r.segments[0].repeat == calls and r.measured_s > 0
+               for r in rows)

@@ -28,6 +28,11 @@ def _modules():
 def test_importing_every_module_pulls_no_jax_and_no_repro():
     mods = list(_modules())
     assert "repro_torch.launch.serve" in mods
+    # the planner tooling's subpackages are walked too
+    assert {"repro_torch.sim", "repro_torch.sim.des", "repro_torch.calib",
+            "repro_torch.calib.fit", "repro_torch.calib.measure",
+            "repro_torch.tune", "repro_torch.tune.autotune",
+            "repro_torch.obs.export", "repro_torch.obs.drift"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -36,6 +41,18 @@ def test_importing_every_module_pulls_no_jax_and_no_repro():
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_importing_obs_pulls_no_torch():
+    """The telemetry package (its drift monitor reads ``calib.measure``)
+    imports torch only where a measurement runs."""
+    code = ("import sys, repro_torch.obs, repro_torch.calib\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
