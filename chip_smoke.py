@@ -284,7 +284,26 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    drift status is finite, and the full-width block's drift ratio is
    printed on the preset and on the fit.  It ends with ``obs.disable()``
    and the metrics registry cleared.
-15. One JSON line for the kernels, then the result line.
+15. The distributed layer on the one card (``repro_torch.distributed``,
+   ``launch/mesh.py``): (a) a one-rank NCCL group and a 1 x 1 ``data`` x
+   ``model`` mesh, its backend printed; (b) llama3.2-3b at full width:
+   ``init_train_state(..., mesh=)`` bit-identical leaf by leaf to the
+   unsharded init of the same seed, then 2 x 256-token prefills and 8
+   decode steps through ``make_prefill_step`` and ``make_decode_step``
+   with the mesh under ``serving_ftl_mode`` (``"fused"``), their logits
+   bit-identical to the mesh-less steps' with the same launches (flash
+   and the fused MLP, counted from 0 before each run); (c) phase 11's
+   trainer flags plus ``--mesh 1x1 --compress``: each step makes phase
+   11's launches and no other, step 1's loss equals phase 11's bit for
+   bit, losses and the error-feedback state's norm finite, the state not
+   zero, the peak memory and step time printed beside phase 11's, and
+   the EF pass (``compression.ef_compress_``) timed alone on the device
+   beside its bound; (d) ``compressed_psum`` over the group equal to
+   ``dequantize(quantize(x))`` for a (4096, 3072) bf16 tensor, and
+   ``pipeline_forward`` over a one-stage ``pipe`` mesh (8 ``tanh(a @
+   w)`` layers at d = 3072, 4 microbatches) equal to the sequential
+   chain, both bit for bit.  The group is destroyed at the end.
+16. One JSON line for the kernels, then the result line.
 
 Phase 1 also holds the fused MLP's footprint at the MoE configs' shared
 experts (2048 -> 5632 and 2048 -> 2816, gated) and at
@@ -2433,7 +2452,8 @@ TRAIN_PATHS = (
 )
 
 
-def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
+def train_phase(dev, card: str, counters: dict, path: TrainPath
+                ) -> tuple[dict, dict]:
     """``path``'s model at full width (bf16, random weights from a seed;
     its depth cut where ``path`` says) through
     ``repro_torch.launch.train.build``: the steps and microbatches of
@@ -2446,7 +2466,8 @@ def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
     with ``backend='ref'``; through the whole stack, or with
     ``path.layerwise`` each layer's on the same input and cotangent),
     and, where ``path.fused_raises``, a step under
-    ``ftl_mode='fused'``, which must raise."""
+    ``ftl_mode='fused'``, which must raise.  Returns the main path's
+    launches and its losses, steady step seconds and peak GB."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import model as M
@@ -2609,7 +2630,8 @@ def train_phase(dev, card: str, counters: dict, path: TrainPath) -> dict:
         del step
     del loop, leaves
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"losses": [m["loss"] for m in log], "step_s": step_s,
+                      "peak_gb": peak}
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2654,7 +2676,7 @@ def layer_grads(cfg, params, tokens, plain) -> tuple[dict, dict]:
         t.requires_grad_(True)
     gen = torch.Generator(device=tokens.device).manual_seed(5)
     leaves, scans = {}, {}
-    for i, ((kind, p), x_in) in enumerate(zip(M._layers(chk, params), xs)):
+    for i, ((kind, p, _), x_in) in enumerate(zip(M._layers(chk, params), xs)):
         if kind != "mlstm":
             continue
         named = list(_flat_names(p))
@@ -2974,6 +2996,209 @@ def tooling_phase(dev, kernels: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 15: the distributed layer on one card
+# ---------------------------------------------------------------------------
+
+# llama3.2-3b served and trained through the mesh steps: phase 11's
+# trainer flags with a 1 x 1 data x model mesh and int8 error feedback,
+# the same launches a step
+MESH_SERVE = "llama3.2-3b (serve, mesh 1x1)"
+MESH_TRAIN = "llama3.2-3b (train, --mesh 1x1 --compress)"
+MESH_TRAIN_PATH = dataclasses.replace(
+    TRAIN_PATHS[0], label=MESH_TRAIN,
+    argv=(*TRAIN_PATHS[0].argv, "--mesh", "1x1", "--compress"))
+# the mesh serving check: B prompts of PROMPT tokens, then DECODE steps
+MESH_B, MESH_PROMPT, MESH_DECODE = 2, 256, 8
+# the pipeline check: 8 tanh(a @ w) layers at d = 3072, 4 microbatches
+PIPE_LAYERS, PIPE_D, PIPE_M, PIPE_MB = 8, 3072, 4, 256
+
+
+def _zero(counters: dict) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def _read(counters: dict) -> dict:
+    return {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+
+
+def mesh_phase(dev, card: str, counters: dict, train11: dict) -> dict:
+    """Phase 15: (a) a one-rank NCCL group and a 1 x 1 ``data`` x
+    ``model`` mesh; (b) llama3.2-3b at full width: the sharded init
+    against the unsharded one leaf by leaf, and the mesh prefill and
+    decode steps against the mesh-less ones under ``"fused"`` (logits
+    and launches); (c) phase 11's training with ``--mesh 1x1 --compress``
+    through the trainer: the same launches a step, step 1's loss equal to
+    phase 11's, the error-feedback state finite and not zero, the peak
+    and step time beside phase 11's, the EF pass's device time; (d)
+    ``compressed_psum`` and ``pipeline_forward`` on the group.  Returns
+    the serving and training runs' launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.pipeline import (pipeline_forward,
+                                                  stage_params)
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serving_ftl_mode
+    from repro_torch.models import model as M
+    from repro_torch.train import steps as S
+
+    # --- (a) the group and the mesh ---------------------------------------
+    check(not dist.is_initialized(), "a process group is up before phase 15")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    print(f"  process group: backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}; {mesh}")
+    check(dist.get_backend() == "nccl", f"the card's mesh runs over "
+          f"{dist.get_backend()}, not NCCL")
+
+    # --- (b) llama3.2-3b: the sharded init and the serving steps ------------
+    cfg = get_config(LLAMA)
+    cfg = dataclasses.replace(cfg, ftl_mode=serving_ftl_mode(cfg))
+    t0 = time.perf_counter()
+    state = S.init_train_state(cfg, 0, device=dev, mesh=mesh)
+    whole = M.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    dts = C.paths_and_leaves(state.params)
+    check(len(dts) == len(M.tree_leaves(whole)) and all(
+        isinstance(t, DTensor) and torch.equal(t.to_local(), w)
+        for t, w in zip(dts.values(), M.tree_leaves(whole))),
+        "the sharded init differs from the unsharded init")
+    print(f"  init_train_state(mesh=): {len(dts)} DTensor leaves, "
+          f"{sum(t.numel() for t in dts.values())} parameters, bit-identical "
+          f"to init_params leaf by leaf ({time.perf_counter() - t0} s for "
+          f"both, with the fp32 moments)")
+    params = state.params
+    del state, dts
+    gen = torch.Generator(device=dev).manual_seed(15)
+    toks = torch.randint(2, cfg.vocab_size, (MESH_B, MESH_PROMPT
+                                             + MESH_DECODE),
+                         generator=gen, device=dev)
+
+    def serve(prefill, decode, p):
+        _zero(counters)
+        logits, cache = prefill(p, {"tokens": toks[:, :MESH_PROMPT]})
+        out = [logits]
+        for i in range(MESH_PROMPT, MESH_PROMPT + MESH_DECODE):
+            lg, cache = decode(p, cache, toks[:, i:i + 1],
+                               torch.tensor(i, device=dev))
+            out.append(lg)
+        torch.cuda.synchronize()
+        return out, _read(counters)
+
+    max_seq = MESH_PROMPT + MESH_DECODE
+    plain, plain_n = serve(S.make_prefill_step(cfg, None, max_seq=max_seq),
+                           S.make_decode_step(cfg, None), whole)
+    meshed, mesh_n = serve(S.make_prefill_step(cfg, mesh, max_seq=max_seq),
+                           S.make_decode_step(cfg, mesh), params)
+    same = [torch.equal(a, b) for a, b in zip(meshed, plain)]
+    print(f"  {MESH_B} x {MESH_PROMPT}-token prefill and {MESH_DECODE} "
+          f"decode steps under {cfg.ftl_mode!r}: logits bit-identical "
+          f"mesh vs mesh-less {same}; launches mesh {mesh_n}, mesh-less "
+          f"{plain_n}")
+    check(all(same), "the mesh serving steps' logits differ from the "
+          "mesh-less steps'")
+    check(mesh_n == plain_n and mesh_n["flash_attention"] > 0
+          and mesh_n["fused_mlp"] > 0, "the mesh serving steps launch "
+          "other kernels than the mesh-less steps, or no flash or fused MLP")
+    del params, whole, plain, meshed
+    torch.cuda.empty_cache()
+
+    # --- (c) phase 11's training with --mesh 1x1 --compress ----------------
+    path = MESH_TRAIN_PATH
+    args = train.parser().parse_args(
+        [*path.argv, "--data", "bigram", "--log-every", "1"])
+    loop = train.build(args, get_config(path.arch))
+    check(loop.mesh is not None and loop.state.ef_error is not None,
+          "the trainer built no mesh or no error-feedback state")
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loop.run()
+    torch.cuda.synchronize()
+    train_n = _read(counters)
+    for name, n in train_n.items():
+        want = path.per_step.get(name, 0) * args.steps
+        check(n == want, f"{name} launched {n} times in {args.steps} mesh "
+              f"steps, not {path.per_step.get(name, 0)} a step")
+    log = loop.metrics_log
+    losses = [m["loss"] for m in log]
+    secs = [st.seconds for st in loop.monitor.history]
+    step_s = statistics.median(secs[1:])
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    efs = M.tree_leaves(C.local_tree(loop.state.ef_error))
+    ef_norm = math.sqrt(sum(float(torch.sum(e.double() ** 2))
+                            for e in efs))
+    retries = torch.cuda.memory_stats(dev)["num_alloc_retries"]
+    print(f"  main path launches: {train_n}")
+    print(f"  {args.steps} steps with --mesh 1x1 --compress: losses "
+          f"{losses} (phase 11: {train11['losses']}); step seconds {secs}, "
+          f"steady {step_s} s (phase 11: {train11['step_s']} s); peak "
+          f"device memory {peak} GB (phase 11: {train11['peak_gb']} GB), "
+          f"the caching allocator's retries {retries}; error-feedback "
+          f"state {sum(e.numel() for e in efs)} fp32 elements, norm "
+          f"{ef_norm} [{card}]")
+    check(len(log) == args.steps and all(
+        math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+        for m in log), f"non-finite loss or grad norm: {log}")
+    check(losses[0] == train11["losses"][0], f"step 1's loss {losses[0]} "
+          f"is not phase 11's {train11['losses'][0]}")
+    check(math.isfinite(ef_norm) and ef_norm > 0,
+          f"error-feedback state norm {ef_norm}")
+    # the EF pass alone, on gradients of the run's scale, timed on the card
+    grads = [torch.randn(e.shape, generator=gen, device=dev).mul_(1e-4)
+             for e in efs]
+    ef_ms = Timer(dev).ms(lambda: compression.ef_compress_(
+        grads, efs, reduce_max=True), n=5)
+    n_ef = sum(e.numel() for e in efs)
+    ef_bound, ef_by = bound_ms(4 * 4 * n_ef, 0)
+    print(f"  the EF pass (ef_compress_, {n_ef} fp32 elements, in place "
+          f"leaf by leaf): {ef_ms} ms on the device, bound {ef_bound} ms "
+          f"({ef_by}: g and e read and written once) [{card}]")
+    del grads, efs, loop
+    torch.cuda.empty_cache()
+
+    # --- (d) the collectives on NCCL ---------------------------------------
+    x = torch.randn((4096, 3072), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    got = compression.compressed_psum(x, "data", mesh=mesh)
+    q, s = compression.quantize(x)
+    want = compression.dequantize(q, s).to(x.dtype)
+    print(f"  compressed_psum over the one-rank group, (4096, 3072) bf16: "
+          f"bit-identical to dequantize(quantize(x)) "
+          f"{torch.equal(got, want)}")
+    check(torch.equal(got, want), "compressed_psum over one rank differs "
+          "from dequantize(quantize(x))")
+    pipe = make_mesh((1,), ("pipe",))
+    ws = [(torch.randn((PIPE_D, PIPE_D), generator=gen, device=dev)
+           / math.sqrt(PIPE_D)).to(torch.bfloat16)
+          for _ in range(PIPE_LAYERS)]
+    xs = torch.randn((PIPE_M, PIPE_MB, PIPE_D), generator=gen, device=dev
+                     ).to(torch.bfloat16)
+
+    def stage_fn(p, a):
+        for w in p["w"]:
+            a = torch.tanh(a @ w)
+        return a
+
+    out = pipeline_forward(stage_fn, stage_params([{"w": w} for w in ws], 1),
+                           xs, mesh=pipe)
+    chain = torch.stack([stage_fn({"w": ws}, xs[i]) for i in range(PIPE_M)])
+    torch.cuda.synchronize()
+    print(f"  pipeline_forward, one stage of {PIPE_LAYERS} tanh(a @ w) "
+          f"layers at d = {PIPE_D}, {PIPE_M} microbatches of {PIPE_MB}: "
+          f"bit-identical to the sequential chain {torch.equal(out, chain)}")
+    check(torch.equal(out, chain), "pipeline_forward differs from the "
+          "sequential chain")
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived phase 15")
+    torch.cuda.empty_cache()
+    return {MESH_SERVE: mesh_n, MESH_TRAIN: train_n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3176,15 +3401,20 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
     # each model's training state after the one before is freed
+    trained = {}
     for path in TRAIN_PATHS:
         print(f"== train {path.label}, full width, through the trainer (at "
               f"{time.perf_counter() - t_start} s)")
-        launches[path.label] = train_phase(dev, card, counters, path)
+        launches[path.label], trained[path.label] = train_phase(
+            dev, card, counters, path)
     print(f"== planner tooling on the card (at "
           f"{time.perf_counter() - t_start} s)")
     launches[TOOLING] = tooling_phase(
         dev, {n: kernels[n] for n in ("gemm", "flash_attention",
                                       "fused_mlp")})
+    print(f"== the distributed layer on one card: a one-rank NCCL mesh (at "
+          f"{time.perf_counter() - t_start} s)")
+    launches.update(mesh_phase(dev, card, counters, trained[TRAIN]))
     print(f"  total {time.perf_counter() - t_start} s")
 
     meta = {

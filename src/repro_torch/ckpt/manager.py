@@ -14,6 +14,13 @@ atomically to ``step_<n>/``, so a partly written checkpoint is never
 visible to ``latest_step``.  Async mode copies the tensors to host memory
 on the caller's thread and writes the files on a background thread, so
 training goes on during the write (and may update the tensors in place).
+
+A state on a mesh (DTensor leaves) is saved whole: every rank gathers
+each leaf in turn, one leaf at a time, and rank 0 alone writes
+``proc_0.npz``.  Restoring with ``shardings`` (or into a ``like`` tree of
+DTensors) reads those whole leaves and keeps each rank's shard under the
+caller's placements, whatever mesh saved them: the reference's elastic
+re-shard.
 """
 from __future__ import annotations
 
@@ -27,8 +34,11 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import process_rank
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import NamedSharding
 
 PyTree = Any
 _SEP = "/"
@@ -38,7 +48,9 @@ def _leaves_with_keys(tree: PyTree, path: tuple[str, ...] = ()):
     """(key, leaf) of every tensor leaf; None stands for no leaf."""
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if isinstance(tree, NamedSharding):
+        yield _SEP.join(path), tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves_with_keys(v, (*path, str(k)))
     elif dataclasses.is_dataclass(tree):
@@ -50,8 +62,10 @@ def _leaves_with_keys(tree: PyTree, path: tuple[str, ...] = ()):
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` as numpy, and the dtype name to record."""
-    t = torch.as_tensor(t).detach().to("cpu", copy=True)
+    """A host copy of ``t`` (a DTensor's whole tensor, gathered) as numpy,
+    and the dtype name to record."""
+    t = torch.as_tensor(collectives.full_tensor(t)).detach().to(
+        "cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
@@ -60,7 +74,7 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 def _flatten(tree: PyTree) -> tuple[dict[str, np.ndarray], dict[str, str]]:
     flat, dtypes = {}, {}
-    for key, leaf in _leaves_with_keys(tree):
+    for key, leaf in _leaves_with_keys(tree):     # one whole leaf at a time
         flat[key], dtypes[key] = _to_numpy(leaf)
     return flat, dtypes
 
@@ -139,6 +153,8 @@ class CheckpointManager:
         self.wait()                      # one in-flight async save at a time
         flat, dtypes = _flatten(state)   # the host copy, on this thread
         shapes = {k: [list(v.shape), dtypes[k]] for k, v in flat.items()}
+        if _sharded(state) and self._pi != 0:
+            return                       # rank 0 writes the whole leaves
 
         def write():
             tmp = self._dir(step, tmp=True)
@@ -171,13 +187,36 @@ class CheckpointManager:
             shutil.rmtree(self._dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, like: PyTree, *, step: int | None = None
-                ) -> tuple[PyTree, int]:
+    def restore(self, like: PyTree, *, step: int | None = None,
+                shardings: PyTree | None = None) -> tuple[PyTree, int]:
         """The checkpoint at ``step`` (None: the latest) in ``like``'s
-        structure, dtypes and devices."""
+        structure, dtypes and devices.  ``shardings`` (a tree of
+        :class:`NamedSharding` matching ``like``), or DTensor leaves in
+        ``like``, place each leaf on the mesh under those placements,
+        whatever mesh saved it; a scalar (the step) is restored whole."""
         if step is None:
             step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoint under {self.root}")
-        path = os.path.join(self._dir(step), f"proc_{self._pi}.npz")
-        return restore_tree(path, like), step
+        if shardings is None and not _sharded(like):
+            path = os.path.join(self._dir(step), f"proc_{self._pi}.npz")
+            return restore_tree(path, like), step
+        by_key = dict(_leaves_with_keys(shardings)) if shardings else {}
+        like_by_key = dict(_leaves_with_keys(like))
+
+        def put(arr, key):
+            leaf = like_by_key[key]
+            dense = leaf.to_local() if isinstance(leaf, DTensor) else leaf
+            full = _from_numpy(arr, dense)
+            where = by_key.get(key, leaf)
+            if full.dim() == 0 or not isinstance(
+                    where, (NamedSharding, DTensor)):
+                return full
+            return collectives.place(full, where)
+
+        path = os.path.join(self._dir(step), "proc_0.npz")
+        return restore_tree(path, like, put=put), step
+
+
+def _sharded(tree: PyTree) -> bool:
+    return any(isinstance(t, DTensor) for _, t in _leaves_with_keys(tree))

@@ -9,8 +9,10 @@ Design goals that carry over to a real pipeline 1:1:
   bit-identically at any step without replaying the stream (the property
   the checkpoint/restart tests assert).
 * **Host sharding** — each process materializes only its
-  ``global_batch / process_count`` slice (the rank and world size of
-  ``torch.distributed`` when a process group is up, else 0 of 1).
+  ``global_batch / process_count`` slice: on a mesh, the rank's
+  coordinate over the dp axes out of their size (ranks along ``model``
+  read the same rows); else the rank and world size of
+  ``torch.distributed`` when a process group is up, else 0 of 1.
 * **Prefetch** — a daemon thread keeps ``prefetch`` batches ahead so host
   data generation overlaps device compute.
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import process_rank, torch_dtype
+from repro_torch.distributed import collectives
 
 Params = dict[str, Any]
 
@@ -87,9 +90,12 @@ class SyntheticLM:
 
     def __init__(self, cfg: DataConfig, *,
                  process_index: int | None = None,
-                 process_count: int | None = None):
+                 process_count: int | None = None, mesh=None):
         self.cfg = cfg
-        rank, world = process_rank()
+        if mesh is not None:
+            rank, world = collectives.dp_rank(mesh), collectives.dp_size(mesh)
+        else:
+            rank, world = process_rank()
         self.pi = rank if process_index is None else process_index
         self.pc = world if process_count is None else process_count
         assert cfg.global_batch % self.pc == 0

@@ -1,12 +1,21 @@
 """Training driver of the port: the counterpart of ``repro.launch.train``.
 
-It runs real steps on one device: the CUDA card unless ``--device`` names
-another (with no card and no device named it raises).  Fault tolerance
+It runs real steps on the CUDA card unless ``--device`` names another
+device (with no card and no device named it raises).  Fault tolerance
 comes from :class:`repro_torch.runtime.TrainLoop`: auto-resume from the
 latest checkpoint, async saves every ``--ckpt-every`` steps,
-SIGTERM-preemption checkpointing, straggler flagging.  ``--mesh`` and
-``--compress`` belong to the distributed layer, which the port does not
-have yet: they raise.
+SIGTERM-preemption checkpointing, straggler flagging.
+
+``--mesh AxB[xC]`` trains on a mesh over the axes ``("pod", "data",
+"model")[-len(shape):]``, one process a device (``torchrun
+--nproc-per-node N``; a mesh of one device needs no launcher): the state
+is placed under ``train.steps.state_pspecs``, each rank reads its dp
+rows of every batch, and checkpoints hold whole leaves.  ``--compress``
+applies int8 error-feedback compression to the reduced gradients.  Over
+NCCL on cards, over gloo with ``--device cpu``::
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --reduced --device cpu --mesh 2x2 --compress
 
 CPU end to end (reduced config, synthetic bigram data)::
 
@@ -30,6 +39,7 @@ import dataclasses
 import logging
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs as obslib
 from repro_torch.configs import get_config
@@ -38,7 +48,9 @@ from repro_torch.core.ftl import executor_block
 from repro_torch.core.ftl import registry as ftl_registry
 from repro_torch.core.ftl.solver import InfeasibleError
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.device import resolve_device
+from repro_torch.device import process_rank, resolve_device
+from repro_torch.distributed.sharding import to_shardings
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.optim import OptConfig
 from repro_torch.runtime import LoopConfig, TrainLoop
 from repro_torch.runtime.monitor import HeartbeatMonitor
@@ -49,13 +61,13 @@ def build(args, cfg: ModelConfig | None = None) -> TrainLoop:
     """The :class:`TrainLoop` the flags in ``args`` describe, not yet
     run; its ``block_plan`` and ``heartbeat`` are surfaced for tools.
     ``cfg``, where given, takes the place of the config ``--arch`` names
-    (``--reduced`` and ``--ftl-mode`` still apply to it)."""
+    (``--reduced`` and ``--ftl-mode`` still apply to it); its ``mesh``
+    is the mesh ``--mesh`` built, or None."""
+    mesh = None
     if args.mesh:
-        raise NotImplementedError("the port has no distributed layer yet: "
-                                  "--mesh is not supported")
-    if args.compress:
-        raise NotImplementedError("the port has no gradient compression "
-                                  "yet: --compress is not supported")
+        shape = tuple(int(n) for n in args.mesh.split("x"))
+        mesh = make_mesh(shape, ("pod", "data", "model")[-len(shape):],
+                         device=args.device)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
@@ -82,18 +94,30 @@ def build(args, cfg: ModelConfig | None = None) -> TrainLoop:
         logging.info("FTL block plan unavailable (layer-per-layer path): "
                      "%s", e)
 
-    state = S.init_train_state(cfg, args.seed, device=device)
+    state = S.init_train_state(cfg, args.seed, device=device,
+                               compress=args.compress, mesh=mesh)
     opt = OptConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                     decay_steps=args.steps)
-    step = S.make_train_step(cfg, None, opt, accum=args.accum)
+    step = S.make_train_step(cfg, mesh, opt, accum=args.accum,
+                             compress=args.compress)
+    shardings = None if mesh is None else to_shardings(S.state_pspecs(
+        S.train_state_shapes(cfg, compress=args.compress), mesh, cfg), mesh)
     data = SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, global_batch=args.batch,
-        seq_len=args.seq, seed=args.seed, kind=args.data))
+        seq_len=args.seq, seed=args.seed, kind=args.data), mesh=mesh)
 
     # liveness: stamp a heartbeat at the top of every step (make_batch is
     # the first per-step call)
-    hb = (HeartbeatMonitor(args.heartbeat_dir, data.pi)
+    hb = (HeartbeatMonitor(args.heartbeat_dir, process_rank()[0])
           if args.heartbeat_dir else None)
+
+    def on_metrics(s: int, m: dict) -> None:
+        if process_rank()[0] == 0:          # one line a step, not a rank
+            print(f"step {s:6d} loss {m.get('loss', float('nan')):.4f} "
+                  f"gnorm {m.get('grad_norm', 0):.3f} "
+                  f"lr {m.get('lr', 0):.2e}"
+                  + (f" moe_aux {m['moe_aux']:.4f}" if "moe_aux" in m
+                     else ""), flush=True)
 
     def make_batch(i: int):
         if hb is not None:
@@ -104,15 +128,12 @@ def build(args, cfg: ModelConfig | None = None) -> TrainLoop:
     loop = TrainLoop(
         LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                    ckpt_every=args.ckpt_every, log_every=args.log_every),
-        step, make_batch, state,
-        on_metrics=lambda s, m: print(
-            f"step {s:6d} loss {m.get('loss', float('nan')):.4f} "
-            f"gnorm {m.get('grad_norm', 0):.3f} lr {m.get('lr', 0):.2e}"
-            + (f" moe_aux {m['moe_aux']:.4f}" if "moe_aux" in m else ""),
-            flush=True),
+        step, make_batch, state, state_shardings=shardings,
+        on_metrics=on_metrics,
     )
     loop.block_plan = bp
     loop.heartbeat = hb
+    loop.mesh = mesh
     return loop
 
 
@@ -129,11 +150,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data", default="bigram", choices=["bigram", "random"])
     ap.add_argument("--mesh", default=None,
-                    help="not supported yet (the distributed layer)")
+                    help="AxB[xC] over (pod,) data, model; one process a "
+                    "device (torchrun)")
     ap.add_argument("--ftl-mode", default=None,
                     choices=["off", "fused", "scan", "auto"])
     ap.add_argument("--compress", action="store_true",
-                    help="not supported yet (the distributed layer)")
+                    help="int8 error-feedback gradient compression")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -163,6 +185,10 @@ def main(argv: list[str] | None = None) -> None:
         obslib.enable()
     loop = build(args)
     loop.run()
+    if loop.mesh is not None and dist.is_initialized():
+        dist.destroy_process_group()
+    if process_rank()[0] != 0:
+        return
     if loop.metrics_log:
         last = loop.metrics_log[-1]
         print(f"final: step {last['step']} loss {last.get('loss'):.4f}")

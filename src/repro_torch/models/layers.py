@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.ftl import registry
+from repro_torch.distributed.act_sharding import constrain, placed
 from repro_torch.kernels import ops
 
 Params = dict[str, Any]
@@ -34,9 +35,10 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool,
     scale = scale if scale is not None else d_in ** -0.5
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=device,
                     dtype=torch.float32)
-    p = {"w": w.mul_(scale).to(dtype)}
+    p = {"w": placed(w.mul_(scale).to(dtype))}
     if bias:
-        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
+        p["b"] = placed(torch.zeros((*lead, d_out), dtype=dtype,
+                                    device=device))
     return p
 
 
@@ -49,9 +51,10 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def init_norm(d: int, kind: str, dtype: torch.dtype, device: torch.device,
               lead: tuple[int, ...] = ()) -> Params:
-    p = {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+    p = {"scale": placed(torch.ones((*lead, d), dtype=dtype, device=device))}
     if kind == "layernorm":
-        p["bias"] = torch.zeros((*lead, d), dtype=dtype, device=device)
+        p["bias"] = placed(torch.zeros((*lead, d), dtype=dtype,
+                                       device=device))
     return p
 
 
@@ -136,8 +139,10 @@ def _attend(p: Params, q, k, v, *, causal: bool, window: int | None):
     """Attention core (the flash kernel for CUDA tensors) + output
     projection; q (B, S, H, Dh), k/v (B, Sk, Hk, Dh)."""
     b, s, h, dh = q.shape
-    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                      v.transpose(1, 2), causal=causal, window=window)
+    o = ops.attention(constrain(q.transpose(1, 2), "heads_q"),
+                      constrain(k.transpose(1, 2), "heads_kv"),
+                      constrain(v.transpose(1, 2), "heads_kv"),
+                      causal=causal, window=window)
     return linear(p["wo"], o.transpose(1, 2).reshape(b, s, h * dh))
 
 
@@ -262,7 +267,8 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
         mask = j <= pcol
         if window is not None:
             mask &= j > pcol - window
-    o = masked_decode_attention(q.transpose(1, 2), k, v, mask)
+    o = masked_decode_attention(q.transpose(1, 2), constrain(k, "kv_cache"),
+                                constrain(v, "kv_cache"), mask)
     o = o.transpose(1, 2).reshape(b, 1, h * dh)
     return linear(p["wo"], o), {"k": k, "v": v}
 
@@ -343,9 +349,10 @@ def block_layer(cfg, p: Params, x: torch.Tensor, *,
             plan, p, x, positions=positions, causal=causal, window=window,
             use_rope=use_rope, ftl_mode=cfg.ftl_mode)
     h = norm(p["ln1"], x, cfg.norm)
-    x = x + attention_layer(cfg, p["attn"], h, positions=positions,
-                            causal=causal, window=window, use_rope=use_rope)
+    x = constrain(x + attention_layer(cfg, p["attn"], h, positions=positions,
+                                      causal=causal, window=window,
+                                      use_rope=use_rope), "residual")
     if "mlp" in p:
         h = norm(p["ln2"], x, cfg.norm)
-        x = x + mlp_layer(cfg, p["mlp"], h)
+        x = constrain(x + mlp_layer(cfg, p["mlp"], h), "residual")
     return x

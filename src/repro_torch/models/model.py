@@ -29,9 +29,17 @@ plannable block: its plans are None, as in the reference.
 The serving plan machinery (``PREFILL_BUCKETS``, :func:`bucket_m`,
 :func:`serve_plan`) is the reference's, keyed additionally by the device
 platform the plan's executors are bound for.
+
+The model stays mesh-agnostic through ``distributed.act_sharding``'s
+hooks: ``constrain`` at the reference's activation sites, ``gathered``
+where a layer's weights (or the embedding, the head, a norm) are used,
+inside the function remat wraps, so that the backward gathers them again
+instead of saving them, and ``placed`` on every leaf the init draws.
+Outside a mesh step each returns its argument.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Callable, NamedTuple
@@ -43,6 +51,8 @@ from repro_torch.core import hw
 from repro_torch.core.ftl import registry as ftl_registry
 from repro_torch.core.ftl.solver import InfeasibleError
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed import act_sharding
+from repro_torch.distributed.act_sharding import constrain, gathered, placed
 from repro_torch.models import recurrent
 from repro_torch.models.layers import (
     attention_decode,
@@ -129,8 +139,8 @@ def _init_layer(cfg, gen: torch.Generator, kind: str, device: torch.device,
                      "attn": init_attention(cfg, gen, dt, device, lead)}
         if kind == "cross":
             # llama-3.2's gate on each cross-attention layer, 0 at init
-            p["xgate"] = torch.zeros((*lead, 1), dtype=torch.float32,
-                                     device=device)
+            p["xgate"] = placed(torch.zeros((*lead, 1), dtype=torch.float32,
+                                            device=device))
     elif kind in _SELF_NORMED:
         p = {"mix": MIXERS[kind].init(cfg, gen, dt, device, lead)}
     else:
@@ -185,19 +195,30 @@ def _apply_mixer(cfg, p: Params, kind: str, x: torch.Tensor, *,
                            window=_window(cfg, kind))
 
 
+def _at(p: Params, at) -> Params:
+    """A layer's weights as the compute uses them: ``at`` is (dict path,
+    period index or None) of ``p`` in the parameter tree, and under a
+    mesh step the leaves come back gathered; ``at`` None leaves ``p``
+    as it is."""
+    return p if at is None else gathered(p, *at[0], period=at[1])
+
+
 def _apply_layer(cfg, p: Params, kind: str, x: torch.Tensor, *,
                  positions: torch.Tensor, ctx: torch.Tensor | None = None,
-                 plan=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+                 plan=None, at=None
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Pre-norm residual layer (full sequence): (x, the router's aux loss
-    or None, as :func:`_apply_ffn`)."""
+    or None, as :func:`_apply_ffn`); ``at`` as :func:`_at`."""
+    p = _at(p, at)
     if plan is not None and kind in _SELF_ATTN and "mlp" in p:
         # BlockPlan-driven: projections, attention core and MLP dispatch
         # through their bound executors (registry.run_block)
         return block_layer(cfg, p, x, positions=positions, plan=plan,
                            window=_window(cfg, kind)), None
     x = x + _apply_mixer(cfg, p, kind, x, positions=positions, ctx=ctx)
+    x = constrain(x, "residual")
     d, aux = _apply_ffn(cfg, p, x)
-    return x + d, aux
+    return constrain(x + d, "residual"), aux
 
 
 # ===========================================================================
@@ -325,7 +346,7 @@ def serve_plan(cfg, *, m: int, dtype: str | None = None, target=None,
 # ===========================================================================
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["tok"][tokens]
+    return gathered(params["embed"], "embed")["tok"][tokens]
 
 
 def _sinusoid(seq: int, d: int, offset=0, *,
@@ -347,8 +368,15 @@ def _sinusoid(seq: int, d: int, offset=0, *,
 
 def _unembed(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params["embed"]["tok"].T
-    return linear(params["lm_head"], x)
+        logits = x @ gathered(params["embed"], "embed")["tok"].T
+    else:
+        logits = linear(gathered(params["lm_head"], "lm_head"), x)
+    return constrain(logits, "logits")
+
+
+def _final_norm(cfg, params: Params, x: torch.Tensor,
+                key: str = "final_norm") -> torch.Tensor:
+    return norm(gathered(params[key], key), x, cfg.norm)
 
 
 # ===========================================================================
@@ -359,11 +387,14 @@ def init_params(cfg, generator: torch.Generator | int = 0, *,
                 device: torch.device | str | None = None) -> Params:
     """Full parameter tree on ``device`` (None: the CUDA card, and raises
     when there is none).  ``generator`` is a ``torch.Generator`` on that
-    device, or an int seed for one."""
+    device, or an int seed for one; on the ``meta`` device the tree has
+    shapes and dtypes only, and the seed is not read."""
     _check_supported(cfg)
     device = resolve_device(device)
     gen = generator
-    if not isinstance(gen, torch.Generator):
+    if device.type == "meta":
+        gen = None
+    elif not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=device).manual_seed(int(generator))
     if cfg.is_encoder_decoder:
         return _init_params_encdec(cfg, gen, device)
@@ -383,28 +414,46 @@ def init_params(cfg, generator: torch.Generator | int = 0, *,
     return params
 
 
+def param_shapes(cfg) -> Params:
+    """The parameter tree on the ``meta`` device: shapes and dtypes, no
+    allocation (the reference's ``param_shapes``)."""
+    return init_params(cfg, device="meta")
+
+
+def count_params(cfg) -> int:
+    return sum(math.prod(t.shape) for t in tree_leaves(param_shapes(cfg)))
+
+
 def _init_embed(cfg, gen: torch.Generator, device: torch.device) -> Params:
     tok = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                       device=device, dtype=torch.float32)
-    return {"tok": tok.mul_(cfg.d_model ** -0.5).to(torch_dtype(cfg.dtype))}
+    return {"tok": placed(tok.mul_(cfg.d_model ** -0.5).to(
+        torch_dtype(cfg.dtype)))}
 
 
 def _layers(cfg, params: Params):
-    """(kind, layer params) of every layer, in order."""
+    """(kind, layer params, where) of every layer, in order; ``where`` is
+    the layer's (dict path, period index or None), as :func:`_at` takes
+    it."""
     kinds, _, rem_kinds = _layer_split(cfg)
-    for pp in _periods(params["layers"]):
+    for j, pp in enumerate(_periods(params["layers"])):
         for i, kind in enumerate(kinds):
-            yield kind, pp[f"pos{i}"]
+            yield kind, pp[f"pos{i}"], (("layers", f"pos{i}"), j)
     for i, kind in enumerate(rem_kinds):
-        yield kind, params["rem"][f"rem{i}"]
+        yield kind, params["rem"][f"rem{i}"], (("rem", f"rem{i}"), None)
 
 
 def _remat(cfg, fn: Callable, *args):
     """``fn(*args)``; under autograd with ``cfg.remat``, keeping only the
     inputs and running ``fn`` again in the backward pass (the reference's
-    ``jax.checkpoint`` with ``nothing_saveable`` around each period)."""
+    ``jax.checkpoint`` with ``nothing_saveable`` around each period).
+    The recomputation runs under this forward's sharding hooks: the
+    backward runs outside their context, on the device's thread."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        hooks = act_sharding.current_hooks()
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              hooks()))
     return fn(*args)
 
 
@@ -418,10 +467,11 @@ def layer_stream(cfg, params: Params, tokens: torch.Tensor, plan=None, *,
     through the final norm and the unembedding, and the sum of ``aux``
     (decoder-only stacks)."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(params, tokens)
-    for kind, p in _layers(cfg, params):
+    x = constrain(_embed(params, tokens), "residual")
+    for kind, p, at in _layers(cfg, params):
         layer = functools.partial(_apply_layer, cfg, p, kind,
-                                  positions=positions, ctx=ctx, plan=plan)
+                                  positions=positions, ctx=ctx, plan=plan,
+                                  at=at)
         y, aux = _remat(cfg, layer, x)
         yield kind, p, x, y, aux
         x = y
@@ -443,8 +493,7 @@ def forward(cfg, params: Params, batch: dict[str, torch.Tensor]
                                       ctx=batch.get("image_embeds")):
         if a is not None:
             aux = aux + a
-    x = norm(params["final_norm"], x, cfg.norm)
-    return _unembed(cfg, params, x), aux
+    return _unembed(cfg, params, _final_norm(cfg, params, x)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +522,8 @@ def _layer_prefill(cfg, p: Params, kind: str, x: torch.Tensor, *,
                                      causal=True, window=_window(cfg, kind),
                                      pad_to=max_seq, length=length)
     x = x + o
-    return x + _apply_ffn(cfg, p, x, plan=plan)[0], cache
+    return constrain(x + _apply_ffn(cfg, p, x, plan=plan)[0],
+                     "residual"), cache
 
 
 def _layer_decode(cfg, p: Params, kind: str, x: torch.Tensor,
@@ -489,7 +539,8 @@ def _layer_decode(cfg, p: Params, kind: str, x: torch.Tensor,
         if kind == "cross":
             o = _xgate(p, o)
     x = x + o
-    return x + _apply_ffn(cfg, p, x, plan=plan)[0], cache
+    return constrain(x + _apply_ffn(cfg, p, x, plan=plan)[0],
+                     "residual"), cache
 
 
 def _init_layer_cache(cfg, kind: str, batch: int, seq: int,
@@ -553,14 +604,15 @@ def prefill(cfg, params: Params, batch: dict[str, torch.Tensor],
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     length = None if last_pos is None else int(last_pos) + 1
     kinds, _, rem_kinds = _layer_split(cfg)
-    x = _embed(params, tokens)
+    x = constrain(_embed(params, tokens), "residual")
     per_period: list[Params] = []
-    for pp in _periods(params["layers"]):
+    for j, pp in enumerate(_periods(params["layers"])):
         caches = {}
         for i, kind in enumerate(kinds):
             x, caches[f"pos{i}"] = _layer_prefill(
-                cfg, pp[f"pos{i}"], kind, x, positions=positions, ctx=ctx,
-                max_seq=max_seq, plan=plan, length=length)
+                cfg, _at(pp[f"pos{i}"], (("layers", f"pos{i}"), j)), kind,
+                x, positions=positions, ctx=ctx, max_seq=max_seq, plan=plan,
+                length=length)
         per_period.append(caches)
     if per_period:
         stacked = tree_map(lambda *ts: torch.stack(ts), *per_period)
@@ -573,10 +625,10 @@ def prefill(cfg, params: Params, batch: dict[str, torch.Tensor],
         cache["rem"] = {}
         for i, kind in enumerate(rem_kinds):
             x, cache["rem"][f"rem{i}"] = _layer_prefill(
-                cfg, params["rem"][f"rem{i}"], kind, x,
-                positions=positions, ctx=ctx, max_seq=max_seq, plan=plan,
-                length=length)
-    x = norm(params["final_norm"], _last_tokens(x, last_pos), cfg.norm)
+                cfg, _at(params["rem"][f"rem{i}"], (("rem", f"rem{i}"), None)),
+                kind, x, positions=positions, ctx=ctx, max_seq=max_seq,
+                plan=plan, length=length)
+    x = _final_norm(cfg, params, _last_tokens(x, last_pos))
     return _unembed(cfg, params, x), cache
 
 
@@ -602,16 +654,18 @@ def decode_step(cfg, params: Params, token: torch.Tensor, cache: Params,
     if cfg.is_encoder_decoder:
         return _decode_encdec(cfg, params, token, cache, pos)
     kinds, _, rem_kinds = _layer_split(cfg)
-    x = _embed(params, token)
-    for pp, cc in zip(_periods(params["layers"]),
-                      _periods(cache["layers"])):
+    x = constrain(_embed(params, token), "residual")
+    for j, (pp, cc) in enumerate(zip(_periods(params["layers"]),
+                                     _periods(cache["layers"]))):
         for i, kind in enumerate(kinds):
-            x, _ = _layer_decode(cfg, pp[f"pos{i}"], kind, x,
-                                 cc[f"pos{i}"], pos, plan=plan)
+            x, _ = _layer_decode(
+                cfg, _at(pp[f"pos{i}"], (("layers", f"pos{i}"), j)), kind, x,
+                cc[f"pos{i}"], pos, plan=plan)
     for i, kind in enumerate(rem_kinds):
-        x, _ = _layer_decode(cfg, params["rem"][f"rem{i}"], kind, x,
-                             cache["rem"][f"rem{i}"], pos, plan=plan)
-    x = norm(params["final_norm"], x, cfg.norm)
+        x, _ = _layer_decode(
+            cfg, _at(params["rem"][f"rem{i}"], (("rem", f"rem{i}"), None)),
+            kind, x, cache["rem"][f"rem{i}"], pos, plan=plan)
+    x = _final_norm(cfg, params, x)
     return _unembed(cfg, params, x), cache
 
 
@@ -651,12 +705,13 @@ def _init_params_encdec(cfg, gen: torch.Generator, device: torch.device
     }
 
 
-def _enc_layer(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor
-               ) -> torch.Tensor:
+def _enc_layer(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
+               at=None) -> torch.Tensor:
+    p = _at(p, at)
     h = norm(p["ln1"], x, cfg.norm)
     x = x + attention_layer(cfg, p["attn"], h, positions=positions,
                             causal=False, use_rope=False)
-    return x + _apply_ffn(cfg, p, x)[0]
+    return constrain(x + _apply_ffn(cfg, p, x)[0], "residual")
 
 
 def _encode(cfg, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -666,10 +721,12 @@ def _encode(cfg, params: Params, frames: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(s, device=frames.device)
     x = frames + _sinusoid(s, cfg.d_model, device=frames.device
                            ).to(frames.dtype)[None]
-    for pp in _periods(params["enc_layers"]):
-        x = _remat(cfg, functools.partial(_enc_layer, cfg, pp["pos0"],
-                                          positions=positions), x)
-    return norm(params["enc_norm"], x, cfg.norm)
+    x = constrain(x, "residual")
+    for j, pp in enumerate(_periods(params["enc_layers"])):
+        x = _remat(cfg, functools.partial(
+            _enc_layer, cfg, pp["pos0"], positions=positions,
+            at=(("enc_layers", "pos0"), j)), x)
+    return _final_norm(cfg, params, x, "enc_norm")
 
 
 def _dec_self(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor
@@ -688,10 +745,11 @@ def _dec_cross(cfg, p: Params, x: torch.Tensor, enc_out: torch.Tensor,
 
 
 def _dec_layer_full(cfg, p: Params, x: torch.Tensor, enc_out: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor, at=None) -> torch.Tensor:
+    p = _at(p, at)
     x = x + _dec_self(cfg, p, x, positions)
     x = x + _dec_cross(cfg, p, x, enc_out, positions)
-    return x + _apply_ffn(cfg, p, x)[0]
+    return constrain(x + _apply_ffn(cfg, p, x)[0], "residual")
 
 
 def _dec_embed(cfg, params: Params, tokens: torch.Tensor, offset=0
@@ -708,11 +766,12 @@ def _forward_encdec(cfg, params: Params, batch: dict[str, torch.Tensor]
     enc_out = _encode(cfg, params, batch["frames"])
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _dec_embed(cfg, params, tokens)
-    for pp in _periods(params["layers"]):
-        x = _remat(cfg, functools.partial(_dec_layer_full, cfg, pp["pos0"],
-                                          positions=positions), x, enc_out)
-    x = norm(params["final_norm"], x, cfg.norm)
+    x = constrain(_dec_embed(cfg, params, tokens), "residual")
+    for j, pp in enumerate(_periods(params["layers"])):
+        x = _remat(cfg, functools.partial(
+            _dec_layer_full, cfg, pp["pos0"], positions=positions,
+            at=(("layers", "pos0"), j)), x, enc_out)
+    x = _final_norm(cfg, params, x)
     return _unembed(cfg, params, x), torch.zeros(
         (), dtype=torch.float32, device=tokens.device)
 
@@ -734,10 +793,10 @@ def _prefill_encdec(cfg, params: Params, batch: dict[str, torch.Tensor],
     enc_out = _encode(cfg, params, batch["frames"])
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _dec_embed(cfg, params, tokens)
+    x = constrain(_dec_embed(cfg, params, tokens), "residual")
     caches = []
-    for pp in _periods(params["layers"]):
-        p = pp["pos0"]
+    for j, pp in enumerate(_periods(params["layers"])):
+        p = _at(pp["pos0"], (("layers", "pos0"), j))
         o, self_c = attention_prefill(
             cfg, p["attn"], norm(p["ln1"], x, cfg.norm), positions=positions,
             causal=True, use_rope=False, pad_to=max_seq)
@@ -746,11 +805,11 @@ def _prefill_encdec(cfg, params: Params, batch: dict[str, torch.Tensor],
             cfg, p["xattn"], norm(p["lnx"], x, cfg.norm),
             positions=positions, kv_source=enc_out, use_rope=False)
         x = x + o
-        x = x + _apply_ffn(cfg, p, x)[0]
+        x = constrain(x + _apply_ffn(cfg, p, x)[0], "residual")
         caches.append({"self": self_c, "cross": cross_c})
     cache = {"layers": {"pos0": tree_map(lambda *ts: torch.stack(ts),
                                          *caches)}}
-    x = norm(params["final_norm"], _last_tokens(x, last_pos), cfg.norm)
+    x = _final_norm(cfg, params, _last_tokens(x, last_pos))
     return _unembed(cfg, params, x), cache
 
 
@@ -758,9 +817,9 @@ def _decode_encdec(cfg, params: Params, token: torch.Tensor, cache: Params,
                    pos: torch.Tensor) -> tuple[torch.Tensor, Params]:
     pos = torch.as_tensor(pos, device=token.device)
     x = _dec_embed(cfg, params, token, pos)
-    for pp, cc in zip(_periods(params["layers"]),
-                      _periods(cache["layers"])):
-        p, c = pp["pos0"], cc["pos0"]
+    for j, (pp, cc) in enumerate(zip(_periods(params["layers"]),
+                                     _periods(cache["layers"]))):
+        p, c = _at(pp["pos0"], (("layers", "pos0"), j)), cc["pos0"]
         o, _ = attention_decode(cfg, p["attn"], norm(p["ln1"], x, cfg.norm),
                                 c["self"], pos, use_rope=False)
         x = x + o
@@ -769,5 +828,5 @@ def _decode_encdec(cfg, params: Params, token: torch.Tensor, cache: Params,
                                 pos, cross=True)
         x = x + o
         x = x + _apply_ffn(cfg, p, x)[0]
-    x = norm(params["final_norm"], x, cfg.norm)
+    x = _final_norm(cfg, params, x)
     return _unembed(cfg, params, x), cache

@@ -5,8 +5,16 @@ optional shared experts).
 Dispatch ranks each (token, choice) slot within its expert and scatters
 it into a static (E, capacity, D) buffer; slots past an expert's capacity
 are dropped.  The expert FFNs run as batched einsums, the routing as plain
-tensor ops.  The reference's sharding hints are left out: the port has no
-distributed layer yet.
+tensor ops, with the reference's sharding hints (``constrain``).
+
+Under a mesh step with more than one data-parallel rank, capacity and the
+aux loss depend on how many tokens are routed together, so a layer routes
+the whole dp group's tokens as the reference does: the scatter dispatch
+gathers them (an all-gather whose backward sums each rank's cotangents)
+and each rank keeps its own rows of the output; the grouped dispatch
+takes G from the global token count and runs the rank's G/dp groups
+where dp divides G, its aux averaged over the group, and gathers as the
+scatter dispatch does where it does not.
 
 Semantics kept from the reference, the odd ones included:
 
@@ -32,6 +40,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.act_sharding import (constrain, current_policy,
+                                                  placed)
 from repro_torch.kernels import ref
 
 from .layers import init_linear, init_mlp, mlp_layer
@@ -62,7 +73,7 @@ def init_moe(cfg, gen: torch.Generator, dtype: torch.dtype,
             w = torch.randn(shape, generator=gen, device=device,
                             dtype=torch.float32)
             slab.copy_(w.mul_(scale))
-        return out
+        return placed(out)
 
     p: Params = {
         "router": init_linear(gen, d, e, bias=False, dtype=torch.float32,
@@ -87,12 +98,33 @@ def capacity(n_tokens: int, cfg) -> int:
     return max(8, min(n_tokens, -(-c // 8) * 8))
 
 
+def _dp_mesh():
+    """The mesh of the step running, when it splits the batch over more
+    than one dp rank; else None."""
+    mesh = getattr(current_policy(), "mesh", None)
+    if mesh is None or not hasattr(mesh, "get_group") \
+            or collectives.dp_size(mesh) == 1:
+        return None
+    return mesh
+
+
 def moe_layer(cfg, p: Params, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux_loss).  Dispatch per ``cfg.moe_dispatch``."""
-    if cfg.moe_dispatch == "grouped":
-        return moe_layer_grouped(cfg, p, x)
-    return moe_layer_scatter(cfg, p, x)
+    """x: (B, S, D) -> (y, aux_loss).  Dispatch per ``cfg.moe_dispatch``,
+    over the dp group's tokens under a mesh step."""
+    grouped = cfg.moe_dispatch == "grouped"
+    layer = moe_layer_grouped if grouped else moe_layer_scatter
+    mesh = _dp_mesh()
+    if mesh is None:
+        return layer(cfg, p, x)
+    dp = collectives.dp_size(mesh)
+    if grouped:
+        g = _n_groups(cfg, x.shape[0] * x.shape[1] * dp)
+        if g % dp == 0:
+            y, aux = moe_layer_grouped(cfg, p, x, groups=g // dp)
+            return y, collectives.dp_mean(aux, mesh)
+    y, aux = layer(cfg, p, collectives.dp_all_gather(x, mesh))
+    return collectives.dp_rows(y, mesh), aux
 
 
 def route(cfg, p: Params, xf: torch.Tensor):
@@ -120,14 +152,28 @@ def _slots(flat_expert: torch.Tensor, e: int, c: int):
     return dest_e, dest_c, keep, rank[..., -1, :] + 1
 
 
-def _experts(cfg, p: Params, buf: torch.Tensor) -> torch.Tensor:
+def _hint(t: torch.Tensor, kind: str, grouped: bool) -> torch.Tensor:
+    """The reference's sharding hint on a (G, E, C, ·) buffer; its
+    scatter dispatch's buffers are (E, C, ·), the port's hold G = 1."""
+    if current_policy() is None:
+        return t
+    if grouped:
+        return constrain(t, "moe_g" + kind)
+    return constrain(t[0], "moe_" + kind)[None]
+
+
+def _experts(cfg, p: Params, buf: torch.Tensor, grouped: bool
+             ) -> torch.Tensor:
     """Every expert's FFN on its slots: buf (G, E, C, D) -> (G, E, C, D),
     the activation in fp32 between two einsums in ``buf``'s dtype."""
+    buf = _hint(buf, "buf", grouped)
     h = torch.einsum("gecd,edf->gecf", buf, p["w1"])
     h = ref.act_fn(cfg.mlp_act)(h.float()).to(buf.dtype)
     if "wg" in p:
         h = h * torch.einsum("gecd,edf->gecf", buf, p["wg"])
-    return torch.einsum("gecf,efd->gecd", h, p["w2"])
+    h = _hint(h, "hidden", grouped)
+    y = torch.einsum("gecf,efd->gecd", h, p["w2"])
+    return _hint(y, "out", grouped) if grouped else y
 
 
 def _combine(y_e: torch.Tensor, dest_e, dest_c, keep, gate: torch.Tensor,
@@ -147,7 +193,7 @@ def _combine(y_e: torch.Tensor, dest_e, dest_c, keep, gate: torch.Tensor,
     return y
 
 
-def _dispatch(cfg, p: Params, xg: torch.Tensor):
+def _dispatch(cfg, p: Params, xg: torch.Tensor, grouped: bool):
     """Route, rank and run the experts on G groups of tokens, xg (G, N,
     D): (y (G, N, D) without the shared experts, probs (G, N, E), the
     slots each expert was chosen for (G, E))."""
@@ -162,7 +208,7 @@ def _dispatch(cfg, p: Params, xg: torch.Tensor):
     # row e takes the dropped slots and is sliced off
     buf = xg.new_zeros((g, e + 1, c, d))
     buf[gi, dest_e, dest_c] = xg[:, tok]
-    y_e = _experts(cfg, p, buf[:, :e])
+    y_e = _experts(cfg, p, buf[:, :e], grouped)
     return _combine(y_e, dest_e, dest_c, keep, gate, k), probs, counts
 
 
@@ -172,7 +218,7 @@ def moe_layer_scatter(cfg, p: Params, x: torch.Tensor
     b, s, d = x.shape
     n, e, k = b * s, cfg.n_experts, cfg.n_experts_per_token
     xf = x.reshape(n, d)
-    y, probs, counts = _dispatch(cfg, p, xf[None])
+    y, probs, counts = _dispatch(cfg, p, xf[None], False)
     y = y[0]
     if "shared" in p:
         # the shared MLP sees all n tokens as one sequence (M = n)
@@ -190,16 +236,18 @@ def _n_groups(cfg, n_tokens: int) -> int:
     return max(1, g)
 
 
-def moe_layer_grouped(cfg, p: Params, x: torch.Tensor
+def moe_layer_grouped(cfg, p: Params, x: torch.Tensor,
+                      groups: int | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """GShard-style grouped dispatch: the B·S tokens split into G groups,
-    ranks and capacity taken within each group."""
+    """GShard-style grouped dispatch: the B·S tokens split into G groups
+    (``groups``, else from the token count), ranks and capacity taken
+    within each group."""
     b, s, d = x.shape
     n, e, k = b * s, cfg.n_experts, cfg.n_experts_per_token
-    g = _n_groups(cfg, n)
+    g = groups if groups is not None else _n_groups(cfg, n)
     sg = n // g
     xg = x.reshape(g, sg, d)
-    y, probs, counts = _dispatch(cfg, p, xg)
+    y, probs, counts = _dispatch(cfg, p, xg, True)
     if "shared" in p:
         # the shared MLP runs group by group (M = the group's size)
         y = y + mlp_layer(cfg, p["shared"], xg).reshape(g, sg, d)

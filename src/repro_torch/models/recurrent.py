@@ -26,6 +26,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.act_sharding import placed
 from repro_torch.kernels import ops
 
 from .layers import init_linear, init_norm, linear, norm
@@ -74,7 +75,7 @@ def init_mlstm_block(cfg, gen: torch.Generator, dtype: torch.dtype,
     def blockdiag():
         w = torch.randn((*lead, h, dh, dh), generator=gen, device=device,
                         dtype=torch.float32)
-        return {"w": w.mul_(dh ** -0.5).to(dtype)}
+        return {"w": placed(w.mul_(dh ** -0.5).to(dtype))}
 
     return {
         "norm": init_norm(d, cfg.norm, dtype, device, lead),
@@ -204,9 +205,9 @@ def init_slstm_block(cfg, gen: torch.Generator, dtype: torch.dtype,
     for g in _GATES:
         p[f"w{g}"] = init_linear(gen, d, d, bias=True, **kw)
         # block-diagonal recurrent weights: (H, dh, dh), kept in fp32
-        p[f"r{g}"] = torch.randn((*lead, h, dh, dh), generator=gen,
-                                 device=device, dtype=torch.float32
-                                 ).mul_(dh ** -0.5)
+        p[f"r{g}"] = placed(torch.randn((*lead, h, dh, dh), generator=gen,
+                                        device=device, dtype=torch.float32
+                                        ).mul_(dh ** -0.5))
     p["down"] = init_linear(gen, d, d, bias=False,
                             scale=d ** -0.5 / math.sqrt(2 * cfg.n_layers),
                             **kw)
@@ -298,11 +299,12 @@ def init_rec_block(cfg, gen: torch.Generator, dtype: torch.dtype,
         "norm": init_norm(d, cfg.norm, dtype, device, lead),
         "wx": init_linear(gen, d, w, bias=False, **kw),
         "wy": init_linear(gen, d, w, bias=False, **kw),
-        "conv": conv.mul_(cfg.conv_width ** -0.5).to(dtype),
-        "conv_b": torch.zeros((*lead, w), dtype=dtype, device=device),
+        "conv": placed(conv.mul_(cfg.conv_width ** -0.5).to(dtype)),
+        "conv_b": placed(torch.zeros((*lead, w), dtype=dtype,
+                                     device=device)),
         "wr": init_linear(gen, w, w, bias=True, **kw),
         "wi": init_linear(gen, w, w, bias=True, **kw),
-        "lam": lam.expand(*lead, w).clone(),
+        "lam": placed(lam.expand(*lead, w).clone()),
         "out": init_linear(gen, w, d, bias=False,
                            scale=w ** -0.5 / math.sqrt(2 * cfg.n_layers),
                            **kw),

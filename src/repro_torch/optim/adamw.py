@@ -95,12 +95,15 @@ def _decay_mask(path: tuple[str, ...]) -> bool:
 
 @torch.no_grad()
 def adamw_update(grads: Params, opt_state: Params, params: Params,
-                 step: torch.Tensor, cfg: OptConfig
+                 step: torch.Tensor, cfg: OptConfig, *,
+                 grad_norm: torch.Tensor | None = None
                  ) -> tuple[Params, Params, dict[str, torch.Tensor]]:
     """One AdamW step.  Returns ``(params, opt_state, {"grad_norm",
     "lr"})``: the trees given, updated in place, each new parameter cast
-    back to its dtype.  ``grad_norm`` is before clipping."""
-    gnorm = global_norm(grads)
+    back to its dtype.  ``grad_norm`` is before clipping; a caller whose
+    trees hold shards passes the whole tree's (else it is
+    :func:`global_norm` of ``grads``)."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = torch.as_tensor(step, device=gnorm.device)
     lr = lr_schedule(step, cfg)

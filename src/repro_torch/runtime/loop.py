@@ -5,10 +5,11 @@ Wires together: data pipeline (restartable at any step), checkpoint manager
 (async saves, auto-resume), straggler monitor, and a preemption handler
 (SIGTERM → synchronous checkpoint → clean exit).  On resume the
 checkpoint is restored into the structure, dtypes and devices of the
-state the loop was given, and the data pipeline resumes at the restored
-step.  Each step's metrics become host floats inside the step's span,
-which waits for the device, so the monitor's wall time covers the
-step.
+state the loop was given (under ``state_shardings`` where given: a tree
+of ``NamedSharding`` for a state on a mesh), and the data pipeline
+resumes at the restored step.  Each step's metrics become host floats
+inside the step's span, which waits for the device, so the monitor's
+wall time covers the step.
 """
 from __future__ import annotations
 
@@ -50,12 +51,14 @@ class TrainLoop:
         make_batch: Callable[[int], Any],
         init_state: Any,
         *,
+        state_shardings: Any | None = None,
         on_metrics: Callable[[int, dict], None] | None = None,
     ):
         self.cfg = cfg
         self.step_fn = step_fn
         self.make_batch = make_batch
         self.state = init_state
+        self.state_shardings = state_shardings
         self.on_metrics = on_metrics
         self.monitor = StragglerMonitor(threshold=cfg.straggler_threshold)
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep_n=cfg.keep_n)
@@ -82,7 +85,8 @@ class TrainLoop:
     def _resume(self) -> int:
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return 0
-        self.state, step = self.ckpt.restore(self.state)
+        self.state, step = self.ckpt.restore(
+            self.state, shardings=self.state_shardings)
         log.info("resumed from checkpoint step %d", step)
         return step
 

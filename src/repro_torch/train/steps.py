@@ -1,26 +1,51 @@
 """Step builders of the port: the counterparts of the reference's
 ``repro.train.steps``, the train step with gradient accumulation and the
-two serving steps.
+two serving steps, with or without a mesh.
 
 PyTorch runs eagerly, so a step is the plain function the reference
-would hand to ``jax.jit``.  Sharded execution (``mesh``) and gradient
-compression (``compress``) belong to the distributed layer, which the
-port does not have yet: both are refused.
+would hand to ``jax.jit``.  Without a mesh the train step takes
+gradients with ``torch.autograd.grad`` over the parameter leaves and
+casts them to fp32; a leaf that no gradient reaches (the empty ``(0,
+...)`` stacks of a config with no whole period) counts as zeros.
 
-The train step takes gradients with ``torch.autograd.grad`` over the
-parameter leaves and casts them to fp32; a leaf that no gradient reaches
-(the empty ``(0, ...)`` stacks of a config with no whole period) counts
-as zeros.  The AdamW update then runs in place
+With a mesh (a ``DeviceMesh``, ``repro_torch.launch.mesh``) the state's
+leaves are DTensors in the reference's layout (:func:`state_pspecs`: the
+moments and the error-feedback state follow their parameters) and the
+compute is data-parallel: each rank runs its rows of the batch (split
+over the dp axes by ``batch_pspecs``; ranks along ``model`` run the
+same rows), every weight is gathered whole where the model uses it, and
+its gradient comes back in fp32 as the mean over the dp group, reduced
+to the weight's placements (``distributed.collectives.ParamGather``).
+AdamW and the error feedback then update each rank's shards in place;
+the gradient norm counts every shard once.  The loss and the other
+metrics are means over the dp group (``tokens`` a sum).
+
+``compress=True`` applies int8 error-feedback compression to the reduced
+gradients (``distributed.compression``), as the reference does, before
+AdamW.
+
+In both cases the AdamW update runs in place
 (:func:`repro_torch.optim.adamw_update`): the state returned holds the
 same tensors as the state given.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Callable
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.act_sharding import (use_gather, use_init,
+                                                  use_policy)
+from repro_torch.distributed.compression import ef_compress_, init_error
+from repro_torch.distributed.sharding import (NamedSharding, P, _div,
+                                              batch_pspecs, cache_pspecs,
+                                              dp_axes,
+                                              make_activation_policy,
+                                              param_pspecs, to_shardings)
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.train.losses import cross_entropy
@@ -28,16 +53,11 @@ from repro_torch.train.losses import cross_entropy
 Params = dict
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the port has no distributed layer yet: "
-                                  "pass mesh=None")
-
-
-def _no_compress(compress: bool) -> None:
-    if compress:
-        raise NotImplementedError("the port has no gradient compression "
-                                  "yet: pass compress=False")
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh is a torch.distributed DeviceMesh "
+                        f"(repro_torch.launch.mesh.make_mesh), not "
+                        f"{type(mesh).__name__}")
 
 
 # ===========================================================================
@@ -52,16 +72,78 @@ class TrainState:
     ef_error: Params | None = None    # error-feedback state (compression)
 
 
+def _zeros_f32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros shaped and placed like ``t`` (a DTensor's: its shards)."""
+    if isinstance(t, DTensor):
+        return DTensor.from_local(
+            torch.zeros(t.to_local().shape, dtype=torch.float32,
+                        device=t.to_local().device),
+            t.device_mesh, t.placements, run_check=False, shape=t.shape,
+            stride=t.stride())
+    return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+
+
+def _init_sharded_params(cfg, generator, device, mesh) -> Params:
+    """``M.init_params`` with each leaf placed on ``mesh`` as it is drawn
+    (``act_sharding.placed``): the same draws from the same generator in
+    the same order, so the shards are the unsharded init's bits, and at
+    most one whole leaf is held.  A run on the ``meta`` device first finds
+    which leaf each draw makes."""
+    made: list = []
+    with use_init(lambda t: made.append(t) or t):
+        shapes = M.init_params(cfg, device="meta")
+    path_of = {id(t): p for p, t in C.paths_and_leaves(shapes).items()}
+    order = [path_of.get(id(t)) for t in made]
+    if None in order or sorted(order) != sorted(path_of.values()):
+        raise RuntimeError(f"{cfg.name}: the init's leaves and its placed() "
+                           f"calls disagree")
+    specs = C.paths_and_leaves(param_pspecs(shapes, mesh, cfg))
+    todo = iter(order)
+    with use_init(lambda t: C.place(t, NamedSharding(mesh,
+                                                     specs[next(todo)]))):
+        return M.init_params(cfg, generator, device=device)
+
+
 def init_train_state(cfg, generator: torch.Generator | int = 0, *,
                      device: torch.device | str | None = None,
-                     compress: bool = False) -> TrainState:
+                     compress: bool = False, mesh=None) -> TrainState:
     """Parameters from ``generator`` (a seed or a ``torch.Generator``) on
-    ``device`` (None: the CUDA card), zero fp32 moments, step 0."""
-    _no_compress(compress)
-    params = M.init_params(cfg, generator, device=device)
-    step = torch.zeros((), dtype=torch.int32,
-                       device=M.tree_leaves(params)[0].device)
-    return TrainState(params=params, opt=init_opt_state(params), step=step)
+    ``device`` (None: the CUDA card), zero fp32 moments (and error state
+    with ``compress``), step 0.  With ``mesh`` every leaf is a DTensor
+    in :func:`state_pspecs`' layout, each rank's shard of the unsharded
+    init's bits."""
+    _check_mesh(mesh)
+    if mesh is None:
+        params = M.init_params(cfg, generator, device=device)
+        opt = init_opt_state(params)
+        ef = init_error(params) if compress else None
+    else:
+        params = _init_sharded_params(cfg, generator, device, mesh)
+        opt = {"m": M.tree_map(_zeros_f32, params),
+               "v": M.tree_map(_zeros_f32, params)}
+        ef = M.tree_map(_zeros_f32, params) if compress else None
+    leaf = M.tree_leaves(C.local_tree(params))[0]
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    return TrainState(params=params, opt=opt, step=step, ef_error=ef)
+
+
+def train_state_shapes(cfg, *, compress: bool = False) -> TrainState:
+    """The train state on the ``meta`` device: shapes and dtypes only."""
+    params = M.param_shapes(cfg)
+    return TrainState(
+        params=params, opt={"m": M.tree_map(_zeros_f32, params),
+                            "v": M.tree_map(_zeros_f32, params)},
+        step=torch.zeros((), dtype=torch.int32, device="meta"),
+        ef_error=M.tree_map(_zeros_f32, params) if compress else None)
+
+
+def state_pspecs(state_shape: TrainState, mesh, cfg) -> TrainState:
+    """Spec tree of a train state: moments and error state follow their
+    parameters, the step is replicated."""
+    pspec = param_pspecs(state_shape.params, mesh, cfg)
+    return TrainState(
+        params=pspec, opt={"m": pspec, "v": pspec}, step=P(),
+        ef_error=None if state_shape.ef_error is None else pspec)
 
 
 # ===========================================================================
@@ -108,11 +190,13 @@ def make_train_step(cfg, mesh=None, opt_cfg: OptConfig | None = None, *,
 
     With ``accum > 1`` the batch splits into ``accum`` microbatches in
     order; their fp32 gradients are summed ``/ accum`` and the loss is
-    averaged, as the reference's ``lax.scan`` does."""
-    _no_mesh(mesh)
-    _no_compress(compress)
+    averaged, as the reference's ``lax.scan`` does.  With ``mesh`` the
+    batch is this rank's rows (:func:`shard_batch`) and the state's
+    leaves are DTensors (:func:`init_train_state` with ``mesh``)."""
+    _check_mesh(mesh)
     opt_cfg = opt_cfg if opt_cfg is not None else OptConfig()
     loss_fn = make_loss_fn(cfg)
+    policy = make_activation_policy(mesh, cfg) if mesh is not None else None
 
     def fp32_grads(loss: torch.Tensor, leaves: list):
         """Each leaf's gradient in fp32, in order (zeros where none
@@ -124,8 +208,7 @@ def make_train_step(cfg, mesh=None, opt_cfg: OptConfig | None = None, *,
             yield (torch.zeros(p.shape, dtype=torch.float32,
                                device=p.device) if g is None else g.float())
 
-    def step_fn(state: TrainState, batch: dict
-                ) -> tuple[TrainState, dict]:
+    def local_grads(state: TrainState, batch: dict):
         leaves = M.tree_leaves(state.params)
         for p in leaves:
             p.requires_grad_(True)
@@ -143,21 +226,133 @@ def make_train_step(cfg, mesh=None, opt_cfg: OptConfig | None = None, *,
                     grads[i] = grads[i] + g / accum
                 loss = loss + l.detach() / accum
             aux = {}
-        new_params, new_opt, om = adamw_update(
-            _tree_like(state.params, grads), state.opt, state.params,
-            state.step, opt_cfg)
-        metrics = {"loss": loss.detach(), **om,
+        return loss.detach(), aux, grads, None
+
+    def mesh_grads(state: TrainState, batch: dict):
+        dts = C.paths_and_leaves(state.params)
+        local = {p: t.to_local() for p, t in dts.items()}
+        placements = {p: t.placements for p, t in dts.items()}
+        params = C.local_tree(state.params)
+        grads = {p: torch.zeros(t.shape, dtype=torch.float32,
+                                device=t.device) for p, t in local.items()}
+        micro = [batch] if accum == 1 else _split_microbatches(batch, accum)
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(local.values())).device)
+        for mb in micro:
+            gather = C.ParamGather(mesh, placements, grads, accum)
+            with use_policy(policy), use_gather(gather):
+                l, aux = loss_fn(params, mb)
+            missing = gather.missing(local)
+            if missing:
+                raise RuntimeError(f"the forward used weights it did not "
+                                   f"gather: {missing}")
+            l.backward()
+            loss = l.detach() if accum == 1 else loss + l.detach() / accum
+        aux = {k: v.detach() for k, v in aux.items()} if accum == 1 else {}
+        loss = C.dp_mean_(loss.clone(), mesh)
+        for k, v in aux.items():
+            if v.ndim == 0:
+                v = C.dp_mean_(v.float().clone(), mesh)
+                aux[k] = v * C.dp_size(mesh) if k == "tokens" else v
+        return loss, aux, list(grads.values()), [placements[p]
+                                                 for p in dts]
+
+    def step_fn(state: TrainState, batch: dict
+                ) -> tuple[TrainState, dict]:
+        if mesh is None:
+            loss, aux, grads, placements = local_grads(state, batch)
+            params, opt = state.params, state.opt
+            ef = None if state.ef_error is None else \
+                M.tree_leaves(state.ef_error)
+        else:
+            loss, aux, grads, placements = mesh_grads(state, batch)
+            params, opt = C.local_tree(state.params), C.local_tree(
+                state.opt)
+            ef = None if state.ef_error is None else \
+                M.tree_leaves(C.local_tree(state.ef_error))
+        if compress:
+            if ef is None:
+                raise ValueError("compress=True needs a state with an "
+                                 "error-feedback state: init_train_state("
+                                 "..., compress=True)")
+            ef_compress_(grads, ef, reduce_max=mesh is not None)
+        gnorm = None if mesh is None else torch.sqrt(
+            C.sharded_sumsq(grads, placements, mesh))
+        _, _, om = adamw_update(_tree_like(params, grads), opt, params,
+                                state.step, opt_cfg, grad_norm=gnorm)
+        metrics = {"loss": loss, **om,
                    **{k: v.detach() for k, v in aux.items()
                       if v.ndim == 0}}
-        return TrainState(new_params, new_opt, state.step + 1,
+        return TrainState(state.params, state.opt, state.step + 1,
                           state.ef_error), metrics
 
     return step_fn
 
 
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of a global batch: its slice over the dp axes, as
+    ``batch_pspecs`` places them.  The mesh steps split every batch, so
+    rows that do not divide over the dp axes raise (the reference would
+    replicate them)."""
+    n = C.dp_size(mesh)
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r} has {v.shape[0]} rows, which do "
+                             f"not split over {n} data-parallel ranks")
+    return {k: C.dp_rows(v, mesh) for k, v in batch.items()}
+
+
+def train_step_shardings(cfg, mesh, state_shape: TrainState,
+                         batch_shape: dict):
+    """(in_shardings, out_shardings) of the train step: the state's and
+    the batch's :class:`NamedSharding` trees in, the state's and one
+    replicated sharding for the metrics out."""
+    sspec = to_shardings(state_pspecs(state_shape, mesh, cfg), mesh)
+    bspec = to_shardings(batch_pspecs(batch_shape, mesh), mesh)
+    return (sspec, bspec), (sspec, NamedSharding(mesh, P()))
+
+
 # ===========================================================================
 # serving steps
 # ===========================================================================
+
+def _placements(tree) -> dict:
+    return {p: t.placements for p, t in C.paths_and_leaves(tree).items()}
+
+
+def _global_cache_shape(cache: Params, n: int) -> Params:
+    """``meta`` stand-ins of the cache with every leaf's batch dim (1
+    under a stacked ``layers`` tree, else 0) ``n`` times longer."""
+    def one(path, t):
+        shape = list(t.shape)
+        shape[1 if path[0] == "layers" else 0] *= n
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    return C.map_with_path(one, cache)
+
+
+def _place_cache(cfg, mesh, cache: Params) -> Params:
+    """A rank's cache (its rows, whole along every other dim) as DTensors
+    in ``cache_pspecs``' layout: each leaf narrowed to this rank's slice
+    over the non-dp axes that shard it."""
+    specs = C.paths_and_leaves(cache_pspecs(
+        _global_cache_shape(cache, C.dp_size(mesh)), mesh, cfg))
+    only = C.non_dp_dims(mesh)
+
+    def one(path, t):
+        pl = NamedSharding(mesh, specs[path]).placements
+        shard = C.shard_of(t, pl, mesh, only=only)
+        if shard is not t:
+            shard = shard.contiguous()
+        shape = list(t.shape)
+        shape[1 if path[0] == "layers" else 0] *= C.dp_size(mesh)
+        return DTensor.from_local(shard, mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    return C.map_with_path(one, cache)
+
 
 def make_prefill_step(cfg, mesh=None, *, max_seq: int | None = None,
                       plan=None):
@@ -165,13 +360,26 @@ def make_prefill_step(cfg, mesh=None, *, max_seq: int | None = None,
     BlockPlan through the model's MLP dispatch; ``max_seq`` right-pads the
     returned caches for in-place decode appends.  The step takes an
     optional ``last_pos`` so bucket-padded prompts read their logits at
-    the true last token."""
-    _no_mesh(mesh)
+    the true last token.
+
+    With ``mesh`` the step takes the DTensor parameters and this rank's
+    rows of the batch (:func:`shard_batch`), gathers each layer's weights
+    as it runs it, and returns this rank's logits and the cache as
+    DTensors in ``cache_pspecs``' layout."""
+    _check_mesh(mesh)
+    policy = make_activation_policy(mesh, cfg) if mesh is not None else None
 
     @torch.no_grad()
     def step_fn(params: Params, batch: dict, last_pos=None):
-        return M.prefill(cfg, params, batch, max_seq=max_seq, plan=plan,
-                         last_pos=last_pos)
+        if mesh is None:
+            return M.prefill(cfg, params, batch, max_seq=max_seq, plan=plan,
+                             last_pos=last_pos)
+        gather = C.ParamGather(mesh, _placements(params))
+        with use_policy(policy), use_gather(gather):
+            logits, cache = M.prefill(cfg, C.local_tree(params), batch,
+                                      max_seq=max_seq, plan=plan,
+                                      last_pos=last_pos)
+        return logits, _place_cache(cfg, mesh, cache)
 
     return step_fn
 
@@ -179,12 +387,48 @@ def make_prefill_step(cfg, mesh=None, *, max_seq: int | None = None,
 def make_decode_step(cfg, mesh=None, *, plan=None):
     """One token against a full cache.  ``pos`` may be a scalar or a
     per-row ``(B,)`` vector; ``plan`` threads the m=1 decode BlockPlan
-    through the model's MLP dispatch.  The cache is updated in place."""
-    _no_mesh(mesh)
+    through the model's MLP dispatch.  The cache is updated in place.
+
+    With ``mesh`` the parameters and the cache are DTensors (the cache
+    from the mesh prefill step) and ``token`` this rank's rows: each
+    cache leaf is gathered over the non-dp axes that shard it (none on a
+    mesh whose ``model`` axis is 1: the step then writes the shards in
+    place), and this rank's slice written back."""
+    _check_mesh(mesh)
+    policy = make_activation_policy(mesh, cfg) if mesh is not None else None
 
     @torch.no_grad()
     def step_fn(params: Params, cache: Params, token: torch.Tensor,
                 pos: torch.Tensor):
-        return M.decode_step(cfg, params, token, cache, pos, plan=plan)
+        if mesh is None:
+            return M.decode_step(cfg, params, token, cache, pos, plan=plan)
+        only = C.non_dp_dims(mesh)
+        shards = C.paths_and_leaves(cache)
+        whole = {p: C.gather_full(t.to_local(), t.placements, mesh,
+                                  only=only) for p, t in shards.items()}
+        gather = C.ParamGather(mesh, _placements(params))
+        with use_policy(policy), use_gather(gather):
+            logits, _ = M.decode_step(
+                cfg, C.local_tree(params), token,
+                C.map_with_path(lambda p, _: whole[p], cache), pos, plan=plan)
+        for p, t in shards.items():
+            if whole[p] is not t.to_local():
+                t.to_local().copy_(C.shard_of(whole[p], t.placements, mesh,
+                                              only=only))
+        return logits, cache
 
     return step_fn
+
+
+def decode_shardings(cfg, mesh, params_shape: Params, cache_shape: Params,
+                     batch: int):
+    """(params, cache, token (B, 1), pos) :class:`NamedSharding` trees of
+    the decode step, the reference's."""
+    dp = dp_axes(mesh)
+    return (
+        to_shardings(param_pspecs(params_shape, mesh, cfg), mesh),
+        to_shardings(cache_pspecs(cache_shape, mesh, cfg), mesh),
+        NamedSharding(mesh, P(_div(mesh, batch, dp), None)),
+        NamedSharding(mesh, P()),
+    )
+

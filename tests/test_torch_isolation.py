@@ -33,6 +33,14 @@ def test_importing_every_module_pulls_no_jax_and_no_repro():
             "repro_torch.calib.fit", "repro_torch.calib.measure",
             "repro_torch.tune", "repro_torch.tune.autotune",
             "repro_torch.obs.export", "repro_torch.obs.drift"} <= set(mods)
+    # and the distributed layer's
+    assert {"repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.act_sharding",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.distributed.mesh_capture",
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -279,12 +279,21 @@ def test_launcher_needs_a_card_unless_told_cpu(monkeypatch):
                                         "--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.build(args)
-    for flag in (["--mesh", "2x2"], ["--compress"]):
-        args = tlaunch.parser().parse_args(
-            ["--arch", "llama3.2-3b", "--reduced", "--device", "cpu",
-             *flag])
-        with pytest.raises(NotImplementedError):
-            tlaunch.build(args)
+    # a 2x2 mesh needs four processes: one, with no launcher, raises and
+    # names the world size
+    args = tlaunch.parser().parse_args(
+        ["--arch", "llama3.2-3b", "--reduced", "--device", "cpu", "--mesh",
+         "2x2"])
+    with pytest.raises(RuntimeError, match="world size 1"):
+        tlaunch.build(args)
+    # --compress builds a trainer that carries an error-feedback state
+    args = tlaunch.parser().parse_args(
+        ["--arch", "llama3.2-3b", "--reduced", "--device", "cpu",
+         "--compress"])
+    loop = tlaunch.build(args)
+    assert loop.mesh is None and loop.state.ef_error is not None
+    assert all(e.dtype == torch.float32 and not e.any()
+               for e in TM.tree_leaves(loop.state.ef_error))
 
 
 def test_build_takes_a_config_in_place_of_the_arch():

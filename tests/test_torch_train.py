@@ -233,10 +233,20 @@ def test_train_step_updates_in_place_and_refuses_mesh_and_compress():
     assert any(not torch.equal(t, before[n]) for n, t in _flat(new.params))
     assert {"loss", "grad_norm", "lr", "nll", "accuracy",
             "tokens"} <= set(m)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # a mesh is a DeviceMesh: anything else is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TS.make_train_step(tcfg, object(), OptConfig())
-    with pytest.raises(NotImplementedError, match="compression"):
-        TS.make_train_step(tcfg, None, OptConfig(), compress=True)
+    # compress=True refuses a state without an error-feedback state, and
+    # trains one that has it, updating the error in place
+    with pytest.raises(ValueError, match="error-feedback"):
+        TS.make_train_step(tcfg, None, OptConfig(), compress=True)(
+            new, {"tokens": tokens})
+    cstate = TS.init_train_state(tcfg, 0, device="cpu", compress=True)
+    err = TM.tree_leaves(cstate.ef_error)
+    cnew, cm = TS.make_train_step(tcfg, None, OptConfig(warmup_steps=0),
+                                  compress=True)(cstate, {"tokens": tokens})
+    assert TM.tree_leaves(cnew.ef_error)[0] is err[0]
+    assert any(e.any() for e in err) and np.isfinite(float(cm["loss"]))
     with pytest.raises(ValueError, match="microbatches"):
         TS.make_train_step(tcfg, None, OptConfig(), accum=3)(
             new, {"tokens": tokens})
