@@ -303,7 +303,25 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``pipeline_forward`` over a one-stage ``pipe`` mesh (8 ``tanh(a @
    w)`` layers at d = 3072, 4 microbatches) equal to the sequential
    chain, both bit for bit.  The group is destroyed at the end.
-16. One JSON line for the kernels, then the result line.
+16. The dry-run and the roofline (``repro_torch.launch.dryrun``,
+   ``roofline/{analysis,op_cost}.py``): (a) the dry-run CLI, one process
+   a cell, all started together, on llama3.2-3b's ``train_4k``,
+   ``prefill_32k`` and ``decode_32k`` on the 16 x 16 mesh and
+   ``train_4k`` on 2 x 16 x 16, qwen2-moe-a2.7b's ``prefill_32k`` with
+   ``--opt`` and xlstm-1.3b's ``long_500k``: each record ``ok``, planned
+   and priced for the detected ``h100`` (memory term at 3.35 TB/s),
+   ``mfu_bound <= 1``, and each cell's per-chip FLOPs and bytes,
+   collectives by kind, three terms, dominant term, peak bytes and
+   whether they fit 80 GB printed; (b) llama3.2-3b at full width, one
+   4,096-token prefill through ``make_prefill_step`` under ``"fused"``
+   on the card under ``op_cost``: its peak live bytes within 5% of
+   ``torch.cuda.max_memory_allocated()`` over the same call, flash and
+   the fused MLP launched once a layer, the same step's peak on fake CPU
+   tensors (the plain path) beside it, and the model-FLOPs share of the
+   card's bf16 peak (at most 1); (c) ``ref.attention_blockwise`` at
+   llama's GQA 24/8, T = 8192, causal, against the flash kernel and the
+   naive plain version by phase 2's rule, timed beside flash and SDPA.
+17. One JSON line for the kernels, then the result line.
 
 Phase 1 also holds the fused MLP's footprint at the MoE configs' shared
 experts (2048 -> 5632 and 2048 -> 2816, gated) and at
@@ -3199,6 +3217,226 @@ def mesh_phase(dev, card: str, counters: dict, train11: dict) -> dict:
     return {MESH_SERVE: mesh_n, MESH_TRAIN: train_n}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry-run and the roofline, and the memory count on the card
+# ---------------------------------------------------------------------------
+
+# the dry-run's cells on the card, each one CLI call in its own process
+# (its fake process group never meets phase 15's NCCL group), all started
+# together: (arch, shape, extra flags)
+DRYRUN_CELLS = (
+    (LLAMA, "train_4k", ()),
+    (LLAMA, "train_4k", ("--multi-pod",)),
+    (LLAMA, "prefill_32k", ()),
+    (LLAMA, "decode_32k", ()),
+    (MOE, "prefill_32k", ("--opt",)),
+    (XLSTM, "long_500k", ()),
+)
+DRYRUN_TIMEOUT_S = 600
+# the card's HBM: the memory term's rate and the capacity a cell must fit
+H100_HBM_BYTES = 80e9
+# the memory count on the card: op_cost's peak live bytes (the step's
+# arguments and what it makes) against torch.cuda.max_memory_allocated()
+# over the same call, relative to the latter; set before the first run
+MEM_COUNT_RTOL = 0.05
+MEM_PREFILL_T = 4096
+# the blockwise plain attention against flash and the naive plain version:
+# llama's GQA 24/8 at T = 8192, head_dim 128, causal, bf16
+BLOCKWISE_SHAPE = (1, 24, 8, 8192, 128)
+MEMCOUNT = "llama3.2-3b (prefill under op_cost)"
+
+
+def start_dryrun(out: Path) -> list:
+    """Start one ``python -m repro_torch.launch.dryrun`` a cell; returns
+    (cell, process, log path) for each."""
+    import os
+
+    out.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k != "FTL_TARGET"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    procs = []
+    for arch, shape, flags in DRYRUN_CELLS:
+        log = out / f"{arch}__{shape}{''.join(flags)}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, *flags, "--out", str(out)]
+        procs.append(((arch, shape, flags),
+                      subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                       stdout=log.open("w"),
+                                       stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def finish_dryrun(procs: list, out: Path, card: str, t0: float) -> None:
+    """Phase 16 (a): wait for every cell's process and check its record:
+    ``ok``, planned and priced for ``h100`` (detected), the memory term at
+    3.35 TB/s, ``mfu_bound <= 1``; print what each cell found."""
+    for (arch, shape, flags), proc, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for _, p, _ in procs:
+                p.kill()
+            raise RuntimeError(f"chip_smoke: the dry-run of {arch} {shape} "
+                               f"took over {DRYRUN_TIMEOUT_S} s")
+        check(rc == 0, f"dry-run {arch} {shape} {flags} exited {rc}: "
+              f"{log.read_text()[-3000:]}")
+    print(f"  {len(procs)} dry-run processes done in "
+          f"{time.perf_counter() - t0} s ({card})")
+    for (arch, shape, flags), _, _ in procs:
+        mesh = "2x16x16" if "--multi-pod" in flags else "16x16"
+        rec = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
+        roof, cost, mem = rec["roofline"], rec["cost"], rec["memory"]
+        check(rec["status"] == "ok", f"dry-run {arch} {shape} {mesh}: "
+              f"{rec['status']}")
+        check(rec["ftl_target"] == "h100" and roof["target"] == "h100",
+              f"dry-run {arch} {shape}: planned for {rec['ftl_target']}, "
+              f"priced for {roof['target']}, not the detected h100")
+        t_mem = cost["bytes_per_chip"] / HBM_BPS
+        check(abs(roof["t_memory_s"] - t_mem) <= 1e-6 + 1e-6 * t_mem,
+              f"dry-run {arch} {shape}: t_memory {roof['t_memory_s']} s is "
+              f"not its bytes at {HBM_BPS} B/s ({t_mem} s)")
+        check(roof["mfu_bound"] <= 1, f"dry-run {arch} {shape}: mfu_bound "
+              f"{roof['mfu_bound']} > 1")
+        coll = {k: v for k, v in rec["collectives"]["by_kind"].items() if v}
+        opt = " --opt" if "--opt" in flags else ""
+        print(f"  [{mesh}] {arch} {shape}{opt}: traced in "
+              f"{rec['lower_s']} s; per chip "
+              f"{cost['flops_per_chip']} FLOPs ({cost['matmul_flops_per_chip']}"
+              f" in matmuls), {cost['bytes_per_chip']} bytes; collectives "
+              f"{rec['collectives']['count']} ops, bytes by kind {coll}; "
+              f"t_compute {roof['t_compute_s']} s, t_memory "
+              f"{roof['t_memory_s']} s, t_collective {roof['t_collective_s']}"
+              f" s, dominant {roof['dominant']}, model_flops "
+              f"{roof['model_flops']}, useful_flops_ratio "
+              f"{roof['useful_flops_ratio']}, mfu_bound {roof['mfu_bound']}; "
+              f"peak {mem['peak_bytes']} B (arguments "
+              f"{mem['argument_size_in_bytes']}, temporaries "
+              f"{mem['temp_size_in_bytes']}), fits {H100_HBM_BYTES:.0e}: "
+              f"{mem['peak_bytes'] <= H100_HBM_BYTES}")
+
+
+def memory_count(dev, card: str, counters: dict) -> dict:
+    """Phase 16 (b): llama3.2-3b at full width, one 4096-token prefill
+    through ``make_prefill_step`` (no mesh) under ``serving_ftl_mode``,
+    under ``op_cost`` on the card's tensors: its peak live bytes against
+    ``torch.cuda.max_memory_allocated()`` over the same call, flash and
+    the fused MLP launched once a layer; the same step traced on fake CPU
+    tensors (the plain path); the model-FLOPs share of the card's peak."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.serve import serving_ftl_mode
+    from repro_torch.models import model as M
+    from repro_torch.roofline import model_flops
+    from repro_torch.roofline.op_cost import analyze_step
+    from repro_torch.train import steps as S
+
+    mode = serving_ftl_mode(get_config(LLAMA))
+    cfg, params, _ = load_model(LLAMA, dev, mode)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (1, MEM_PREFILL_T),
+                                     generator=gen, device=dev)}
+    step = S.make_prefill_step(cfg)
+    step(params, batch)                      # warm-up: cuBLAS, the plans
+    torch.cuda.synchronize()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    res = analyze_step(step, params, batch)
+    torch.cuda.synchronize()
+    n = _read(counters)
+    measured = torch.cuda.max_memory_allocated()
+    args = res["argument_size_in_bytes"]
+    # what the allocator held before the call that is not an argument
+    # (nothing else of the script is alive here) counts on both sides
+    other = base - args
+    counted = res["peak_bytes"] + other
+    gap = (counted - measured) / measured
+    print(f"  {cfg.name} prefill, 1 x {MEM_PREFILL_T} tokens, ftl_mode "
+          f"{mode!r}, under op_cost on the card ({card}): arguments "
+          f"{args} B, temporaries {res['temp_size_in_bytes']} B, peak "
+          f"{res['peak_bytes']} B; allocated before the call {base} B "
+          f"({other} B besides the arguments); max_memory_allocated "
+          f"{measured} B (temporaries {measured - base} B); counted peak "
+          f"{counted} B, gap {gap} (limit {MEM_COUNT_RTOL}); launches {n}")
+    check(abs(gap) <= MEM_COUNT_RTOL, f"op_cost's peak {counted} B is not "
+          f"within {MEM_COUNT_RTOL} of max_memory_allocated {measured} B")
+    check(n["flash_attention"] == cfg.n_layers
+          and n["fused_mlp"] == cfg.n_layers,
+          f"the prefill under op_cost launched {n}, not flash and the fused "
+          f"MLP once a layer")
+    # the step's time, with no mode around it
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    secs = statistics.median(times)
+    mf = model_flops(cfg, ShapeSpec("smoke", "prefill", MEM_PREFILL_T, 1))
+    share = mf / (secs * BF16_FLOPS)
+    print(f"  the prefill takes {secs} s (median of 3: {times}); "
+          f"model_flops {mf}, {share} of {BF16_FLOPS:.3e} FLOP/s ({card})")
+    check(share <= 1, f"model-FLOPs share {share} > 1")
+    del params, batch
+    torch.cuda.empty_cache()
+    # the same step on fake CPU tensors: the plain path, naive attention
+    shapes = M.param_shapes(cfg)
+    with FakeTensorMode():
+        fparams = M.tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="cpu"), shapes)
+        ftoks = torch.empty((1, MEM_PREFILL_T), dtype=torch.int64,
+                            device="cpu")
+        t0 = time.perf_counter()
+        plain = analyze_step(step, fparams, {"tokens": ftoks})
+    print(f"  the same step on fake CPU tensors (the plain path: naive "
+          f"attention, the hidden tensor written), traced in "
+          f"{time.perf_counter() - t0} s: peak {plain['peak_bytes']} B "
+          f"(temporaries {plain['temp_size_in_bytes']} B) against the "
+          f"card's counted {res['peak_bytes']} B (temporaries "
+          f"{res['temp_size_in_bytes']} B), {plain['peak_bytes'] / res['peak_bytes']}x; "
+          f"FLOPs {plain['flops']} plain, {res['flops']} on the card's "
+          f"path (its kernels' work is not counted: op_cost sees the ops "
+          f"around them)")
+    return {MEMCOUNT: n}
+
+
+def blockwise_vs_flash(dev, card: str, timer) -> None:
+    """Phase 16 (c): ``ref.attention_blockwise`` on the card at llama's
+    GQA 24/8, T = 8192, against the flash kernel and the naive plain
+    version by phase 2's rule; its time beside flash's and SDPA's."""
+    from repro_torch.kernels import flash_attention, ref
+
+    b, hq, hk, t, d = BLOCKWISE_SHAPE
+    randn = normal_bf16(dev, 161)
+    q, k, v = randn(b, hq, t, d), randn(b, hk, t, d), randn(b, hk, t, d)
+    blk = ref.attention_blockwise(q, k, v, causal=True, block_k=1024)
+    flash = flash_attention.flash_attention(q, k, v, causal=True)
+    naive = ref.attention(q, k, v, causal=True)
+    compare(blk, flash, f"blockwise plain attention ({b}, {hq}/{hk}, {t}, "
+            f"{d}), causal, block 1024, against the flash kernel")
+    compare(blk, naive, "the same against the naive plain version")
+    del naive
+    torch.cuda.empty_cache()
+    ms = {"blockwise": timer.ms(lambda: ref.attention_blockwise(
+              q, k, v, causal=True, block_k=1024), n=5),
+          "flash": timer.ms(lambda: flash_attention.flash_attention(
+              q, k, v, causal=True)),
+          "sdpa": timer.ms(lambda: F.scaled_dot_product_attention(
+              q, k, v, is_causal=True, enable_gqa=True)),
+          "naive": timer.ms(lambda: ref.attention(q, k, v, causal=True),
+                            n=3)}
+    print(f"  ms (CUDA events, median, L2 flushed; {card}): blockwise "
+          f"{ms['blockwise']}, flash kernel {ms['flash']}, SDPA "
+          f"{ms['sdpa']}, naive plain {ms['naive']}; blockwise / flash "
+          f"{ms['blockwise'] / ms['flash']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3415,6 +3653,18 @@ def main() -> int:
     print(f"== the distributed layer on one card: a one-rank NCCL mesh (at "
           f"{time.perf_counter() - t_start} s)")
     launches.update(mesh_phase(dev, card, counters, trained[TRAIN]))
+    print(f"== the dry-run and the roofline at full width, the memory count "
+          f"on the card (at {time.perf_counter() - t_start} s)")
+    t16 = time.perf_counter()
+    dry_out = ROOT / "build" / "dryrun"
+    procs = start_dryrun(dry_out)
+    print("  (b) the memory count")
+    launches.update(memory_count(dev, card, counters))
+    print("  (c) the blockwise plain attention")
+    blockwise_vs_flash(dev, card, Timer(dev))
+    print("  (a) the dry-run")
+    finish_dryrun(procs, dry_out, card, t16)
+    print(f"  phase 16 took {time.perf_counter() - t16} s")
     print(f"  total {time.perf_counter() - t_start} s")
 
     meta = {

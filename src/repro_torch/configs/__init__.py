@@ -1,7 +1,7 @@
 """Architecture registry of the PyTorch port: ``get_config("<arch-id>")``.
 
 The port's own copy of ``repro.configs``: every architecture of the
-reference.  Arch ids use the reference's dashes; module names use
+reference, and the shape cells.  Arch ids use the reference's dashes; module names use
 underscores.
 """
 from __future__ import annotations
@@ -9,6 +9,7 @@ from __future__ import annotations
 import importlib
 
 from .base import ModelConfig
+from .shapes import SHAPES, ShapeSpec, get_shape
 
 _ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
@@ -36,4 +37,6 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config"]
+__all__ = [
+    "ARCHS", "ModelConfig", "SHAPES", "ShapeSpec", "get_config", "get_shape",
+]

@@ -653,6 +653,13 @@ H100 = Target(
     flops=989e12,
 )
 
+# NVLink 4 of one H100 SXM: 900 GB/s in both directions together, so
+# 450e9 B/s each way (NVIDIA's H100 SXM data sheet).  The roofline's
+# collective link on the card (roofline/analysis.py:HW.from_target) and
+# nothing else: not a MemoryLevel, which would change what the planner
+# binds on every path.
+H100_NVLINK_BPS = 450e9
+
 PRESETS: dict[str, Target] = {
     t.name: t for t in (TPU_V5E, CPU_CACHE, RV32_L1_L2, RV32_NPU,
                         RV32_MESH, H100)

@@ -74,9 +74,44 @@ def fused_mlp(x, w1, w2, wg=None, b1=None, b2=None, *, act: str = "gelu",
     return y.reshape(*lead, m, w2.shape[1])
 
 
+# The plain path's attention schedule: 'naive' materialises the (Tq, Tk)
+# scores (the layer-per-layer baseline); 'blockwise' runs
+# ref.attention_blockwise, the flash schedule in plain ops, from
+# ``min_len`` keys up.  The dry-run's --opt sets it
+# (launch/dryrun.py:apply_opt_level).
+_PLAIN_ATTN = {"mode": "naive", "min_len": 2048}
+
+
+def set_plain_attention(mode: str, *, min_len: int = 2048) -> None:
+    """The plain path's attention schedule, for every later
+    :func:`attention` call that runs plain PyTorch (CPU tensors, fake
+    tensors on the CPU, or ``backend='ref'``): ``'naive'`` or
+    ``'blockwise'`` from ``min_len`` keys up.  A CUDA tensor launches the
+    flash kernel whatever the mode.  The reference's
+    ``repro.kernels.ops.set_xla_attention``."""
+    if mode not in ("naive", "blockwise"):
+        raise ValueError(f"mode must be 'naive' or 'blockwise', got "
+                         f"{mode!r}")
+    _PLAIN_ATTN["mode"] = mode
+    _PLAIN_ATTN["min_len"] = int(min_len)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               q_offset: int = 0, backend: Backend = "auto"):
+    """Attention, differentiable.  On the plain path under
+    ``set_plain_attention('blockwise')`` with at least ``min_len`` keys
+    it runs :func:`ref.attention_blockwise` with key blocks of
+    ``max(block_kv(head_dim), 1024)``: the reference plans that block
+    with ``plan_attention_blocks`` for a target; the port's flash key
+    tile depends on the head dim alone (``flash_attention.block_kv``), so
+    no target enters."""
     _check_backend(backend)
+    if _PLAIN_ATTN["mode"] == "blockwise" \
+            and k.shape[2] >= _PLAIN_ATTN["min_len"] \
+            and _flash._plain(backend == "ref", q, k, v):
+        return _ref.attention_blockwise(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            block_k=max(_flash.block_kv(q.shape[3]), 1024))
     return _flash.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window, q_offset=q_offset,
                             plain=backend == "ref")

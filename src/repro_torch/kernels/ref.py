@@ -14,6 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.roofline.op_cost import pad_steps as _pad
+from repro_torch.roofline.op_cost import steps
+
 _ACTS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "gelu_exact": F.gelu,
@@ -108,6 +111,54 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _attend(s, mask, q, v)
 
 
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0, block_k: int = 1024
+                        ) -> torch.Tensor:
+    """:func:`attention` by an online softmax over key blocks of
+    ``block_k`` (one block where ``block_k`` does not divide Tk): the
+    (Tq, Tk) scores exist only as (Tq, block_k) tiles, the schedule the
+    flash kernel runs, in plain PyTorch ops that autograd differentiates
+    (the reference's ``repro.kernels.ref.attention_blockwise``, a
+    ``lax.scan``).  fp32 accumulation; a row that sees no key gives
+    zeros."""
+    b, hq, tq, dh = q.shape
+    hk, tk = k.shape[1], k.shape[2]
+    group = hq // hk
+    if tk % block_k:
+        block_k = tk
+    qg = q.reshape(b, hk, group, tq, dh).float()
+    scale = dh ** -0.5
+    qpos = torch.arange(tq, device=q.device) + q_offset
+    acc = torch.zeros((b, hk, group, tq, dh), dtype=torch.float32,
+                      device=q.device)
+    m_run = torch.full((b, hk, group, tq), -1e30, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((b, hk, group, tq), dtype=torch.float32,
+                        device=q.device)
+    for j in range(tk // block_k):
+        kj = k[:, :, j * block_k:(j + 1) * block_k]
+        vj = v[:, :, j * block_k:(j + 1) * block_k]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kj.float()) * scale
+        kpos = j * block_k + torch.arange(block_k, device=q.device)
+        mask = torch.ones((tq, block_k), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m_run - m_new)
+        l_run = l_run * alpha + p.sum(-1)
+        pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(),
+                          vj.float())
+        acc = acc * alpha[..., None] + pv
+        m_run = m_new
+    out = acc / torch.where(l_run == 0.0, 1.0, l_run)[..., None]
+    return out.reshape(b, hq, tq, dh).to(q.dtype)
+
+
 def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
                   q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -170,7 +221,7 @@ def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
          if h0 is None else h0.float())
     xf, af = x.float(), a.float()
     hs = torch.empty((b, t, w), dtype=torch.float32, device=x.device)
-    for i in range(t):
+    for i in steps(t):
         h = af[:, i] * h + xf[:, i]
         hs[:, i] = h
     return hs.to(x.dtype), h
@@ -195,7 +246,7 @@ def rg_lru_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
     hp = torch.empty((b, t, w), dtype=torch.float32, device=dev)
     h = (torch.zeros((b, w), dtype=torch.float32, device=dev)
          if h0 is None else h0.float())
-    for i in range(t):
+    for i in steps(t):
         hp[:, i] = h
         h = af[:, i] * h + xf[:, i]
     dhf = (torch.zeros((b, t, w), dtype=torch.float32, device=dev)
@@ -204,7 +255,8 @@ def rg_lru_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
          if dh_t is None else dh_t.float())
     dx = torch.empty((b, t, w), dtype=torch.float32, device=dev)
     da = torch.empty_like(dx)
-    for i in reversed(range(t)):
+    for j in steps(t):
+        i = t - 1 - j
         g = g + dhf[:, i]
         dx[:, i] = g
         da[:, i] = g * hp[:, i]
@@ -226,7 +278,7 @@ def _mlstm_steps(C, n, m, qf, kf, vf, ig, fg, scale: float, branch=None):
     Every product is an elementwise fp32 product summed in fp32 (no
     matrix product, so no TF32)."""
     hs = []
-    for s in range(qf.shape[2]):
+    for s in steps(qf.shape[2]):
         it, kt, vt = ig[..., s], kf[:, :, s], vf[:, :, s]
         logf = F.logsigmoid(fg[..., s])
         m_new = torch.maximum(logf + m, it)
@@ -244,6 +296,7 @@ def _mlstm_steps(C, n, m, qf, kf, vf, ig, fg, scale: float, branch=None):
             den = torch.where(branch[..., s] != 0, branch[..., s] * nq, floor)
         hs.append(num / den[..., None])
         m = m_new
+    _pad(hs, qf.shape[2])
     return C, n, m, torch.stack(hs, 2)
 
 
@@ -293,14 +346,18 @@ def _chunk_scan(q, k, v, i_pre, f_pre, chunk: int, branch=None):
     ig, fg = i_pre.float(), f_pre.float()
     remat = torch.is_grad_enabled()
     hs = []
-    for t0 in range(0, q.shape[2], chunk):
-        sl = slice(t0, t0 + chunk)
+    t = q.shape[2]
+    # chunks of one length are steps of one shape (a priced loop)
+    chunks = steps(t // chunk) if t % chunk == 0 else range(-(-t // chunk))
+    for c in chunks:
+        sl = slice(c * chunk, (c + 1) * chunk)
         args = (C, n, m, qf[:, :, sl], kf[:, :, sl], vf[:, :, sl],
                 ig[..., sl], fg[..., sl], scale,
                 None if branch is None else branch[..., sl])
         C, n, m, hc = (checkpoint(_mlstm_steps, *args, use_reentrant=False)
                        if remat else _mlstm_steps(*args))
         hs.append(hc)
+    _pad(hs, -(-t // chunk))
     return torch.cat(hs, 2), C, n, m
 
 

@@ -111,13 +111,21 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
                       mesh_dim_names=tuple(axes))
 
 
+def production_layout(*, multi_pod: bool = False
+                      ) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(shape, axes) of the production mesh: 16 x 16 ``data`` x ``model``
+    (one pod, 256 devices) or 2 x 16 x 16 ``pod`` x ``data`` x ``model``
+    (512)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device: torch.device | str | None = None
                          ) -> DeviceMesh:
     """16 x 16 single pod (256 devices) or 2 x 16 x 16 (512)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device=device)
+    return make_mesh(*production_layout(multi_pod=multi_pod), device=device)
 
 
 def make_host_mesh(n_data: int | None = None, n_model: int = 1, *,

@@ -256,8 +256,11 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
         k[rows, slot] = k_new[:, 0]
         v[rows, slot] = v_new[:, 0]
     else:
-        k[:, slot] = k_new[:, 0]
-        v[:, slot] = v_new[:, 0]
+        # a one-element index, not a 0-d one: indexing by a 0-d tensor
+        # reads its value on the host
+        at = slot.reshape(1).long()
+        k.index_copy_(1, at, k_new)
+        v.index_copy_(1, at, v_new)
     j = torch.arange(s_max, device=x.device)
     pcol = pos[:, None] if vec else pos
     if ring:

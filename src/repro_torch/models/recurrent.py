@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import placed
 from repro_torch.kernels import ops
+from repro_torch.roofline.op_cost import pad_steps, steps
 
 from .layers import init_linear, init_norm, linear, norm
 
@@ -254,14 +255,18 @@ def slstm_block(cfg, p: Params, x: torch.Tensor, *,
     pre = {g: _linear_f32(p[f"w{g}"], xn) for g in _GATES}
     b, s, _ = x.shape
     length = s if length is None else length
-    state = kept = init_slstm_state(cfg, b, x.device)
+    state = init_slstm_state(cfg, b, x.device)
+    kept = state if length == 0 else None
     hs = []
-    for t in range(s):
+    for t in steps(s):
         state = _slstm_step(cfg, p, state, {g: v[:, t] for g, v in
                                             pre.items()})
         hs.append(state["h"])
         if t == length - 1:
             kept = state
+    if kept is None:            # a loop priced by trips ran 3 steps
+        kept = state
+    pad_steps(hs, s)
     out = torch.stack(hs, dim=1).to(x.dtype)
     y = linear(p["down"], out)
     return (y, kept) if return_state else y
