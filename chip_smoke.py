@@ -302,13 +302,30 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``dequantize(quantize(x))`` for a (4096, 3072) bf16 tensor, and
    ``pipeline_forward`` over a one-stage ``pipe`` mesh (8 ``tanh(a @
    w)`` layers at d = 3072, 4 microbatches) equal to the sequential
-   chain, both bit for bit.  The group is destroyed at the end.
+   chain, both bit for bit.  The group is destroyed at the end.  (e)
+   The tensor-parallel path as one rank of a 1 x 4 ``data`` x ``model``
+   mesh over a fake process group on the card (``launch.dryrun.
+   fake_mesh`` on ``"cuda"``): llama3.2-3b at full width, its weights the
+   rank's ``model`` shards, two train steps of 4 x 1024 tokens in 2
+   microbatches under ``"off"`` (flash at 6/2 heads, forward and
+   backward, the same launches a step as the 1 x 1 mesh), then one
+   1,024-token prefill and 4 decode steps under ``"fused"`` (flash at
+   6/2 heads, the fused MLP at 3072 -> 2048, the KV cache split by
+   sequence); the per-rank step times, peak memory and launches printed
+   beside the 1 x 1 mesh step's.  The fake group's collectives move no
+   data, so these numbers are one rank's compute at the split shapes and
+   are not compared; they are held finite.  Each layer's attention and
+   MLP outputs through the kernels are held against their plain versions
+   on the same input by phase 2's rule, and each layer's gradients
+   through the flash kernels against the plain Function's within 2e-2.
 16. The dry-run and the roofline (``repro_torch.launch.dryrun``,
    ``roofline/{analysis,op_cost}.py``): (a) the dry-run CLI, one process
    a cell, all started together, on llama3.2-3b's ``train_4k``,
    ``prefill_32k`` and ``decode_32k`` on the 16 x 16 mesh and
    ``train_4k`` on 2 x 16 x 16, qwen2-moe-a2.7b's ``prefill_32k`` with
-   ``--opt`` and xlstm-1.3b's ``long_500k``: each record ``ok``, planned
+   ``--opt`` and xlstm-1.3b's ``long_500k``, and both MoE configs'
+   ``train_4k`` (their ``useful_flops_ratio`` printed beside llama's, the
+   counts of the split over ``model``): each record ``ok``, planned
    and priced for the detected ``h100`` (memory term at 3.35 TB/s),
    ``mfu_bound <= 1``, and each cell's per-chip FLOPs and bytes,
    collectives by kind, three terms, dominant term, peak bytes and
@@ -3178,6 +3195,8 @@ def mesh_phase(dev, card: str, counters: dict, train11: dict) -> dict:
           f"({ef_by}: g and e read and written once) [{card}]")
     del grads, efs, loop
     torch.cuda.empty_cache()
+    mesh11 = {"step_s": step_s, "peak_gb": peak,
+              "per_step": {k: v // args.steps for k, v in train_n.items()}}
 
     # --- (d) the collectives on NCCL ---------------------------------------
     x = torch.randn((4096, 3072), generator=gen, device=dev
@@ -3214,7 +3233,252 @@ def mesh_phase(dev, card: str, counters: dict, train11: dict) -> dict:
     dist.destroy_process_group()
     check(not dist.is_initialized(), "the process group outlived phase 15")
     torch.cuda.empty_cache()
-    return {MESH_SERVE: mesh_n, MESH_TRAIN: train_n}
+    return {MESH_SERVE: mesh_n, MESH_TRAIN: train_n}, mesh11
+
+
+# ---------------------------------------------------------------------------
+# phase 15 (e): one rank of a tensor-parallel mesh on the card
+# ---------------------------------------------------------------------------
+
+# llama3.2-3b as rank 0 of a 1 x 4 data x model mesh over a fake group:
+# its 24/8 heads split to 6/2, its MLP's 8192 to 2048, its vocab to 32,064.
+# The fake group's all-reduce adds no other rank's part, so a token
+# outside rank 0's quarter of the vocab would embed to a zero row, and the
+# RMS norms of a zero row (1 / sqrt(eps) each) overflow its gradient over
+# 28 layers (4 layers stay finite): the tokens are drawn from rank 0's
+# quarter, whose rows are their whole embeddings
+TP_RANK = "llama3.2-3b (tp-rank, mesh 1x4)"
+TP_SHAPE = (1, 4)
+TP_STEPS, TP_BATCH, TP_SEQ, TP_ACCUM = 2, 4, 1024, 2
+TP_PROMPT, TP_DECODE = 1024, 4
+
+
+def _spy_attention(shapes: list):
+    """``ops.attention`` recording each call's q and k shapes."""
+    from repro_torch.kernels import ops
+
+    real = ops.attention
+
+    def spy(q, k, v, **kw):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return real(q, k, v, **kw)
+
+    return mock.patch.object(ops, "attention", spy)
+
+
+def tp_phase(dev, card: str, counters: dict, mesh11: dict) -> dict:
+    """Phase 15 (e): llama3.2-3b at full width as rank 0 of a 1 x 4 mesh
+    over a fake process group on the card: train steps under ``"off"``
+    and a prefill and decode steps under ``"fused"`` at the split shapes,
+    launches counted from 0 before each and held to the path's; each
+    layer held against its plain version on the same input.  Returns the
+    path's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.act_sharding import use_policy
+    from repro_torch.distributed.sharding import make_activation_policy
+    from repro_torch.launch.dryrun import fake_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import attention_layer, mlp_layer, norm
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import steps as S
+
+    check(not dist.is_initialized(), "a process group is up before 15 (e)")
+    cfg = dataclasses.replace(get_config(LLAMA), ftl_mode="off", remat=True)
+    scfg = dataclasses.replace(cfg, ftl_mode="fused")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    layers = cfg.n_layers
+    with fake_mesh(TP_SHAPE, ("data", "model"), device="cuda") as mesh:
+        probe = torch.full((4 * 3,), float("nan"), device=dev)
+        C._all_gather(probe, torch.arange(3.0, device=dev),
+                      group=mesh.get_group(1))
+        print(f"  fake process group ({dist.get_backend()}, world size "
+              f"{dist.get_world_size()}), rank 0 of {mesh}; its all-gather "
+              f"on the card gives {probe.tolist()} for rank 0's [0, 1, 2] "
+              f"(no rank's data moves: the numbers below are one rank's "
+              f"compute at the split shapes, not compared, held finite; "
+              f"tokens from rank 0's quarter of the vocab)")
+        state = S.init_train_state(cfg, 0, device=dev, mesh=mesh)
+        local = C.local_tree(state.params)
+        w1 = local["layers"]["pos0"]["mlp"]["w1"]["w"]
+        print(f"  rank 0's shards: {sum(t.numel() for t in M.tree_leaves(local))} "
+              f"of {LLAMA_PARAMS} parameters; wq {tuple(local['layers']['pos0']['attn']['wq']['w'].shape[1:])}, "
+              f"w1 {tuple(w1.shape[1:])}, embed {tuple(local['embed']['tok'].shape)}")
+        check(tuple(w1.shape[1:]) == (cfg.d_model, cfg.d_ff // 4),
+              f"w1's shard is {tuple(w1.shape)}")
+
+        # --- train steps under "off" -----------------------------------
+        step = S.make_train_step(cfg, mesh, OptConfig(), accum=TP_ACCUM)
+        vocab = cfg.vocab_size // TP_SHAPE[1]       # rank 0's rows
+        toks = torch.randint(2, vocab, (TP_BATCH, TP_SEQ), generator=gen,
+                             device=dev)
+        _zero(counters)
+        torch.cuda.reset_peak_memory_stats(dev)
+        secs, metrics = [], []
+        for i in range(TP_STEPS):
+            # the last step profiled: the device's busy share of its wall
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) \
+                if i == TP_STEPS - 1 else contextlib.nullcontext()
+            with prof:
+                t0 = time.perf_counter()
+                state, m = step(state, {"tokens": toks})
+                metrics.append({k: float(v) for k, v in m.items()})
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        train_n = _read(counters)
+        kern = _device_kernels(prof)
+        busy = sum(v[1] for v in kern.values())
+        print(f"  profiler, the last train step: device kernel time {busy} "
+              f"ms of {1e3 * secs[-1]} ms wall, busy {busy / (1e3 * secs[-1])}"
+              f"; top kernels (ms, count): " + "; ".join(
+                  f"{n[:50]} {v[1]} x{v[0]}" for n, v in sorted(
+                      kern.items(), key=lambda kv: -kv[1][1])[:5]))
+        del prof
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        per_step = {k: v // TP_STEPS for k, v in train_n.items()}
+        print(f"  {TP_STEPS} train steps of {TP_BATCH} x {TP_SEQ} tokens in "
+              f"{TP_ACCUM} microbatches under 'off': step seconds {secs} "
+              f"(the 1 x 1 mesh's steady step {mesh11['step_s']} s); peak "
+              f"device memory {peak} GB (1 x 1: {mesh11['peak_gb']} GB); "
+              f"launches a step {per_step} (1 x 1: {mesh11['per_step']}); "
+              f"loss {[m['loss'] for m in metrics]}, grad norm "
+              f"{[m['grad_norm'] for m in metrics]} [{card}]")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in metrics), f"non-finite train metrics {metrics}")
+        want = {"flash_attention": 2 * layers * TP_ACCUM,
+                "flash_attention_bwd": layers * TP_ACCUM}
+        check(all(per_step.get(k, 0) == want.get(k, 0) for k in per_step),
+              f"a tensor-parallel step launched {per_step}, not {want}")
+        check(per_step == {k: mesh11["per_step"].get(k, 0)
+                           for k in per_step},
+              "the tensor-parallel step launches other kernels than the "
+              "1 x 1 mesh step")
+
+        # --- each layer's gradients through flash against the plain -----
+        dparams = state.params
+        del state, step
+        torch.cuda.empty_cache()
+        params = C.local_tree(dparams)
+        positions = torch.arange(TP_SEQ, device=dev)
+        x = (torch.randn((2, TP_SEQ, cfg.d_model), generator=gen,
+                         device=dev) * 0.5).to(torch.bfloat16)
+        rel, heads = {}, []
+        for t in M.tree_leaves(params):
+            t.requires_grad_(True)
+        with use_policy(make_activation_policy(mesh, cfg)):
+            for i, (kind, p, _) in enumerate(M._layers(cfg, params)):
+                named = list(_flat_names(p))
+                xi = x.detach().requires_grad_()
+                cot = torch.randn(x.shape, generator=gen, device=dev
+                                  ).to(x.dtype)
+                wrt = [xi, *(v for _, v in named)]
+                with _spy_attention(heads):
+                    y = M._apply_layer(cfg, p, kind, xi,
+                                       positions=positions)[0]
+                    gk = torch.autograd.grad(y, wrt, cot)
+                with plain_ops(("attention",)):
+                    y = M._apply_layer(cfg, p, kind, xi,
+                                       positions=positions)[0]
+                    gp = torch.autograd.grad(y, wrt, cot)
+                for name, a, b in zip(["input", *(n for n, _ in named)], gk,
+                                      gp):
+                    rel[f"{i}/{name}"] = _rel(a, b)
+                del y, gk, gp
+        for t in M.tree_leaves(params):
+            t.requires_grad_(False)
+        print(f"  each layer's gradients on rank 0's shards through the "
+              f"flash kernels (q, k at {sorted(set(heads))}) against the "
+              f"plain Function's, 2 x {TP_SEQ} tokens: worst "
+              f"{_worst(rel)} (tolerance {GRAD_RTOL})")
+        check(set(heads) == {((2, 6, TP_SEQ, 128), (2, 2, TP_SEQ, 128))},
+              f"flash ran at {set(heads)}, not 6/2 heads")
+        check(all(np.isfinite(v) and v <= GRAD_RTOL for v in rel.values()),
+              "a layer's gradients through the kernels disagree with the "
+              "plain Function's")
+        del x
+
+        # --- a prefill and decode steps under "fused" -------------------
+        prefill = S.make_prefill_step(scfg, mesh,
+                                      max_seq=TP_PROMPT + TP_DECODE)
+        decode = S.make_decode_step(scfg, mesh)
+        toks = torch.randint(2, vocab, (1, TP_PROMPT + TP_DECODE),
+                             generator=gen, device=dev)
+        _zero(counters)
+        t0 = time.perf_counter()
+        logits, cache = prefill(dparams, {"tokens": toks[:, :TP_PROMPT]})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, dec_s = [logits], []
+        for i in range(TP_PROMPT, TP_PROMPT + TP_DECODE):
+            t0 = time.perf_counter()
+            lg, cache = decode(dparams, cache, toks[:, i:i + 1],
+                               torch.tensor(i, device=dev))
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t0)
+            out.append(lg)
+        serve_n = _read(counters)
+        kv = next(t for p, t in C.paths_and_leaves(cache).items()
+                  if p[-1] == "k")
+        print(f"  one {TP_PROMPT}-token prefill {prefill_s} s and "
+              f"{TP_DECODE} decode steps {dec_s} s under 'fused'; logits "
+              f"{tuple(logits.shape)} (the vocab's 4 slices gathered); KV "
+              f"cache {tuple(kv.shape)} placed {kv.placements}, rank 0 "
+              f"holding {tuple(kv.to_local().shape)}; launches {serve_n} "
+              f"[{card}]")
+        check(all(tuple(t.shape) == (1, 1, cfg.vocab_size)
+                  and bool(torch.isfinite(t.float()).all()) for t in out),
+              "the tensor-parallel serving steps' logits are not finite "
+              "(1, 1, vocab)")
+        check(tuple(kv.to_local().shape)[2] == (TP_PROMPT + TP_DECODE) // 4,
+              "the KV cache is not split by sequence over model")
+        want = {"flash_attention": layers,
+                "fused_mlp": layers * (1 + TP_DECODE)}
+        check(all(serve_n.get(k, 0) == want.get(k, 0) for k in serve_n),
+              f"the tensor-parallel serving run launched {serve_n}, not "
+              f"{want}")
+        del cache, out, logits
+
+        # --- each layer against its plain version on the same input -----
+        heads.clear()
+        shares = {"attention": [], "mlp": []}
+        prompt = toks[:, :TP_PROMPT]
+        positions = torch.arange(TP_PROMPT, device=dev)
+        with torch.no_grad(), use_policy(make_activation_policy(mesh, scfg)):
+            with plain_ops(("attention",)):
+                inputs = [(p, x) for _, p, x, _, _ in
+                          M.layer_stream(cfg, params, prompt)]
+            for p, x in inputs:
+                h = norm(p["ln1"], x, cfg.norm)
+                with _spy_attention(heads):
+                    a = attention_layer(scfg, p["attn"], h,
+                                        positions=positions)
+                with plain_ops(("attention",)):
+                    a_p = attention_layer(scfg, p["attn"], h,
+                                          positions=positions)
+                shares["attention"].append(rule_share(a, a_p))
+                h = norm(p["ln2"], x + a_p, cfg.norm)
+                shares["mlp"].append(rule_share(mlp_layer(scfg, p["mlp"], h),
+                                                mlp_layer(cfg, p["mlp"], h)))
+        print(f"  each of the {len(inputs)} layers on the plain stream's "
+              f"input ({TP_PROMPT} tokens): largest share of {ATOL} + "
+              f"{RTOL}|plain| used by flash (q, k at "
+              f"{sorted(set(heads))}) {max(shares['attention'])} and by the "
+              f"fused MLP ({cfg.d_model} -> {cfg.d_ff // 4} on rank 0) "
+              f"{max(shares['mlp'])}")
+        check(len(inputs) == layers and max(shares["attention"]) <= 1.0
+              and max(shares["mlp"]) <= 1.0, "a layer's output through the "
+              "kernels at the split shapes differs from its plain version")
+        check(set(heads) == {((1, 6, TP_PROMPT, 128),
+                              (1, 2, TP_PROMPT, 128))},
+              f"flash ran at {set(heads)}, not 6/2 heads")
+        del dparams, params, inputs
+    check(not dist.is_initialized(), "the fake group outlived 15 (e)")
+    torch.cuda.empty_cache()
+    return {n: train_n.get(n, 0) + serve_n.get(n, 0)
+            for n in {**train_n, **serve_n}}
 
 
 # ---------------------------------------------------------------------------
@@ -3231,6 +3495,9 @@ DRYRUN_CELLS = (
     (LLAMA, "decode_32k", ()),
     (MOE, "prefill_32k", ("--opt",)),
     (XLSTM, "long_500k", ()),
+    # the counts of the split over model for both MoE configs
+    (MOE, "train_4k", ()),
+    ("moonshot-v1-16b-a3b", "train_4k", ()),
 )
 DRYRUN_TIMEOUT_S = 600
 # the card's HBM: the memory term's rate and the capacity a cell must fit
@@ -3283,6 +3550,7 @@ def finish_dryrun(procs: list, out: Path, card: str, t0: float) -> None:
               f"{log.read_text()[-3000:]}")
     print(f"  {len(procs)} dry-run processes done in "
           f"{time.perf_counter() - t0} s ({card})")
+    ratios = {}
     for (arch, shape, flags), _, _ in procs:
         mesh = "2x16x16" if "--multi-pod" in flags else "16x16"
         rec = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
@@ -3314,6 +3582,11 @@ def finish_dryrun(procs: list, out: Path, card: str, t0: float) -> None:
               f"{mem['argument_size_in_bytes']}, temporaries "
               f"{mem['temp_size_in_bytes']}), fits {H100_HBM_BYTES:.0e}: "
               f"{mem['peak_bytes'] <= H100_HBM_BYTES}")
+        if shape == "train_4k" and mesh == "16x16":
+            ratios[arch] = (cost["flops_per_chip"],
+                            roof["useful_flops_ratio"])
+    print(f"  train_4k on 16 x 16, split over model: (FLOPs a chip, "
+          f"useful_flops_ratio) {ratios}")
 
 
 def memory_count(dev, card: str, counters: dict) -> dict:
@@ -3652,7 +3925,11 @@ def main() -> int:
                                       "fused_mlp")})
     print(f"== the distributed layer on one card: a one-rank NCCL mesh (at "
           f"{time.perf_counter() - t_start} s)")
-    launches.update(mesh_phase(dev, card, counters, trained[TRAIN]))
+    mesh_n, mesh11 = mesh_phase(dev, card, counters, trained[TRAIN])
+    launches.update(mesh_n)
+    print(f"== 15 (e): one rank of a 1 x 4 tensor-parallel mesh over a fake "
+          f"group (at {time.perf_counter() - t_start} s)")
+    launches[TP_RANK] = tp_phase(dev, card, counters, mesh11)
     print(f"== the dry-run and the roofline at full width, the memory count "
           f"on the card (at {time.perf_counter() - t_start} s)")
     t16 = time.perf_counter()

@@ -13,6 +13,11 @@ weights.
 * ``placed(t)`` on every parameter leaf an init function makes: under
   :func:`use_init` the leaf becomes this rank's shard as soon as it is
   drawn, so a sharded init never holds more than one whole leaf.
+* ``tp_split(kind, shape, dim)`` where a layer computes: whether the
+  rules split dim ``dim`` of an activation kind or a weight leaf over
+  ``model`` here, with the group, rank and size to compute its slice
+  with (``sharding.ActivationPolicy.tp_split``); ``kv_seq_len(n)`` the
+  whole length of a decode step's KV cache shard of ``n`` slots.
 
 Outside any of them (CPU runs, serving without a mesh) each hook returns
 its argument unchanged.
@@ -61,6 +66,27 @@ def constrain(x, kind: str):
     if policy is None:
         return x
     return policy(x, kind)
+
+
+def tp_split(kind, shape: tuple[int, ...], dim: int):
+    """A ``sharding.TP`` where this context's policy splits dim ``dim``
+    of a ``shape`` tensor of ``kind`` (an activation kind, or a weight's
+    dict path such as ``("attn", "wq", "w")``) over a ``model`` axis of
+    size > 1; None outside a mesh step and where the dim is whole."""
+    split = getattr(_POLICY.get(), "tp_split", None)
+    return None if split is None else split(kind, shape, dim)
+
+
+def tp_size() -> int:
+    """The ``model`` axis's size under this context's policy (1 outside a
+    mesh step)."""
+    return getattr(_POLICY.get(), "model_size", 1)
+
+
+def kv_seq_len(n: int) -> int:
+    """The whole sequence length of a KV cache whose local shard holds
+    ``n`` slots (``n`` outside a mesh decode step)."""
+    return getattr(_POLICY.get(), "kv_seq", {}).get(n, n)
 
 
 def use_gather(gather: Callable | None):

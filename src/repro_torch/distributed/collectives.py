@@ -1,17 +1,22 @@
 """The collectives a mesh step runs, over the groups of a ``DeviceMesh``:
 placing a tree on the mesh, gathering a shard back to its whole tensor,
-reducing a gradient to its parameter's placement, and the autograd-aware
-all-gather and mean over the data-parallel axes that the MoE layer uses.
+reducing a gradient over the data-parallel axes, the tensor-parallel
+pairs over ``model``, and the autograd-aware all-gather and mean over
+the data-parallel axes that the MoE layer uses.
 
-The compute of a mesh step is data-parallel: the batch splits over the
-dp axes (``pod``, ``data``), and a weight is gathered whole where the
-model uses it (:class:`ParamGather`, through
-``act_sharding.gathered``).  Its gradient goes back, in fp32, as the
-mean over the dp group reduced to the weight's placements: a
-reduce-scatter over a dp axis that shards it, an all-reduce over one
-that does not, and the rank's own slice over a non-dp axis that shards
-it (ranks along ``model`` compute the same rows, so their gradients
-agree).  A mesh dim of size 1 runs no collective.
+The batch splits over the dp axes (``pod``, ``data``) and the work over
+``model``, Megatron-style, as the reference's rules lay it out: a weight
+is gathered over the dp axes where the model uses it (FSDP,
+:class:`ParamGather`, through ``act_sharding.gathered``) and keeps its
+``model`` shard, and the model computes its slice of every dim the rules
+split over ``model`` (``sharding.tp_split``), joining the slices with
+:func:`copy_in`, :func:`reduce_out`, :func:`gather_along` and
+:func:`split_along`.  The recurrent mixers' leaves are the exception:
+they are gathered whole over every mesh dim, and their recurrence runs
+replicated over ``model``.  A weight's gradient goes back, in fp32, as
+the mean over the dp group of this rank's ``model`` shard of it: a
+reduce-scatter over a dp axis that shards the weight, an all-reduce over
+one that does not.  A mesh dim of size 1 runs no collective.
 
 Every function takes placements as ``sharding.to_placements`` gives
 them: one per mesh dim, ``Shard(d)`` or ``Replicate()``, a dim sharded
@@ -25,7 +30,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
-from .sharding import NamedSharding, dp_axes, map_with_path
+from .sharding import TP, NamedSharding, dp_axes, map_with_path
 
 _all_gather = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
@@ -119,21 +124,18 @@ def gather_full(x: torch.Tensor, placements, mesh, only=None
 
 
 def reduce_grad(g: torch.Tensor, placements, mesh) -> torch.Tensor:
-    """This rank's share of the dp group's summed gradient ``g`` (whole,
-    this rank's contribution) in the parameter's ``placements``."""
-    dps = dp_dims(mesh)
+    """This rank's share of the dp group's summed gradient: ``g`` is this
+    rank's contribution to the gradient of its ``model`` shard (whole
+    over the dp axes), the result its shard in the parameter's
+    ``placements``."""
     for (i, _, n), pl in zip(_dims(mesh), placements):
-        if n == 1:
+        if n == 1 or i not in dp_dims(mesh):
             continue
-        if i in dps:
-            if isinstance(pl, Shard):
-                g = _scatter_sum_dim(g, mesh.get_group(i), pl.dim)
-            else:
-                g = g.contiguous().clone()
-                dist.all_reduce(g, group=mesh.get_group(i))
-        elif isinstance(pl, Shard):
-            size = g.shape[pl.dim] // n
-            g = g.narrow(pl.dim, mesh.get_coordinate()[i] * size, size)
+        if isinstance(pl, Shard):
+            g = _scatter_sum_dim(g, mesh.get_group(i), pl.dim)
+        else:
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=mesh.get_group(i))
     return g
 
 
@@ -233,36 +235,51 @@ class _GradSink:
 
 
 class _Gather(torch.autograd.Function):
-    """shard → whole weight; the backward hands the whole gradient to the
-    sink (the weight itself takes no gradient).  ``anchor`` is a scalar
-    that requires grad, so that the node joins the graph.  The node holds
-    the sink and the slot, never the gatherer: the gatherer caches this
-    node's outputs, and a reference cycle through them would keep every
-    accumulator alive until the cyclic collector ran."""
+    """shard → the weight gathered over the mesh dims in ``only`` (None:
+    every dim); the backward hands the gradient of this rank's ``model``
+    shard to the sink (the weight itself takes no gradient).  ``anchor``
+    is a scalar that requires grad, so that the node joins the graph.
+    The node holds the sink and the slot, never the gatherer: the
+    gatherer caches this node's outputs, and a reference cycle through
+    them would keep every accumulator alive until the cyclic collector
+    ran."""
 
     @staticmethod
-    def forward(ctx, anchor, shard, placements, sink, slot):
+    def forward(ctx, anchor, shard, placements, sink, slot, only):
         ctx.placements, ctx.sink, ctx.slot = placements, sink, slot
-        full = gather_full(shard, placements, sink.mesh)
+        ctx.whole = only is None
+        full = gather_full(shard, placements, sink.mesh, only=only)
         return shard.detach() if full is shard else full
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.whole:       # replicated over model: every rank's is whole
+            g = shard_of(g, ctx.placements, ctx.sink.mesh,
+                         only=non_dp_dims(ctx.sink.mesh))
         ctx.sink.add(ctx.slot, g, ctx.placements)
-        return None, None, None, None, None
+        return None, None, None, None, None, None
+
+
+def _whole_over_model(path: tuple) -> bool:
+    """A leaf gathered whole over ``model`` too: the recurrent mixers'
+    (RG-LRU, mLSTM, sLSTM), whose recurrence runs replicated."""
+    return "mix" in path
 
 
 class ParamGather:
     """The gatherer a mesh step installs (``act_sharding.use_gather``).
 
     ``placements`` maps each leaf's dict path to its placements (of the
-    whole leaf; a period slice drops the stacked lead dim).  With
-    ``grads`` (path → fp32 accumulator shaped like the local shard) each
-    gathered weight's gradient is added there, reduced over the dp group
-    and divided by ``dp_size * accum``; without it (serving), weights are
-    gathered with no autograd.  A leaf outside the layer stacks is
-    gathered once per gatherer and reused (the tied embedding's two uses
-    then share one gradient, summed as autograd sums a leaf's).
+    whole leaf; a period slice drops the stacked lead dim).  Each leaf
+    is gathered over the dp axes and keeps its ``model`` shard, which
+    the model computes with; a recurrent mixer's leaf is gathered
+    whole.  With ``grads`` (path → fp32 accumulator shaped like the local
+    shard) each gathered weight's gradient is added there, reduced over
+    the dp group and divided by ``dp_size * accum``; without it
+    (serving), weights are gathered with no autograd.  A leaf outside
+    the layer stacks is gathered once per gatherer and reused (the tied
+    embedding's two uses then share one gradient, summed as autograd sums
+    a leaf's).
     """
 
     def __init__(self, mesh, placements: dict, grads: dict | None = None,
@@ -286,12 +303,14 @@ class ParamGather:
             if period is not None:
                 pl = _unstacked(pl)
             self.seen.add(full_path)
+            only = None if _whole_over_model(full_path) \
+                else dp_dims(self.mesh)
             if self.grads is None:
-                return gather_full(t, pl, self.mesh)
+                return gather_full(t, pl, self.mesh, only=only)
             slot = self.grads[full_path]
             if period is not None:
                 slot = slot[period]
-            return _Gather.apply(self.anchor, t, pl, self.sink, slot)
+            return _Gather.apply(self.anchor, t, pl, self.sink, slot, only)
 
         out = map_with_path(one, tree)
         if period is None:
@@ -305,6 +324,118 @@ class ParamGather:
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism over ``model``: the Megatron pair and its gathers
+# ---------------------------------------------------------------------------
+
+class _CopyIn(torch.autograd.Function):
+    """Identity; the backward all-reduces the gradient over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.tp.group)
+        return g, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """The sum over ``model``; the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=tp.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _own(x: torch.Tensor, tp: TP, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // tp.size
+    return x.narrow(dim, tp.rank * n, n)
+
+
+class _GatherAlong(torch.autograd.Function):
+    """Every ``model`` rank's slice concatenated along ``dim``; the
+    backward is this rank's slice of the gradient where what follows
+    runs replicated (every rank holds the whole gradient), or of the
+    ranks' gradients summed (``partial``: each rank used a part)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim, partial):
+        ctx.tp, ctx.dim, ctx.partial = tp, dim, partial
+        return _gather_dim(x, tp.group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = _scatter_sum_dim(g, ctx.tp.group, ctx.dim)
+        else:
+            g = _own(g, ctx.tp, ctx.dim)
+        return g.contiguous(), None, None, None
+
+
+class _SplitAlong(torch.autograd.Function):
+    """This rank's slice along ``dim`` of a tensor replicated over
+    ``model``; the backward gathers every rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _own(x, tp, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.tp.group, ctx.dim).contiguous(), None, \
+            None
+
+
+def copy_in(x: torch.Tensor, tp: TP | None) -> torch.Tensor:
+    """The input of a column-parallel product, replicated over ``model``:
+    ``x`` itself, whose gradient the backward all-reduces over ``model``
+    (each rank's columns give a part of it)."""
+    return x if tp is None else _CopyIn.apply(x, tp)
+
+
+def reduce_out(x: torch.Tensor, tp: TP | None) -> torch.Tensor:
+    """The output of a row-parallel product: the sum of every ``model``
+    rank's part, all-reduced; the gradient passes unchanged."""
+    return x if tp is None else _ReduceOut.apply(x, tp)
+
+
+def gather_along(x: torch.Tensor, tp: TP | None, dim: int = -1, *,
+                 partial_grad: bool = False) -> torch.Tensor:
+    """A column-parallel output made whole along ``dim`` for compute
+    that runs replicated; its backward keeps this rank's slice of the
+    gradient, summed over ``model`` first with ``partial_grad`` (where
+    each rank computes with a part of the whole)."""
+    return x if tp is None else _GatherAlong.apply(x, tp, dim % x.dim(),
+                                                   partial_grad)
+
+
+def split_along(x: torch.Tensor, tp: TP | None, dim: int = -1
+                ) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a replicated tensor (the input
+    of a row-parallel product); its backward gathers the gradient."""
+    return x if tp is None else _SplitAlong.apply(x, tp, dim % x.dim())
+
+
+def all_reduce_(x: torch.Tensor, tp: TP | None, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    """``x`` all-reduced over ``model`` in place, outside autograd (a
+    running max, a decode step's partial sums)."""
+    if tp is not None:
+        dist.all_reduce(x, op=op, group=tp.group)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # activations over the dp group, under autograd
 # ---------------------------------------------------------------------------
 
@@ -314,22 +445,22 @@ def _dp_groups(mesh):
 
 
 class _DPGather(torch.autograd.Function):
-    """Every dp rank's ``x`` concatenated on dim 0 in dp order; the
-    backward sums each rank's cotangents and returns its own rows."""
+    """Every dp rank's ``x`` concatenated along ``dim`` in dp order; the
+    backward sums each rank's cotangents and returns its own slice."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
         for group, _ in reversed(_dp_groups(mesh)):
-            x = _gather_dim(x, group, 0)
+            x = _gather_dim(x, group, dim)
         return x.contiguous()
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
         for group, _ in _dp_groups(ctx.mesh):
-            g = _scatter_sum_dim(g, group, 0)
-        return g.contiguous(), None
+            g = _scatter_sum_dim(g, group, ctx.dim)
+        return g.contiguous(), None, None
 
 
 class _DPMean(torch.autograd.Function):
@@ -353,9 +484,10 @@ def _dp_mean(x: torch.Tensor, mesh) -> torch.Tensor:
     return x / n if n > 1 else x
 
 
-def dp_all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` (local rows) → every dp rank's rows, under autograd."""
-    return _DPGather.apply(x, mesh) if _dp_groups(mesh) else x
+def dp_all_gather(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """``x`` (this rank's slice along ``dim``) → every dp rank's, under
+    autograd."""
+    return _DPGather.apply(x, mesh, dim) if _dp_groups(mesh) else x
 
 
 def dp_mean(x: torch.Tensor, mesh) -> torch.Tensor:

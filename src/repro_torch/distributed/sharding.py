@@ -31,12 +31,20 @@ period dim, never sharded.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 Params = dict[str, Any]
+
+
+class TP(NamedTuple):
+    """A dim split over the ``model`` mesh dim: that dim's process group,
+    this rank's coordinate on it and its size (> 1)."""
+    group: Any
+    rank: int
+    size: int
 
 
 class P(tuple):
@@ -216,14 +224,19 @@ def activation_spec(kind: str, shape: tuple[int, ...], mesh) -> P | None:
 
 
 class ActivationPolicy:
-    """Maps an activation kind to its spec on ``mesh``.  A DTensor is
-    redistributed to the spec's placements; a rank-local tensor comes
-    back unchanged (a mesh step splits the batch over dp before the model
-    runs and computes nothing split over ``model``).  The MoE layers read
-    the mesh from here to route over the dp group's tokens."""
+    """Maps an activation kind to its spec on ``mesh``, and answers the
+    model's question of which dims it computes split over ``model``
+    (:meth:`tp_split`).  A DTensor is redistributed to the spec's
+    placements; a rank-local tensor comes back unchanged: a mesh step
+    splits the batch over dp before the model runs, and the model itself
+    computes its slice of each dim the rules split over ``model``.  The
+    MoE layers read the mesh from here to route over the dp group's
+    tokens.  ``kv_seq`` maps the sequence length of a decode step's local
+    KV cache shard to the cache's whole length (``make_decode_step``)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, kv_seq: dict[int, int] | None = None):
         self.mesh = mesh
+        self.kv_seq = kv_seq or {}
 
     def __call__(self, x, kind: str):
         if not isinstance(x, DTensor):
@@ -233,11 +246,36 @@ class ActivationPolicy:
             return x
         return x.redistribute(self.mesh, to_placements(spec, self.mesh))
 
+    @property
+    def model_size(self) -> int:
+        return mesh_shape(self.mesh).get("model", 1)
 
-def make_activation_policy(mesh, cfg) -> ActivationPolicy:
+    def tp_split(self, kind, shape: tuple[int, ...], dim: int) -> TP | None:
+        """:class:`TP` where the rules split dim ``dim`` of a ``shape``
+        tensor over a ``model`` axis of size > 1, else None.  ``kind`` is
+        an activation kind (:func:`activation_spec`) or a parameter
+        leaf's dict path (:func:`_param_spec`), so that the compute and
+        the stored layout come from the same rules."""
+        sizes = mesh_shape(self.mesh)
+        if sizes.get("model", 1) == 1:
+            return None
+        spec = (_param_spec(tuple(kind), tuple(shape), self.mesh, None)
+                if isinstance(kind, tuple)
+                else activation_spec(kind, tuple(shape), self.mesh))
+        entry = None if spec is None else spec[dim]
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if "model" not in axes:
+            return None
+        i = axis_names(self.mesh).index("model")
+        return TP(self.mesh.get_group(i), self.mesh.get_coordinate()[i],
+                  sizes["model"])
+
+
+def make_activation_policy(mesh, cfg, kv_seq: dict[int, int] | None = None
+                           ) -> ActivationPolicy:
     """The policy on ``mesh`` (the rules read no config field; ``cfg`` is
     the reference's signature)."""
-    return ActivationPolicy(mesh)
+    return ActivationPolicy(mesh, kv_seq)
 
 
 # ---------------------------------------------------------------------------

@@ -128,11 +128,13 @@ def apply_opt_level(cfg, opt: bool):
 
 
 @contextlib.contextmanager
-def fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
+def fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
+              device: str = "cpu"):
     """A fake process group of ``prod(shape)`` ranks, this process rank 0,
-    and a CPU ``DeviceMesh`` of ``shape`` over it; the group is destroyed
-    on exit.  Only the dry-run builds a mesh over a fake group
-    (``launch.mesh`` refuses one)."""
+    and a ``DeviceMesh`` of ``shape`` over it on ``device`` (the CPU, or
+    ``"cuda"`` for one rank's compute on the card); the group is
+    destroyed on exit.  Only the dry-run and such a one-rank run build a
+    mesh over a fake group (``launch.mesh`` refuses one)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
@@ -144,7 +146,7 @@ def fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=size)
     try:
-        yield DeviceMesh("cpu", torch.arange(size).reshape(shape),
+        yield DeviceMesh(device, torch.arange(size).reshape(shape),
                          mesh_dim_names=tuple(axes))
     finally:
         dist.destroy_process_group()

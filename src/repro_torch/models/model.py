@@ -34,8 +34,12 @@ The model stays mesh-agnostic through ``distributed.act_sharding``'s
 hooks: ``constrain`` at the reference's activation sites, ``gathered``
 where a layer's weights (or the embedding, the head, a norm) are used,
 inside the function remat wraps, so that the backward gathers them again
-instead of saving them, and ``placed`` on every leaf the init draws.
-Outside a mesh step each returns its argument.
+instead of saving them, ``placed`` on every leaf the init draws, and
+``tp_split`` where a layer computes a dim the rules may split over
+``model``: the embedding and the logits split by vocab, attention and
+the MLP Megatron-style (``models.layers``), the MoE experts by expert or
+by ``moe_d_ff`` (``models.moe``).  Outside a mesh step each returns its
+argument, or None.
 """
 from __future__ import annotations
 
@@ -52,7 +56,9 @@ from repro_torch.core.ftl import registry as ftl_registry
 from repro_torch.core.ftl.solver import InfeasibleError
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.distributed import act_sharding
-from repro_torch.distributed.act_sharding import constrain, gathered, placed
+from repro_torch.distributed.act_sharding import (constrain, gathered, placed,
+                                                  tp_split)
+from repro_torch.distributed.collectives import copy_in, reduce_out
 from repro_torch.models import recurrent
 from repro_torch.models.layers import (
     attention_decode,
@@ -345,8 +351,19 @@ def serve_plan(cfg, *, m: int, dtype: str | None = None, target=None,
 # embeddings
 # ===========================================================================
 
-def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return gathered(params["embed"], "embed")["tok"][tokens]
+def _embed(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings.  Where the rules split the vocab over
+    ``model`` each rank looks up its rows, the others' masked to zero,
+    and the ranks' lookups are summed."""
+    tok = gathered(params["embed"], "embed")["tok"]
+    tp = tp_split(("embed", "tok"), (cfg.vocab_size, cfg.d_model), 0)
+    if tp is None:
+        return tok[tokens]
+    n = tok.shape[0]
+    local = tokens - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    x = tok[local.clamp(0, n - 1)]
+    return reduce_out(torch.where(mine[..., None], x, 0), tp)
 
 
 def _sinusoid(seq: int, d: int, offset=0, *,
@@ -367,11 +384,25 @@ def _sinusoid(seq: int, d: int, offset=0, *,
 
 
 def _unembed(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The logits; where the rules split the vocab over ``model`` (the
+    tied embedding's rows, the head's columns), this rank's slice of
+    them (:func:`vocab_split`)."""
+    tp = vocab_split(cfg)
+    x = copy_in(x, tp)
     if cfg.tie_embeddings:
         logits = x @ gathered(params["embed"], "embed")["tok"].T
     else:
         logits = linear(gathered(params["lm_head"], "lm_head"), x)
     return constrain(logits, "logits")
+
+
+def vocab_split(cfg):
+    """The ``model`` split of the logits' vocab here (``sharding.TP``), or
+    None where every rank's logits are whole: outside a mesh step, and
+    where the vocab does not divide."""
+    if cfg.tie_embeddings:
+        return tp_split(("embed", "tok"), (cfg.vocab_size, cfg.d_model), 0)
+    return tp_split(("lm_head", "w"), (cfg.d_model, cfg.vocab_size), 1)
 
 
 def _final_norm(cfg, params: Params, x: torch.Tensor,
@@ -467,7 +498,7 @@ def layer_stream(cfg, params: Params, tokens: torch.Tensor, plan=None, *,
     through the final norm and the unembedding, and the sum of ``aux``
     (decoder-only stacks)."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = constrain(_embed(params, tokens), "residual")
+    x = constrain(_embed(cfg, params, tokens), "residual")
     for kind, p, at in _layers(cfg, params):
         layer = functools.partial(_apply_layer, cfg, p, kind,
                                   positions=positions, ctx=ctx, plan=plan,
@@ -482,10 +513,16 @@ def forward(cfg, params: Params, batch: dict[str, torch.Tensor]
     """Eval forward: ``batch['tokens']`` (B, S) → (logits, aux).  Extra
     inputs: ``image_embeds`` (vlm), ``frames`` (audio)."""
     _check_supported(cfg)
+    # the planning target is detected here, outside remat: detecting a
+    # card initialises CUDA, which a checkpointed forward refuses
+    target = hw.default_target()
     if cfg.is_encoder_decoder:
         return _forward_encdec(cfg, params, batch)
     tokens = batch["tokens"]
-    plan = _block_plan(cfg, tokens.shape[1], cfg.dtype, device=tokens.device)
+    # a whole-block plan is made for whole-layer shapes: under a model
+    # axis larger than 1 each layer resolves its executors at its shard's
+    plan = None if act_sharding.tp_size() > 1 else _block_plan(
+        cfg, tokens.shape[1], cfg.dtype, target, device=tokens.device)
     # the layers' aux summed in fp32 in layer order, as the reference's
     # scan carry sums it
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -604,7 +641,7 @@ def prefill(cfg, params: Params, batch: dict[str, torch.Tensor],
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     length = None if last_pos is None else int(last_pos) + 1
     kinds, _, rem_kinds = _layer_split(cfg)
-    x = constrain(_embed(params, tokens), "residual")
+    x = constrain(_embed(cfg, params, tokens), "residual")
     per_period: list[Params] = []
     for j, pp in enumerate(_periods(params["layers"])):
         caches = {}
@@ -654,7 +691,7 @@ def decode_step(cfg, params: Params, token: torch.Tensor, cache: Params,
     if cfg.is_encoder_decoder:
         return _decode_encdec(cfg, params, token, cache, pos)
     kinds, _, rem_kinds = _layer_split(cfg)
-    x = constrain(_embed(params, token), "residual")
+    x = constrain(_embed(cfg, params, token), "residual")
     for j, (pp, cc) in enumerate(zip(_periods(params["layers"]),
                                      _periods(cache["layers"]))):
         for i, kind in enumerate(kinds):
@@ -756,7 +793,7 @@ def _dec_embed(cfg, params: Params, tokens: torch.Tensor, offset=0
                ) -> torch.Tensor:
     """Token embeddings + sinusoids from ``offset`` (a scalar, or one a
     row)."""
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens)
     pe = _sinusoid(tokens.shape[1], cfg.d_model, offset, device=x.device)
     return x + pe.to(x.dtype)
 

@@ -14,7 +14,15 @@ gathers them (an all-gather whose backward sums each rank's cotangents)
 and each rank keeps its own rows of the output; the grouped dispatch
 takes G from the global token count and runs the rank's G/dp groups
 where dp divides G, its aux averaged over the group, and gathers as the
-scatter dispatch does where it does not.
+scatter dispatch does where it does not.  Routing runs replicated over
+the group; the experts do not.  Each rank runs, as the reference's
+``moe_buf``/``moe_hidden`` and ``moe_gbuf``/``moe_ghidden`` rules lay
+them out, its experts where ``model`` divides E (expert parallel), else
+its ``moe_d_ff`` slice inside every expert, and under the scatter
+dispatch its dp slice of the capacity; the outputs are gathered over
+``model`` (or summed, for the ``d_ff`` split) and over dp once, where
+``moe_gout`` puts it.  The shared experts are an MLP, split as
+``layers.mlp_layer`` splits one, on the rank's own rows.
 
 Semantics kept from the reference, the odd ones included:
 
@@ -42,7 +50,7 @@ import torch
 
 from repro_torch.distributed import collectives
 from repro_torch.distributed.act_sharding import (constrain, current_policy,
-                                                  placed)
+                                                  placed, tp_split)
 from repro_torch.kernels import ref
 
 from .layers import init_linear, init_mlp, mlp_layer
@@ -123,8 +131,18 @@ def moe_layer(cfg, p: Params, x: torch.Tensor
         if g % dp == 0:
             y, aux = moe_layer_grouped(cfg, p, x, groups=g // dp)
             return y, collectives.dp_mean(aux, mesh)
-    y, aux = layer(cfg, p, collectives.dp_all_gather(x, mesh))
-    return collectives.dp_rows(y, mesh), aux
+    xs = collectives.dp_all_gather(x, mesh)
+    y, aux = moe_layer_grouped(cfg, p, xs, shared=False) if grouped else \
+        moe_layer_scatter(cfg, p, xs, shared=False, dp_mesh=mesh)
+    y = collectives.dp_rows(y, mesh)
+    if "shared" in p:
+        b, s, d = x.shape
+        y = y + _shared(cfg, p, x.reshape(1, b * s, d)).reshape(b, s, d)
+    return y, aux
+
+
+def _shared(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return mlp_layer(cfg, p["shared"], x, d_ff=cfg.shared_d_ff)
 
 
 def route(cfg, p: Params, xf: torch.Tensor):
@@ -162,17 +180,46 @@ def _hint(t: torch.Tensor, kind: str, grouped: bool) -> torch.Tensor:
     return constrain(t[0], "moe_" + kind)[None]
 
 
-def _experts(cfg, p: Params, buf: torch.Tensor, grouped: bool
-             ) -> torch.Tensor:
+def expert_split(cfg):
+    """(the ``model`` split of the experts, of ``moe_d_ff`` inside each
+    expert): the first where ``model`` divides E, else the second, as
+    the reference's rules shard the expert weights; both None outside a
+    mesh step whose ``model`` axis is larger than 1."""
+    shape = (cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+    by_e = tp_split(("moe", "w1"), shape, 0)
+    return by_e, None if by_e else tp_split(("moe", "w1"), shape, 2)
+
+
+def _experts(cfg, p: Params, buf: torch.Tensor, grouped: bool,
+             dp_mesh=None) -> torch.Tensor:
     """Every expert's FFN on its slots: buf (G, E, C, D) -> (G, E, C, D),
-    the activation in fp32 between two einsums in ``buf``'s dtype."""
+    the activation in fp32 between two einsums in ``buf``'s dtype.
+    Under a ``model`` split (:func:`expert_split`) each rank runs its
+    experts, or its ``moe_d_ff`` slice of every expert, and the outputs
+    are gathered (summed) over ``model``; with ``dp_mesh`` (the scatter
+    dispatch on the dp group's tokens) each dp rank runs its slice of
+    the capacity where the dp size divides it, and the outputs are
+    gathered over dp."""
+    by_e, by_f = expert_split(cfg)
     buf = _hint(buf, "buf", grouped)
-    h = torch.einsum("gecd,edf->gecf", buf, p["w1"])
-    h = ref.act_fn(cfg.mlp_act)(h.float()).to(buf.dtype)
+    x = collectives.split_along(buf, by_e, 1) if by_e is not None \
+        else collectives.copy_in(buf, by_f)
+    c = buf.shape[2]
+    dp = 1 if dp_mesh is None else collectives.dp_size(dp_mesh)
+    if dp > 1 and c % dp == 0:
+        x = x.narrow(2, collectives.dp_rank(dp_mesh) * (c // dp), c // dp)
+    else:
+        dp = 1
+    h = torch.einsum("gecd,edf->gecf", x, p["w1"])
+    h = ref.act_fn(cfg.mlp_act)(h.float()).to(x.dtype)
     if "wg" in p:
-        h = h * torch.einsum("gecd,edf->gecf", buf, p["wg"])
+        h = h * torch.einsum("gecd,edf->gecf", x, p["wg"])
     h = _hint(h, "hidden", grouped)
     y = torch.einsum("gecf,efd->gecd", h, p["w2"])
+    y = collectives.gather_along(y, by_e, 1) if by_e is not None \
+        else collectives.reduce_out(y, by_f)
+    if dp > 1:
+        y = collectives.dp_all_gather(y, dp_mesh, 2)
     return _hint(y, "out", grouped) if grouped else y
 
 
@@ -193,10 +240,12 @@ def _combine(y_e: torch.Tensor, dest_e, dest_c, keep, gate: torch.Tensor,
     return y
 
 
-def _dispatch(cfg, p: Params, xg: torch.Tensor, grouped: bool):
+def _dispatch(cfg, p: Params, xg: torch.Tensor, grouped: bool,
+              dp_mesh=None):
     """Route, rank and run the experts on G groups of tokens, xg (G, N,
     D): (y (G, N, D) without the shared experts, probs (G, N, E), the
-    slots each expert was chosen for (G, E))."""
+    slots each expert was chosen for (G, E)); ``dp_mesh`` as
+    :func:`_experts` takes it."""
     g, n, d = xg.shape
     e, k = cfg.n_experts, cfg.n_experts_per_token
     c = capacity(n, cfg)
@@ -208,21 +257,24 @@ def _dispatch(cfg, p: Params, xg: torch.Tensor, grouped: bool):
     # row e takes the dropped slots and is sliced off
     buf = xg.new_zeros((g, e + 1, c, d))
     buf[gi, dest_e, dest_c] = xg[:, tok]
-    y_e = _experts(cfg, p, buf[:, :e], grouped)
+    y_e = _experts(cfg, p, buf[:, :e], grouped, dp_mesh)
     return _combine(y_e, dest_e, dest_c, keep, gate, k), probs, counts
 
 
-def moe_layer_scatter(cfg, p: Params, x: torch.Tensor
+def moe_layer_scatter(cfg, p: Params, x: torch.Tensor, *,
+                      shared: bool = True, dp_mesh=None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rank-within-expert scatter dispatch over all B·S tokens at once."""
+    """Rank-within-expert scatter dispatch over all B·S tokens at once;
+    ``shared=False`` leaves the shared experts out, ``dp_mesh`` as
+    :func:`_experts` takes it."""
     b, s, d = x.shape
     n, e, k = b * s, cfg.n_experts, cfg.n_experts_per_token
     xf = x.reshape(n, d)
-    y, probs, counts = _dispatch(cfg, p, xf[None], False)
+    y, probs, counts = _dispatch(cfg, p, xf[None], False, dp_mesh)
     y = y[0]
-    if "shared" in p:
+    if shared and "shared" in p:
         # the shared MLP sees all n tokens as one sequence (M = n)
-        y = y + mlp_layer(cfg, p["shared"], xf[None]).reshape(n, d)
+        y = y + _shared(cfg, p, xf[None]).reshape(n, d)
     # load-balance aux loss (Switch/GShard)
     me = probs[0].mean(0)
     ce = counts[0].float() / (n * k)
@@ -237,20 +289,20 @@ def _n_groups(cfg, n_tokens: int) -> int:
 
 
 def moe_layer_grouped(cfg, p: Params, x: torch.Tensor,
-                      groups: int | None = None
+                      groups: int | None = None, *, shared: bool = True
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """GShard-style grouped dispatch: the B·S tokens split into G groups
     (``groups``, else from the token count), ranks and capacity taken
-    within each group."""
+    within each group; ``shared=False`` leaves the shared experts out."""
     b, s, d = x.shape
     n, e, k = b * s, cfg.n_experts, cfg.n_experts_per_token
     g = groups if groups is not None else _n_groups(cfg, n)
     sg = n // g
     xg = x.reshape(g, sg, d)
     y, probs, counts = _dispatch(cfg, p, xg, True)
-    if "shared" in p:
+    if shared and "shared" in p:
         # the shared MLP runs group by group (M = the group's size)
-        y = y + mlp_layer(cfg, p["shared"], xg).reshape(g, sg, d)
+        y = y + _shared(cfg, p, xg).reshape(g, sg, d)
     me = probs.mean(1)                                        # (G, E)
     ce = counts.float() * (1.0 / (sg * k))
     aux = e * torch.mean(torch.sum(me * ce, dim=-1))

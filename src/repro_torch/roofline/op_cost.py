@@ -57,6 +57,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import gc
+import itertools
 import math
 import weakref
 from typing import Any, Callable, Iterator
@@ -290,6 +291,10 @@ class OpCost(TorchDispatchMode):
         self.loops = loops and _NEXT_NODE is not None
         self._scale = _NodeScale()
         self._rules: dict = {}
+        # live storages by serial number, never reused (an ``id`` is, and
+        # a priced loop compares the keys of one moment with another's)
+        self._serial = itertools.count()
+        self._key_of: dict[int, int] = {}       # id of a live storage
         self._live: dict[int, int] = {}
         self._phantom: dict[int, int] = {}
         self.live = 0
@@ -309,22 +314,26 @@ class OpCost(TorchDispatchMode):
     # ------------------------------------------------------------------
     # memory
     # ------------------------------------------------------------------
-    def _free(self, key: int) -> None:
+    def _free(self, sid: int, key: int) -> None:
+        if self._key_of.get(sid) == key:
+            del self._key_of[sid]
         self.live -= self._live.pop(key, 0) + self._phantom.pop(key, 0)
 
     def track(self, t: torch.Tensor) -> None:
-        """Count ``t``'s storage live from now until it is freed (once)."""
+        """Count ``t``'s storage live from now until it is freed (once),
+        under a serial number taken now."""
         st = t.untyped_storage()
-        key = id(st)
-        if key in self._live:
+        sid = id(st)
+        if sid in self._key_of:
             return
+        key = self._key_of[sid] = next(self._serial)
         n = st.nbytes()
         self._live[key] = n
         self.live += n
         if self.live > self.since:
             self.since = self.live
             self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._free, key)
+        weakref.finalize(st, self._free, sid, key)
 
     def _stand_for(self, keys, copies: int, step_peak: int) -> None:
         """Count each storage of ``keys`` as ``copies`` more of itself

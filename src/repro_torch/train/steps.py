@@ -10,15 +10,19 @@ casts them to fp32; a leaf that no gradient reaches (the empty ``(0,
 
 With a mesh (a ``DeviceMesh``, ``repro_torch.launch.mesh``) the state's
 leaves are DTensors in the reference's layout (:func:`state_pspecs`: the
-moments and the error-feedback state follow their parameters) and the
-compute is data-parallel: each rank runs its rows of the batch (split
-over the dp axes by ``batch_pspecs``; ranks along ``model`` run the
-same rows), every weight is gathered whole where the model uses it, and
-its gradient comes back in fp32 as the mean over the dp group, reduced
-to the weight's placements (``distributed.collectives.ParamGather``).
-AdamW and the error feedback then update each rank's shards in place;
-the gradient norm counts every shard once.  The loss and the other
-metrics are means over the dp group (``tokens`` a sum).
+moments and the error-feedback state follow their parameters).  Each
+rank runs its rows of the batch (split over the dp axes by
+``batch_pspecs``; ranks along ``model`` run the same rows) and its slice
+of the work over ``model``, Megatron-style, as the reference's rules
+split it (``models.layers``, ``models.moe``, the vocab in
+``models.model`` and ``train.losses``): every weight is gathered over
+the dp axes where the model uses it and keeps its ``model`` shard (the
+recurrent mixers' are gathered whole and run replicated), and its
+gradient comes back in fp32 as the mean over the dp group of this
+rank's shard (``distributed.collectives.ParamGather``).  AdamW and the
+error feedback then update each rank's shards in place; the gradient
+norm counts every shard once.  The loss and the other metrics are means
+over the dp group (``tokens`` a sum).
 
 ``compress=True`` applies int8 error-feedback compression to the reduced
 gradients (``distributed.compression``), as the reference does, before
@@ -158,7 +162,8 @@ def make_loss_fn(cfg) -> Callable:
     def loss_fn(params: Params, batch: dict):
         logits, moe_aux = M.forward(cfg, params, batch)
         labels = batch["tokens"][:, 1:]
-        loss, aux = cross_entropy(logits[:, :-1], labels, z_loss=1e-4)
+        loss, aux = cross_entropy(logits[:, :-1], labels, z_loss=1e-4,
+                                  tp=M.vocab_split(cfg))
         if cfg.is_moe:
             loss = loss + cfg.router_aux_weight * moe_aux
             aux["moe_aux"] = moe_aux
@@ -364,8 +369,12 @@ def make_prefill_step(cfg, mesh=None, *, max_seq: int | None = None,
 
     With ``mesh`` the step takes the DTensor parameters and this rank's
     rows of the batch (:func:`shard_batch`), gathers each layer's weights
-    as it runs it, and returns this rank's logits and the cache as
-    DTensors in ``cache_pspecs``' layout."""
+    over the dp axes as it runs it and computes its slice over
+    ``model``, and returns this rank's logits, whole over the vocab, and
+    the cache as DTensors in ``cache_pspecs``' layout: the KV cache split
+    by sequence over ``model`` (every KV head's, gathered where the heads
+    split).  ``plan`` is made for whole-layer shapes: an MLP split over
+    a ``model`` axis larger than 1 refuses one (``layers.mlp_layer``)."""
     _check_mesh(mesh)
     policy = make_activation_policy(mesh, cfg) if mesh is not None else None
 
@@ -379,9 +388,32 @@ def make_prefill_step(cfg, mesh=None, *, max_seq: int | None = None,
             logits, cache = M.prefill(cfg, C.local_tree(params), batch,
                                       max_seq=max_seq, plan=plan,
                                       last_pos=last_pos)
+            logits = C.gather_along(logits, M.vocab_split(cfg))
         return logits, _place_cache(cfg, mesh, cache)
 
     return step_fn
+
+
+def _is_kv(path: tuple, t) -> bool:
+    """A KV cache leaf, (…, B, S, Hk, Dh): ``cache_pspecs`` splits its
+    sequence over ``model``."""
+    return path[-1] in ("k", "v") and \
+        t.ndim - (path[0] == "layers") == 4
+
+
+def _kv_seq(shards: dict) -> dict[int, int]:
+    """Local sequence length → whole length of the KV leaves (DTensors)
+    of a mesh decode step's cache."""
+    out: dict[int, int] = {}
+    for p, t in shards.items():
+        if _is_kv(p, t):
+            d = t.ndim - 3
+            n, whole = t.to_local().shape[d], t.shape[d]
+            if out.setdefault(n, whole) != whole:
+                raise ValueError(f"two KV caches hold {n} slots a rank of "
+                                 f"{out[n]} and {whole}: the decode step "
+                                 f"cannot tell their layouts apart")
+    return out
 
 
 def make_decode_step(cfg, mesh=None, *, plan=None):
@@ -390,12 +422,15 @@ def make_decode_step(cfg, mesh=None, *, plan=None):
     through the model's MLP dispatch.  The cache is updated in place.
 
     With ``mesh`` the parameters and the cache are DTensors (the cache
-    from the mesh prefill step) and ``token`` this rank's rows: each
-    cache leaf is gathered over the non-dp axes that shard it (none on a
-    mesh whose ``model`` axis is 1: the step then writes the shards in
-    place), and this rank's slice written back."""
+    from the mesh prefill step) and ``token`` this rank's rows.  The KV
+    leaves stay split by sequence over ``model``: each rank attends to
+    its slots and the rank that holds the new one writes it
+    (``layers.attention_decode``).  A recurrent state leaf is gathered
+    over the non-dp axes that shard it (none on a mesh whose ``model``
+    axis is 1: the step then writes the shards in place), and this
+    rank's slice written back.  The logits come back whole over the
+    vocab.  ``plan`` as :func:`make_prefill_step` takes it."""
     _check_mesh(mesh)
-    policy = make_activation_policy(mesh, cfg) if mesh is not None else None
 
     @torch.no_grad()
     def step_fn(params: Params, cache: Params, token: torch.Tensor,
@@ -404,16 +439,19 @@ def make_decode_step(cfg, mesh=None, *, plan=None):
             return M.decode_step(cfg, params, token, cache, pos, plan=plan)
         only = C.non_dp_dims(mesh)
         shards = C.paths_and_leaves(cache)
-        whole = {p: C.gather_full(t.to_local(), t.placements, mesh,
-                                  only=only) for p, t in shards.items()}
+        local = {p: t.to_local() if _is_kv(p, t) else C.gather_full(
+            t.to_local(), t.placements, mesh, only=only)
+            for p, t in shards.items()}
         gather = C.ParamGather(mesh, _placements(params))
+        policy = make_activation_policy(mesh, cfg, _kv_seq(shards))
         with use_policy(policy), use_gather(gather):
             logits, _ = M.decode_step(
                 cfg, C.local_tree(params), token,
-                C.map_with_path(lambda p, _: whole[p], cache), pos, plan=plan)
+                C.map_with_path(lambda p, _: local[p], cache), pos, plan=plan)
+            logits = C.gather_along(logits, M.vocab_split(cfg))
         for p, t in shards.items():
-            if whole[p] is not t.to_local():
-                t.to_local().copy_(C.shard_of(whole[p], t.placements, mesh,
+            if local[p] is not t.to_local():
+                t.to_local().copy_(C.shard_of(local[p], t.placements, mesh,
                                               only=only))
         return logits, cache
 

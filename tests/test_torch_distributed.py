@@ -74,7 +74,8 @@ from torch_spawn import run_ranks  # noqa: E402
 
 OPT = dict(peak_lr=1e-2, warmup_steps=1, decay_steps=3)
 TRAIN_RUNS = [((2, 2), 2, False), ((4, 1), 2, False),
-              ((2, 2), 2, True), ((4, 1), 2, True)]
+              ((2, 2), 2, True), ((4, 1), 2, True),
+              ((1, 4), 2, False), ((1, 4), 2, True)]
 # the share of elements a compressed run may carry off by rounding flips
 # (the port's single-device compressed step is held to the same share,
 # tests/test_torch_compression.py)

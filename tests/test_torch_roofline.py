@@ -395,8 +395,8 @@ def _mlstm_grad(q, i):
 # recomputes each chunk and stops at the last tensor it needs) the steps
 # that did not run keep what step 2 keeps at the end of the loop, a little
 # less than the last step's locals at the stop (3.5% of the peak in
-# ``mlstm_grad``), and a storage may stay live a little longer in one
-# trace than in another (one step's h, 1.7% in ``mlstm_scan``)
+# ``mlstm_grad``); repeated traces give the same peak byte for byte
+# (``test_loop_peak_is_the_same_in_repeated_traces``)
 PEAK_RTOL = 0.05
 LOOP_CASES = {
     "rg_lru_scan": (lambda x, a: ref_rg_lru(x, a), ((2, 12, 16), (2, 12, 16)),
@@ -435,6 +435,29 @@ def test_loop_priced_by_trips_as_unrolled(case):
         del priced[k], full[k]
     assert priced == full
     assert full["flops"] > 0
+
+
+REPEATS = 8
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_loop_peak_is_the_same_in_repeated_traces(case):
+    """``REPEATS`` traces of each loop in one process, priced by trips
+    and unrolled in turn, after a first trace of each: every priced peak
+    is the same, byte for byte, and so is every unrolled one.  Storages
+    are keyed by a serial number, so a Python ``id`` reused between two
+    moments of a priced loop neither drops a storage nor adds one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fn, shapes, grad = LOOP_CASES[case]
+    peaks = {False: [], True: []}
+    with FakeTensorMode():
+        for loops in (False, True) * (REPEATS + 1):
+            fresh = [torch.empty(s).requires_grad_(grad) for s in shapes]
+            peaks[loops].append(
+                analyze_step(fn, *fresh, loops=loops)["peak_bytes"])
+    for loops, got in peaks.items():
+        assert len(set(got[1:])) == 1, (loops, got)
 
 
 def test_steps_is_range_outside_a_pricing_trace():

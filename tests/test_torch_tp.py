@@ -1,0 +1,478 @@
+"""Tensor-parallel compute over ``model`` on gloo process groups, against
+the JAX package on one device.
+
+One module fixture spawns one 4-rank group (``torch_spawn.run_ranks``)
+running ``torch_dist_workers.tp_cases``; the reference runs here, on the
+global batch, at the tolerances of ``tests/test_torch_distributed.py``
+(which holds llama's train steps on 1 x 4, 2 x 2 and 4 x 1 and the 2 x 2
+serving of llama3.2-3b and recurrentgemma-9b, all now split over
+``model``).
+
+* Train steps (fp32, remat on, 2 steps of 8 x 24 bigram tokens) on a
+  1 x 4 mesh: reduced llama3.2-3b with 6 q heads and 2 KV heads, which
+  do not divide 4 (llama's own 24/8 on 16: the attention core runs whole
+  on every rank, wq's and wk's columns split mid-head and gathered), and
+  with a vocab of 510, which does not divide 4 (the embedding and the
+  logits whole): metrics and params after the steps.
+* One step's loss and mean gradient (the first AdamW moment at lr 0, as
+  the MoE test of ``tests/test_torch_distributed.py`` holds it) for
+  reduced granite-20b's MQA on 1 x 4 (4 q heads split, the one KV head
+  whole, the biases of the row-parallel wo and w2 split over ``model``;
+  its params after AdamW steps are not compared: AdamW carries the
+  rounding of the embedding's tiny gradients past the train tolerance
+  on one device too), and reduced qwen2-moe-a2.7b, scatter and grouped
+  dispatch: 8 experts on 2 x 2 (expert parallel, the scatter's capacity
+  split over dp) and 6 on 1 x 4 (``moe_d_ff`` split inside each
+  expert); reduced whisper-base (encoder, decoder and cross-attention,
+  its untied head split by vocab; frames from a seed) and reduced
+  llama-3.2-vision-90b (its cross layers, every ``xgate`` at 0.5 on both
+  sides; image embeddings from a seed) on 1 x 4.
+* Serving: reduced llama3.2-3b on 2 x 2 with a per-row ``pos``, reduced
+  recurrentgemma-9b on 2 x 2 with its ring cache wrapping (36 prompt
+  tokens, window 32), reduced granite-20b on 1 x 4 (the new slots in one
+  rank's part of the cache), reduced whisper-base on 1 x 4 (its cross
+  cache of the frames split by sequence too): each rank's logits
+  against the reference's rows, the KV cache split by sequence.
+* No weight crosses ``model``: the gatherer gathers no leaf over it in
+  any dense or MoE case; recurrentgemma's recurrent mixers are the
+  exception the spy sees.
+* On a fake 1 x 4 mesh, ``op_cost``'s ``matmul_flops`` for one reduced
+  llama forward is the analytic count of rank 0's share: projections,
+  MLP and logits a quarter; the attention core a quarter where the heads
+  split, whole where they do not.
+* A forward split over ``model`` detects the planning target before
+  remat's checkpoint (a card initialised inside it is refused), and an
+  MLP split over ``model`` refuses a whole-layer ``BlockPlan``.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.core import hw as jhw  # noqa: E402
+from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
+from repro.data.pipeline import SyntheticLM as JSyntheticLM  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.optim import OptConfig as JOptConfig  # noqa: E402
+from repro.train import steps as JS  # noqa: E402
+
+import torch_dist_workers as W  # noqa: E402
+from torch_spawn import run_ranks  # noqa: E402
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+OPT = dict(peak_lr=1e-2, warmup_steps=1, decay_steps=3)
+MOE_KW = dict(ftl_mode="off", capacity_factor=0.5, remat=False)
+
+TRAIN = {
+    "heads_6_2": ("llama3.2-3b", dict(n_heads=6, n_kv_heads=2), (1, 4)),
+    "vocab_510": ("llama3.2-3b", dict(vocab_size=510), (1, 4)),
+}
+# name: (arch, config fields, mesh, dispatches)
+GRADS = {
+    "mqa": ("granite-20b", dict(ftl_mode="off"), (1, 4), ("-",)),
+    "moe_ep_8_2x2": ("qwen2-moe-a2.7b", dict(MOE_KW, n_experts=8), (2, 2),
+                     ("scatter", "grouped")),
+    "moe_ff_6_1x4": ("qwen2-moe-a2.7b", dict(MOE_KW, n_experts=6), (1, 4),
+                     ("scatter", "grouped")),
+    "whisper_1x4": ("whisper-base", {}, (1, 4), ("-",)),
+    "vlm_1x4": ("llama-3.2-vision-90b", {}, (1, 4), ("-",)),
+}
+# the extra input of each family that takes one, (B, ·, d_model) from a
+# seed: whisper's frames, the VLM's image embeddings
+EXTRA = {"whisper-base": ("frames", "encoder_seq"),
+         "llama-3.2-vision-90b": ("image_embeds", "n_image_tokens")}
+XGATE = 0.5
+GRAD_CASES = [(n, d) for n, g in GRADS.items() for d in g[3]]
+# name: (arch, config fields, mesh, tokens (B, T), prompt, max_seq, lag a
+# row or None, tolerance)
+SERVE = {
+    "llama_rows_2x2": ("llama3.2-3b", {}, (2, 2), (2, 12), 8, 16, [0, 1],
+                       2e-5),
+    "rgemma_ring_2x2": ("recurrentgemma-9b", {}, (2, 2), (2, 40), 36, 40,
+                        None, 1e-4),
+    "granite_1x4": ("granite-20b", {}, (1, 4), (2, 12), 8, 16, None, 2e-5),
+    "whisper_1x4": ("whisper-base", {}, (1, 4), (2, 12), 8, 16, None, 1e-4),
+}
+
+
+@pytest.fixture(autouse=True)
+def same_target():
+    jhw.set_default_target("cpu_cache")
+    with jax.default_matmul_precision("highest"):
+        yield
+    jhw.set_default_target(None)
+
+
+def _jcfg(arch, **kw):
+    return dataclasses.replace(jconfigs.get_config(arch).reduced(), **kw)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _flat(tree, pre=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, pre + k + "/")
+        else:
+            yield pre + k, v
+
+
+def _gated(weights):
+    """Every ``xgate`` at ``XGATE``: at the reference's zero init
+    ``tanh(0)·o = 0`` hides the cross-attention layers from the loss."""
+    return {k: _gated(v) if isinstance(v, dict) else
+            (np.full_like(v, XGATE) if k == "xgate" else v)
+            for k, v in weights.items()}
+
+
+def _batches(vocab, n=2, b=8, s=24, seed=3):
+    data = JSyntheticLM(JDataConfig(vocab_size=vocab, global_batch=b,
+                                    seq_len=s, seed=seed),
+                        process_index=0, process_count=1)
+    return [data.batch_at(i)["tokens"] for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def tp_group(tmp_path_factory):
+    """Every case's inputs, and each rank's results, from one 4-rank
+    group."""
+    train, grads, serve = {}, {}, {}
+    for name, (arch, kw, shape) in TRAIN.items():
+        jcfg = _jcfg(arch, **kw)
+        weights = _np(JM.init_params(jcfg, jax.random.PRNGKey(0)))
+        train[name] = (arch, kw, shape, weights,
+                       _batches(jcfg.vocab_size), OPT)
+    for name, (arch, kw, shape, dispatches) in GRADS.items():
+        runs = {}
+        for dispatch in dispatches:
+            kwd = kw if dispatch == "-" else dict(kw, moe_dispatch=dispatch)
+            jcfg = _jcfg(arch, **kwd)
+            weights = _np(JM.init_params(jcfg, jax.random.PRNGKey(0)))
+            weights = _gated(weights)
+            rng = np.random.default_rng(2)
+            batch = {"tokens": rng.integers(
+                0, jcfg.vocab_size, (2, 24)).astype(np.int32)}
+            if arch in EXTRA:
+                key, n = EXTRA[arch]
+                batch[key] = rng.standard_normal(
+                    (2, getattr(jcfg, n), jcfg.d_model)).astype(np.float32)
+            runs[dispatch] = (weights, batch, kwd)
+        grads[name] = (arch, shape, runs)
+    for name, (arch, kw, shape, tshape, n, max_seq, lag, _) in SERVE.items():
+        jcfg = _jcfg(arch, **kw)
+        weights = _np(JM.init_params(jcfg, jax.random.PRNGKey(1)))
+        rng = np.random.default_rng(4)
+        toks = rng.integers(0, jcfg.vocab_size, tshape).astype(np.int32)
+        if arch in EXTRA:
+            key, n_extra = EXTRA[arch]
+            toks = {"tokens": toks, key: rng.standard_normal(
+                (tshape[0], getattr(jcfg, n_extra), jcfg.d_model)
+            ).astype(np.float32)}
+        serve[name] = (arch, kw, shape, weights, toks, n, max_seq, lag)
+    ranks = run_ranks(W.tp_cases, 4, tmp_path_factory.mktemp("tp"), train,
+                      grads, serve)
+    return {"train": train, "grads": grads, "serve": serve}, ranks
+
+
+# ---------------------------------------------------------------------------
+# train steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_tp_train_step_matches_single_device_reference(tp_group, name):
+    inputs, ranks = tp_group
+    arch, kw, shape, weights, batches, _ = inputs["train"][name]
+    jcfg = _jcfg(arch, remat=True, **kw)
+    step = jax.jit(JS.make_train_step(jcfg, None, JOptConfig(**OPT)))
+    jp = jax.tree.map(jnp.asarray, weights)
+    state = JS.TrainState(jp, JS.init_opt_state(jp), jnp.zeros((), jnp.int32))
+    jlog = []
+    for b in batches:
+        state, m = step(state, {"tokens": jnp.asarray(b)})
+        jlog.append({k: float(v) for k, v in m.items()})
+    jparams = dict(_flat(_np(state.params)))
+    first = ranks[0]["train"][name][0]
+    for r in ranks:
+        (log, params, _), _ = r["train"][name]
+        assert log == first[0]
+        for k, t in _flat(params):
+            np.testing.assert_array_equal(t, dict(_flat(first[1]))[k])
+    log, params, _ = first
+    for i, (tm, jm) in enumerate(zip(log, jlog)):
+        for k in ("loss", "grad_norm", "lr", "accuracy"):
+            np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5,
+                                       err_msg=f"{name} step {i} {k}")
+    tol = 1e-5 + 1e-4 * jlog[-1]["lr"] * len(batches)
+    for k, t in _flat(params):
+        d = float(np.abs(t - jparams[k]).max())
+        assert d <= tol, (name, k, d)
+
+
+# ---------------------------------------------------------------------------
+# one step's gradient: MQA and MoE
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,dispatch", GRAD_CASES,
+                         ids=[f"{n}-{d}" for n, d in GRAD_CASES])
+def test_tp_loss_and_gradient_match_reference(tp_group, name, dispatch):
+    inputs, ranks = tp_group
+    arch = GRADS[name][0]
+    weights, batch, kw = inputs["grads"][name][2][dispatch]
+    jcfg = _jcfg(arch, **kw)
+    jp = jax.tree.map(jnp.asarray, weights)
+    jstate = JS.TrainState(jp, JS.init_opt_state(jp),
+                           jnp.zeros((), jnp.int32))
+    jstate, jm = jax.jit(JS.make_train_step(
+        jcfg, None, JOptConfig(peak_lr=0.0, warmup_steps=0)))(
+        jstate, jax.tree.map(jnp.asarray, batch))
+    jm_ = dict(_flat(_np(jstate.opt["m"])))
+    keys = ("loss", "grad_norm", "accuracy") + (
+        ("moe_aux",) if jcfg.is_moe else ())
+    for r in ranks:
+        metrics, m = r["grads"][name][0][dispatch]
+        for k in keys:
+            np.testing.assert_allclose(metrics[k], float(jm[k]), rtol=2e-5,
+                                       atol=2e-5, err_msg=k)
+        top = max(float(np.abs(g).max()) for g in jm_.values())
+        for k, t in _flat(m):
+            if arch == "whisper-base" and k.endswith("wk/b"):
+                # an unroped key bias adds one score to every key a query
+                # sees, which the softmax cancels: its gradient is
+                # rounding on both sides, held as
+                # tests/test_torch_encdec.py holds it
+                assert max(float(np.abs(t).max()),
+                           float(np.abs(jm_[k]).max())) <= 1e-6 * top, k
+                continue
+            scale = max(float(np.abs(jm_[k]).max()), 1e-30)
+            assert float(np.abs(t - jm_[k]).max()) <= 2e-5 * scale, k
+    assert float(np.abs(jm_["layers/pos0/attn/wq/w"]).max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(SERVE))
+def test_tp_prefill_and_decode_match_reference(tp_group, name):
+    inputs, ranks = tp_group
+    arch, kw, shape, weights, toks, n, max_seq, lag = inputs["serve"][name]
+    tol = SERVE[name][-1]
+    jcfg = _jcfg(arch, **kw)
+    jp = jax.tree.map(jnp.asarray, weights)
+    batch = dict(toks) if isinstance(toks, dict) else {"tokens": toks}
+    toks = batch.pop("tokens")
+    jl, jc = JM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :n]),
+                                   **jax.tree.map(jnp.asarray, batch)},
+                        max_seq=max_seq)
+    want = [np.asarray(jl)]
+    for i in range(n, toks.shape[1]):
+        pos = jnp.int32(i) if lag is None else \
+            jnp.asarray(i - np.asarray(lag), jnp.int32)
+        jl, jc = JM.decode_step(jcfg, jp, jnp.asarray(toks[:, i:i + 1]), jc,
+                                pos)
+        want.append(np.asarray(jl))
+    dp = shape[0]
+    seen = set()
+    for r in ranks:
+        d, logits, steps, specs = r["serve"][name][0]
+        seen.add(d)
+        rows = slice(d * (2 // dp), (d + 1) * (2 // dp))
+        for got, ref in zip([logits, *steps], want):
+            np.testing.assert_allclose(got, ref[rows], rtol=tol, atol=tol)
+        # a stacked KV cache (L, B, S, Hk, Dh): S split over model
+        k = next(v for p, v in specs.items()
+                 if p.startswith("layers/") and p.endswith("/k"))
+        assert k[-1] == "S(2)", k
+    assert seen == set(range(dp))
+
+
+# ---------------------------------------------------------------------------
+# no weight crosses model
+# ---------------------------------------------------------------------------
+
+def test_no_weight_is_gathered_over_model(tp_group):
+    """Dense and MoE configs gather no leaf over ``model``: each rank
+    computes on its shard.  The recurrent mixers' leaves are gathered
+    whole (the RG-LRU runs replicated), which the spy sees."""
+    _, ranks = tp_group
+    for r in ranks:
+        for kind in ("train", "grads", "serve"):
+            for name, (_, seen) in r[kind].items():
+                if name.startswith("rgemma"):
+                    assert seen, name
+                else:
+                    assert seen == [], (kind, name, seen[:4])
+
+
+# ---------------------------------------------------------------------------
+# the exact count on a fake 1 x 4 mesh
+# ---------------------------------------------------------------------------
+
+_COUNT = """
+import json
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import get_config
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.act_sharding import use_gather, use_policy
+from repro_torch.distributed.sharding import (make_activation_policy,
+                                              param_shardings)
+from repro_torch.launch.dryrun import _place, fake_mesh
+from repro_torch.models import model as M
+from repro_torch.roofline.op_cost import analyze_step
+import dataclasses
+out = {}
+for name, kw in %r.items():
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                              ftl_mode="off", **kw)
+    for tp in (1, 4):
+        with fake_mesh((1, tp), ("data", "model")) as mesh:
+            shapes = M.param_shapes(cfg)
+            with FakeTensorMode():
+                params = _place(shapes, param_shardings(shapes, mesh, cfg))
+                tokens = torch.zeros((%d, %d), dtype=torch.long)
+
+                @torch.no_grad()
+                def fwd(params, tokens):
+                    gather = C.ParamGather(mesh, {
+                        p: t.placements
+                        for p, t in C.paths_and_leaves(params).items()})
+                    with use_policy(make_activation_policy(mesh, cfg)), \\
+                            use_gather(gather):
+                        return M.forward(cfg, C.local_tree(params),
+                                         {"tokens": tokens})[0]
+
+                rec = analyze_step(fwd, params, tokens)
+        out[f"{name}/{tp}"] = rec["matmul_flops"]
+print(json.dumps(out))
+"""
+COUNT_CASES = {"heads_4_4": {}, "heads_6_2": dict(n_heads=6, n_kv_heads=2)}
+COUNT_B, COUNT_S = 2, 16
+
+
+def _analytic(n_heads, n_kv, tp):
+    """Rank 0's matmul FLOPs for one reduced llama forward on ``model``
+    = ``tp``: the projections, the gated MLP and the tied logits split
+    ``tp`` ways, the attention core (q Kᵀ and p V) split where the heads
+    divide."""
+    cfg = jconfigs.get_config("llama3.2-3b").reduced()
+    b, s, d, dh, f, v = (COUNT_B, COUNT_S, cfg.d_model, cfg.head_dim,
+                         cfg.d_ff, cfg.vocab_size)
+    tok = b * s
+    proj = 2 * tok * d * (2 * n_heads * dh + 2 * n_kv * dh) // tp
+    mlp = 3 * 2 * tok * d * f // tp
+    core = 2 * 2 * b * n_heads * s * s * dh
+    core //= tp if n_heads % tp == 0 else 1
+    return cfg.n_layers * (proj + mlp + core) + 2 * tok * d * v // tp
+
+
+def test_fake_mesh_matmul_count_is_the_analytic_share():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run(
+        [sys.executable, "-c", _COUNT % (COUNT_CASES, COUNT_B, COUNT_S)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, kw in COUNT_CASES.items():
+        h, hk = kw.get("n_heads", 4), kw.get("n_kv_heads", 4)
+        for tp in (1, 4):
+            assert got[f"{name}/{tp}"] == _analytic(h, hk, tp), (name, tp)
+
+
+# ---------------------------------------------------------------------------
+# a card detected outside remat
+# ---------------------------------------------------------------------------
+
+_DETECT = """
+import dataclasses
+import types
+import torch
+from torch.utils.checkpoint import DefaultDeviceType
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch.dryrun import lower_cell
+
+# a host whose card is seen but not yet initialised: detecting it (the
+# planning target's ``get_device_properties``) initialises CUDA, and
+# remat's checkpoint refuses a forward that does so
+def props(i=0):
+    torch.cuda._initialized = True
+    return types.SimpleNamespace(name="NVIDIA H100 80GB HBM3")
+
+torch.cuda.is_available = lambda: True
+torch.cuda.get_device_properties = props
+DefaultDeviceType._default_device_type = "cuda"
+cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), remat=True)
+rec = lower_cell("llama3.2-3b", "t", cfg=cfg,
+                 shape=ShapeSpec("t", "train", 16, 4),
+                 layout=((1, 2), ("data", "model")))
+print(rec["ftl_target"])
+"""
+
+
+def test_train_step_split_over_model_detects_the_card_outside_remat():
+    """Under a ``model`` axis larger than 1 no whole-block plan is made
+    before the layers, so each layer's MLP resolves its executor inside
+    remat's checkpoint; the forward detects the planning target first,
+    as a dry-run on a host with a card needs."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("FTL_TARGET", None)
+    proc = subprocess.run([sys.executable, "-c", _DETECT], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "h100"
+
+
+_PLAN = """
+import dataclasses
+import torch
+from repro_torch.configs import get_config
+from repro_torch.distributed.act_sharding import use_policy
+from repro_torch.distributed.sharding import make_activation_policy
+from repro_torch.launch.dryrun import fake_mesh
+from repro_torch.models import model as M
+from repro_torch.models.layers import mlp_layer
+
+cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                          ftl_mode="fused")
+p = M.init_params(cfg, 0, device="cpu")["layers"]["pos0"]["mlp"]
+p = {k: {n: t[0] for n, t in v.items()} for k, v in p.items()}
+x = torch.ones((1, 8, cfg.d_model), dtype=p["w1"]["w"].dtype)
+plan = M._block_plan(cfg, 8, cfg.dtype, device="cpu")
+assert plan is not None
+mlp_layer(cfg, p, x, plan=plan)
+with fake_mesh((1, 2), ("data", "model")) as mesh, \\
+        use_policy(make_activation_policy(mesh, cfg)):
+    try:
+        mlp_layer(cfg, {k: {n: t.chunk(2, 1 - (k == "w2"))[0]
+                            for n, t in v.items()} for k, v in p.items()},
+                  x, plan=plan)
+    except ValueError as e:
+        print("refused:", e)
+"""
+
+
+def test_a_whole_layer_plan_is_refused_where_the_mlp_splits():
+    """A ``BlockPlan`` is made for whole-layer shapes: an MLP whose
+    ``d_ff`` splits over a ``model`` axis larger than 1 raises rather
+    than run the plan at its shard's shapes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _PLAN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1].startswith(
+        "refused: a BlockPlan is made for whole-layer shapes")

@@ -37,18 +37,20 @@ def _tree_np(tree):
             v.detach().float().numpy() for k, v in tree.items()}
 
 
-def train_steps(rank, world, runs, weights, batches, opt_kw):
+def train_steps(rank, world, runs, weights, batches, opt_kw,
+                arch="llama3.2-3b", kw=None):
     """For each (mesh shape, accum, compress) in ``runs``: steps of
-    reduced llama3.2-3b from ``weights`` on that mesh, each on this rank's
-    rows of ``batches[i]``.  Returns {run: (metrics a step, whole params
-    after the last)}."""
+    reduced ``arch`` (llama3.2-3b; config fields ``kw``) from
+    ``weights`` on that mesh, each on this rank's rows of
+    ``batches[i]``.  Returns {run: (metrics a step, whole params after
+    the last, the error state's sum of squares with ``compress``)}."""
     from repro_torch.distributed import collectives as C
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import OptConfig
     from repro_torch.train import steps as S
 
     # remat on: the recomputation in the backward gathers again
-    cfg = _cfg("llama3.2-3b", remat=True)
+    cfg = _cfg(arch, **{"remat": True, **(kw or {})})
     out = {}
     for shape, accum, compress in runs:
         mesh = make_mesh(shape, ("pod", "data", "model")[-len(shape):],
@@ -69,26 +71,29 @@ def train_steps(rank, world, runs, weights, batches, opt_kw):
     return out
 
 
-def moe_loss(rank, world, runs: dict):
+def moe_loss(rank, world, runs: dict, shape=None, arch="qwen2-moe-a2.7b"):
     """For each ``name: (weights, tokens, kw)`` in ``runs``: reduced
-    qwen2-moe-a2.7b (config fields ``kw``) on a (world x 1) mesh, the
-    loss, its aux and the whole gradient of one step's dp mean, from the
-    step's metrics and its first AdamW moment (lr 0: the weights
-    stay)."""
+    ``arch`` (qwen2-moe-a2.7b; config fields ``kw``) on a ``shape``
+    (default world x 1) ``data x model`` mesh, the loss, its aux and the
+    whole gradient of one step's dp mean, from the step's metrics and
+    its first AdamW moment (lr 0: the weights stay).  ``tokens`` may be
+    a whole batch, a dict with the frames or image embeddings beside
+    them."""
     from repro_torch.distributed import collectives as C
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import OptConfig
     from repro_torch.train import steps as S
 
-    mesh = make_mesh((world, 1), ("data", "model"), device="cpu")
+    mesh = make_mesh(shape or (world, 1), ("data", "model"), device="cpu")
     out = {}
     for name, (weights, tokens, kw) in runs.items():
-        cfg = _cfg("qwen2-moe-a2.7b", **kw)
+        cfg = _cfg(arch, **kw)
         state = _state_on(mesh, cfg, weights, False)
         step = S.make_train_step(cfg, mesh, OptConfig(peak_lr=0.0,
                                                       warmup_steps=0))
-        state, m = step(state, S.shard_batch({"tokens": torch.from_numpy(
-            tokens)}, mesh))
+        batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+        state, m = step(state, S.shard_batch(
+            {k: torch.from_numpy(v) for k, v in batch.items()}, mesh))
         # m = (1 - b1) * clip * g at step 0: the clipped mean gradient
         out[name] = ({k: float(v) for k, v in m.items()},
                      _tree_np(C.gather_tree(state.opt["m"])))
@@ -96,30 +101,37 @@ def moe_loss(rank, world, runs: dict):
 
 
 def serve_steps(rank, world, arch, shape, weights, tokens, n_prompt,
-                max_seq):
+                max_seq, lag=None, kw=None):
     """Prefill ``n_prompt`` tokens and decode the rest of ``tokens`` one
-    at a time through the mesh serving steps, on this rank's rows.
-    Returns (this rank's dp coordinate, prefill logits, each decode
-    step's logits)."""
+    at a time through the mesh serving steps, on this rank's rows;
+    ``lag`` (one int a row of the global batch) decodes each row at its
+    own position, ``lag`` behind the step's (a per-row ``pos``).
+    ``tokens`` may be a dict that holds the prefill's frames or image
+    embeddings beside them.  Returns (this rank's dp coordinate, prefill logits, each decode
+    step's logits, the cache's placements)."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed.sharding import param_shardings
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import steps as S
 
-    cfg = _cfg(arch)
+    cfg = _cfg(arch, **(kw or {}))
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     params = params_from_numpy(weights, "cpu")
     params = C.place_tree(params, param_shardings(params, mesh, cfg))
     prefill = S.make_prefill_step(cfg, mesh, max_seq=max_seq)
     decode = S.make_decode_step(cfg, mesh)
-    rows = S.shard_batch({"tokens": torch.from_numpy(tokens)}, mesh)
-    toks = rows["tokens"]
-    logits, cache = prefill(params, {"tokens": toks[:, :n_prompt]})
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+    rows = S.shard_batch({k: torch.from_numpy(v) for k, v in batch.items()},
+                         mesh)
+    toks = rows.pop("tokens")
+    if lag is not None:
+        lag = C.dp_rows(torch.as_tensor(lag), mesh)
+    logits, cache = prefill(params, {"tokens": toks[:, :n_prompt], **rows})
     steps = []
     for i in range(n_prompt, toks.shape[1]):
-        lg, cache = decode(params, cache, toks[:, i:i + 1],
-                           torch.tensor(i))
+        pos = torch.tensor(i) if lag is None else i - lag
+        lg, cache = decode(params, cache, toks[:, i:i + 1], pos)
         steps.append(lg.numpy())
     specs = {"/".join(p): tuple(map(str, t.placements)) for p, t in
              C.paths_and_leaves(cache).items()}
@@ -224,3 +236,64 @@ def two_by_two(rank, world, serve: dict, init_archs, init_batches,
                       for arch, a in serve.items()},
             "init": sharded_init(rank, world, init_archs, init_batches),
             "cli": train_cli(rank, world, cli_root, cli_argv)}
+
+
+def _model_gathers():
+    """Record every gather of a weight over a ``model`` dim of size > 1
+    that the steps' gatherer makes: ``collectives.gather_full`` wrapped,
+    counting calls made inside ``ParamGather.__call__``; returns the list
+    it appends the gathered shards' shapes to."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import collectives as C
+
+    seen: list = []
+    inside = [0]
+    plain, call = C.gather_full, C.ParamGather.__call__
+
+    def spy(x, placements, mesh, only=None):
+        for i, (name, n) in enumerate(zip(mesh.mesh_dim_names, mesh.shape)):
+            if inside[0] and name == "model" and n > 1 \
+                    and isinstance(placements[i], Shard) \
+                    and (only is None or i in only):
+                seen.append(tuple(x.shape))
+        return plain(x, placements, mesh, only)
+
+    def gatherer(self, *args, **kw):
+        inside[0] += 1
+        try:
+            return call(self, *args, **kw)
+        finally:
+            inside[0] -= 1
+
+    C.gather_full, C.ParamGather.__call__ = spy, gatherer
+    return seen
+
+
+def tp_cases(rank, world, train: dict, grads: dict, serve: dict):
+    """The tensor-parallel cases of ``tests/test_torch_tp.py`` in one
+    group: for each ``name: (arch, kw, shape, weights, batches, opt_kw)``
+    in ``train`` the :func:`train_steps` of one run; for each ``name:
+    (arch, shape, runs)`` in ``grads`` :func:`moe_loss`; for each ``name:
+    (arch,
+    kw, shape, weights, tokens, n_prompt, max_seq, lag)`` in ``serve``
+    :func:`serve_steps`.  Beside each, the shapes of the weights the
+    steps gathered over ``model``."""
+    seen = _model_gathers()
+    out: dict = {"train": {}, "grads": {}, "serve": {}}
+    for name, (arch, kw, shape, weights, batches, opt_kw) in train.items():
+        del seen[:]
+        res = train_steps(rank, world, [(shape, 1, False)], weights,
+                          batches, opt_kw, arch=arch, kw=kw)
+        out["train"][name] = (res[(shape, 1, False)], list(seen))
+    for name, (arch, shape, runs) in grads.items():
+        del seen[:]
+        out["grads"][name] = (moe_loss(rank, world, runs, shape, arch),
+                              list(seen))
+    for name, (arch, kw, shape, weights, tokens, n, max_seq, lag) in \
+            serve.items():
+        del seen[:]
+        out["serve"][name] = (serve_steps(rank, world, arch, shape, weights,
+                                          tokens, n, max_seq, lag, kw),
+                              list(seen))
+    return out
