@@ -318,14 +318,28 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    MLP outputs through the kernels are held against their plain versions
    on the same input by phase 2's rule, and each layer's gradients
    through the flash kernels against the plain Function's within 2e-2.
+   Over the same group, the recurrent mixers split over ``model``:
+   recurrentgemma-9b at full width as rank 0 (the RG-LRU at W = 1,024,
+   heads 4/1, ``d_ff`` 3,072, vocab 64,000), a 1,024-token prefill and 4
+   decode steps at full depth under ``"fused"`` and 2 train steps of 2 x
+   3,072 tokens at phase 13's 6 layers under ``"off"`` (the scan's
+   training build and backward at (1, 3072, 1024), phase 13's launches a
+   step, each layer's gradients against the plain Functions' within
+   2e-2; the fake group's reduce-scatter is replaced by one that keeps
+   this rank's own part, as its all-reduce does), and xlstm-1.3b at 24
+   layers, a 1,024-token prefill and 4 decode steps (the mLSTM scan whole
+   on q, k and v gathered from 256 columns a head); for each every
+   recurrent layer against its plain version by phase 2's rule, every
+   decode-state leaf of ``cache_pspecs``' shard shape, no gather over
+   ``model`` of a weight or a cache leaf, launches counted from 0.
 16. The dry-run and the roofline (``repro_torch.launch.dryrun``,
    ``roofline/{analysis,op_cost}.py``): (a) the dry-run CLI, one process
    a cell, all started together, on llama3.2-3b's ``train_4k``,
    ``prefill_32k`` and ``decode_32k`` on the 16 x 16 mesh and
    ``train_4k`` on 2 x 16 x 16, qwen2-moe-a2.7b's ``prefill_32k`` with
-   ``--opt`` and xlstm-1.3b's ``long_500k``, and both MoE configs'
-   ``train_4k`` (their ``useful_flops_ratio`` printed beside llama's, the
-   counts of the split over ``model``): each record ``ok``, planned
+   ``--opt`` and xlstm-1.3b's ``long_500k``, and both MoE configs' and
+   recurrentgemma-9b's ``train_4k`` (their ``useful_flops_ratio`` printed
+   beside llama's, the counts of the split over ``model``): each record ``ok``, planned
    and priced for the detected ``h100`` (memory term at 3.35 TB/s),
    ``mfu_bound <= 1``, and each cell's per-chip FLOPs and bytes,
    collectives by kind, three terms, dominant term, peak bytes and
@@ -3271,8 +3285,9 @@ def tp_phase(dev, card: str, counters: dict, mesh11: dict) -> dict:
     over a fake process group on the card: train steps under ``"off"``
     and a prefill and decode steps under ``"fused"`` at the split shapes,
     launches counted from 0 before each and held to the path's; each
-    layer held against its plain version on the same input.  Returns the
-    path's launches."""
+    layer held against its plain version on the same input.  Then, over
+    the same group, the recurrent mixers split over ``model``
+    (:func:`tp_recurrent`).  Returns each path's launches."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3475,10 +3490,371 @@ def tp_phase(dev, card: str, counters: dict, mesh11: dict) -> dict:
                               (1, 2, TP_PROMPT, 128))},
               f"flash ran at {set(heads)}, not 6/2 heads")
         del dparams, params, inputs
+        torch.cuda.empty_cache()
+        out = {TP_RANK: {n: train_n.get(n, 0) + serve_n.get(n, 0)
+                         for n in {**train_n, **serve_n}}}
+        out.update(tp_recurrent(dev, card, counters, mesh))
     check(not dist.is_initialized(), "the fake group outlived 15 (e)")
     torch.cuda.empty_cache()
-    return {n: train_n.get(n, 0) + serve_n.get(n, 0)
-            for n in {**train_n, **serve_n}}
+    return out
+
+
+# the recurrent mixers split over model, as rank 0 of the same 1 x 4 mesh:
+# recurrentgemma-9b's RG-LRU at W = 4096 / 4 = 1024 a rank (its 16/1 heads
+# to 4/1, d_ff 12288 to 3072, vocab 256,000 to 64,000) and xlstm-1.3b's
+# mLSTM (up 8192 to 2048 columns, q, k, v 1024 to 256 columns of each of
+# its 4 heads, gathered whole for the scan; the gates' heads 4 to 1) and
+# sLSTM (D 2048 to 512 columns, one whole head of 4).  Served: a prompt
+# and decode steps, recurrentgemma at full depth under "fused", xlstm at
+# the serving phase's 24 layers; trained: recurrentgemma at phase 13's
+# 6 layers under "off", its microbatches as phase 13's
+RG_TP = "recurrentgemma-9b (tp-rank, mesh 1x4)"
+XLSTM_TP = "xlstm-1.3b (tp-rank, mesh 1x4)"
+TP_REC_PROMPT, TP_REC_DECODE = 1024, 4
+TP_RG_STEPS, TP_RG_BATCH, TP_RG_SEQ, TP_RG_ACCUM = 2, 2, 3072, 2
+
+
+@contextlib.contextmanager
+def _spy_model_gathers(seen: list):
+    """``collectives.gather_full`` recording the shape of each tensor it
+    gathers over a ``model`` dim of size > 1: a weight's (the steps'
+    gatherer) or a cache leaf's (a decode step's)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import collectives as C
+
+    real = C.gather_full
+
+    def spy(x, placements, mesh, only=None):
+        for i, (name, n) in enumerate(zip(mesh.mesh_dim_names, mesh.shape)):
+            if name == "model" and n > 1 and isinstance(placements[i], Shard) \
+                    and (only is None or i in only):
+                seen.append(tuple(x.shape))
+        return real(x, placements, mesh, only)
+
+    with mock.patch.object(C, "gather_full", spy):
+        yield
+
+
+def _spy_op(name: str, shapes: list):
+    """``ops.<name>`` recording its first argument's shape at each call."""
+    from repro_torch.kernels import ops
+
+    real = getattr(ops, name)
+
+    def spy(*a, **kw):
+        shapes.append(tuple(a[0].shape))
+        return real(*a, **kw)
+
+    return mock.patch.object(ops, name, spy)
+
+
+@contextlib.contextmanager
+def _own_reduce_scatter():
+    """The fake group's reduce-scatter leaves its output unwritten (the
+    sLSTM's output gate sums its row-parallel product through one, and
+    the RG-LRU's gathered conv output sends its gradient back through
+    one); in its place each call keeps this rank's chunk of its own
+    input: the sum with every other rank's part missing, as the fake
+    all-reduce leaves a tensor as it is."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as C
+
+    def own(out, src, group=None):
+        n = dist.get_world_size(group)
+        out.copy_(src.chunk(n)[dist.get_rank(group)])
+
+    with mock.patch.object(C, "_reduce_scatter", own):
+        yield
+
+
+def _tp_serve(dev, card: str, counters: dict, mesh, cfg, label: str,
+              op: str, op_shape: tuple, want: dict, seed: int) -> dict:
+    """``cfg`` served as rank 0 of ``mesh``: the sharded init, one
+    prompt of TP_REC_PROMPT tokens from rank 0's quarter of the vocab and
+    TP_REC_DECODE decode steps through the mesh serving steps, launches
+    counted from 0 before and held to ``want``; ``op``'s kernel at
+    ``op_shape``; no gather over ``model`` of a weight or a cache leaf;
+    each cache leaf's local shard of ``cache_pspecs``' shard shape; the
+    logits finite.  Then every layer on the plain stream's input, each
+    of its parts through a kernel against its plain version by phase 2's
+    rule: the recurrent mixer (``op`` at ``op_shape``), the attention
+    (flash at this rank's heads) and the MLP (fused, at this rank's
+    d_ff).  Returns the launches."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.act_sharding import use_policy
+    from repro_torch.distributed.sharding import (NamedSharding,
+                                                  cache_pspecs,
+                                                  make_activation_policy)
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import attention_layer, mlp_layer, norm
+    from repro_torch.train import steps as S
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    dparams = S._init_sharded_params(cfg, gen, dev, mesh)
+    torch.cuda.synchronize()
+    local = C.local_tree(dparams)
+    mix = local["layers"]["pos0"]["mix"]
+    print(f"  {label}: {cfg.n_layers} layers {M.period_kinds(cfg)}, rank "
+          f"0's shards {sum(t.numel() for t in M.tree_leaves(local))} "
+          f"parameters, initialised in {time.perf_counter() - t0} s; "
+          f"pos0's mixer: " + ", ".join(
+              f"{k} {tuple(v.shape[1:])}" for k, v in
+              C.paths_and_leaves(mix).items() if v.ndim > 2))
+    n, d = TP_REC_PROMPT, TP_REC_DECODE
+    toks = torch.randint(2, cfg.vocab_size // TP_SHAPE[1], (1, n + d),
+                         generator=gen, device=dev)
+    prefill = S.make_prefill_step(cfg, mesh, max_seq=n + d)
+    decode = S.make_decode_step(cfg, mesh)
+    seen, shapes = [], []
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _own_reduce_scatter(), _spy_model_gathers(seen), \
+            _spy_op(op, shapes):
+        t0 = time.perf_counter()
+        logits, cache = prefill(dparams, {"tokens": toks[:, :n]})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, dec_s = [logits], []
+        for i in range(n, n + d):
+            t0 = time.perf_counter()
+            lg, cache = decode(dparams, cache, toks[:, i:i + 1],
+                               torch.tensor(i, device=dev))
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t0)
+            out.append(lg)
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    leaves = C.paths_and_leaves(cache)
+    specs = C.paths_and_leaves(cache_pspecs(M.tree_map(
+        lambda t: torch.empty(t.shape, device="meta"), cache), mesh, cfg))
+    local_shapes = {p: (tuple(t.to_local().shape),
+                        NamedSharding(mesh, specs[p]).shard_shape(
+                            tuple(t.shape))) for p, t in leaves.items()}
+    state = {"/".join(p[1:]): v[0] for p, v in local_shapes.items()
+             if p[-1] not in ("k", "v")}
+    print(f"  one {n}-token prefill {prefill_s} s and {d} decode steps "
+          f"{dec_s} s; peak device memory {peak} GB; {op} at "
+          f"{sorted(set(shapes))}; launches {launches}; decode state on "
+          f"rank 0 (local shards): {state}; gathers over model of a weight "
+          f"or a cache leaf: {len(seen)} [{card}]")
+    check(all(tuple(t.shape) == (1, 1, cfg.vocab_size)
+              and bool(torch.isfinite(t.float()).all()) for t in out),
+          f"{label}: the serving steps' logits are not finite (1, 1, "
+          f"vocab)")
+    check(all(a == b for a, b in local_shapes.values()),
+          f"{label}: cache leaves whose local shard is not cache_pspecs' "
+          f"shard shape: {[(p, a, b) for p, (a, b) in local_shapes.items() if a != b]}")
+    check(seen == [], f"{label}: {len(seen)} gathers over model of a weight "
+          f"or a cache leaf: {seen[:4]}")
+    check(all(launches.get(k, 0) == want.get(k, 0) for k in launches),
+          f"{label}: the serving run launched {launches}, not {want}")
+    check(set(shapes) == {op_shape},
+          f"{label}: the serving run's {op} ran at {set(shapes)}, not "
+          f"{op_shape}")
+    del cache, out, logits
+
+    # --- every layer's parts against their plain versions -----------------
+    ocfg = dataclasses.replace(cfg, ftl_mode="off")
+    scfg = dataclasses.replace(cfg, ftl_mode="fused")
+    prompt = toks[:, :n]
+    positions = torch.arange(n, device=dev)
+    m = TP_SHAPE[1]
+    shares: dict = {}
+    heads = []
+    shapes.clear()
+    with torch.no_grad(), _own_reduce_scatter(), \
+            use_policy(make_activation_policy(mesh, cfg)):
+        with plain_ops(("attention", op)):
+            stream = [(kind, p, x) for kind, p, x, _, _ in
+                      M.layer_stream(ocfg, local, prompt)]
+        for kind, p, x in stream:
+            if kind in M.MIXERS:
+                with _spy_op(op, shapes):
+                    y = M.MIXERS[kind].block(cfg, p["mix"], x)
+                with plain_ops((op,)):
+                    y_p = M.MIXERS[kind].block(cfg, p["mix"], x)
+            else:
+                h = norm(p["ln1"], x, cfg.norm)
+                win = M._window(cfg, kind)
+                with _spy_attention(heads):
+                    y = attention_layer(cfg, p["attn"], h,
+                                        positions=positions, window=win)
+                with plain_ops(("attention",)):
+                    y_p = attention_layer(cfg, p["attn"], h,
+                                          positions=positions, window=win)
+                kind = "attention"
+            shares.setdefault(kind, []).append(rule_share(y, y_p))
+            if "mlp" in p:
+                h = norm(p["ln2"], x + y_p, cfg.norm)
+                shares.setdefault("mlp", []).append(rule_share(
+                    mlp_layer(scfg, p["mlp"], h),
+                    mlp_layer(ocfg, p["mlp"], h)))
+    print(f"  every layer on the plain stream's input ({n} tokens), {op} "
+          f"at {sorted(set(shapes))}" + (
+              f", flash (q, k) at {sorted(set(heads))}" if heads else "") + (
+              f", the fused MLP at {cfg.d_model} -> {cfg.d_ff // m}"
+              if "mlp" in shares else "") + f": largest "
+          f"share of {ATOL} + {RTOL}|plain| used, by part: "
+          f"{ {k: max(v) for k, v in shares.items()} } "
+          f"({ {k: len(v) for k, v in shares.items()} } layers)")
+    check(sum(len(v) for k, v in shares.items() if k != "mlp")
+          == cfg.n_layers and all(v <= 1.0 for vs in shares.values()
+                                  for v in vs),
+          f"{label}: a layer's part at the split shapes differs from its "
+          f"plain version")
+    check(set(shapes) == {op_shape},
+          f"{label}: {op} ran at {set(shapes)}, not {op_shape}")
+    n_attn = len(shares.get("attention", []))
+    hd = cfg.head_dim
+    check(n_attn == 0 or set(heads) == {
+        ((1, cfg.n_heads // m, n, hd),
+         (1, max(1, cfg.n_kv_heads // m), n, hd))},
+        f"{label}: flash ran at {set(heads)}, not "
+        f"{cfg.n_heads // m}/{max(1, cfg.n_kv_heads // m)} heads")
+    check(len(shares.get("mlp", [])) == (cfg.n_layers if want.get(
+        "fused_mlp") else 0), f"{label}: not every layer's MLP was held "
+        f"against its plain version")
+    del dparams, local, stream
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tp_train_rg(dev, card: str, counters: dict, mesh) -> dict:
+    """recurrentgemma-9b at phase 13's depth as rank 0 of ``mesh``: the
+    sharded train state, TP_RG_STEPS steps of TP_RG_BATCH x TP_RG_SEQ
+    tokens in TP_RG_ACCUM microbatches under ``"off"``, each making
+    phase 13's launches; the RG-LRU scan and its backward at W = 1024;
+    no gather over ``model``; each layer's gradients through the kernels
+    against the plain Functions' within GRAD_RTOL.  Returns the
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import torch_dtype
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.act_sharding import use_policy
+    from repro_torch.distributed.sharding import make_activation_policy
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import steps as S
+
+    cfg = dataclasses.replace(get_config(RG), ftl_mode="off", remat=True,
+                              n_layers=RG_TRAIN_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    state = S.init_train_state(cfg, 0, device=dev, mesh=mesh)
+    step = S.make_train_step(cfg, mesh, OptConfig(), accum=TP_RG_ACCUM)
+    toks = torch.randint(2, cfg.vocab_size // TP_SHAPE[1],
+                         (TP_RG_BATCH, TP_RG_SEQ), generator=gen, device=dev)
+    seen, shapes, secs, metrics = [], [], [], []
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _own_reduce_scatter(), _spy_model_gathers(seen), \
+            _spy_op("rg_lru", shapes):
+        for _ in range(TP_RG_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, {"tokens": toks})
+            metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_step = {k: v // TP_RG_STEPS for k, v in launches.items()}
+    want = next(t for t in TRAIN_PATHS if t.label == RG_TRAIN).per_step
+    print(f"  {RG} at {cfg.n_layers} layers, {TP_RG_STEPS} train steps of "
+          f"{TP_RG_BATCH} x {TP_RG_SEQ} tokens in {TP_RG_ACCUM} microbatches "
+          f"under 'off': step seconds {secs}; peak device memory {peak} GB; "
+          f"launches a step {per_step} (phase 13's {want}); rg_lru at "
+          f"{sorted(set(shapes))}; loss {[m['loss'] for m in metrics]}, "
+          f"grad norm {[m['grad_norm'] for m in metrics]}; gathers over "
+          f"model {len(seen)} [{card}]")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              for m in metrics), f"non-finite train metrics {metrics}")
+    check(all(per_step.get(k, 0) == want.get(k, 0) for k in per_step),
+          f"a tensor-parallel recurrentgemma step launched {per_step}, not "
+          f"{want}")
+    check(set(shapes) == {(TP_RG_BATCH // TP_RG_ACCUM, TP_RG_SEQ,
+                           cfg.lru_width // TP_SHAPE[1])},
+          f"rg_lru ran at {set(shapes)}")
+    check(seen == [], f"{len(seen)} gathers over model in the train steps")
+
+    # --- each layer's gradients through the kernels against the plain ----
+    dparams = state.params
+    del state, step
+    torch.cuda.empty_cache()
+    params = C.local_tree(dparams)
+    positions = torch.arange(TP_RG_SEQ, device=dev)
+    x = (torch.randn((1, TP_RG_SEQ, cfg.d_model), generator=gen,
+                     device=dev) * 0.5).to(torch_dtype(cfg.dtype))
+    rel = {}
+    for t in M.tree_leaves(params):
+        t.requires_grad_(True)
+    with _own_reduce_scatter(), \
+            use_policy(make_activation_policy(mesh, cfg)):
+        for i, (kind, p, _) in enumerate(M._layers(cfg, params)):
+            named = list(_flat_names(p))
+            xi = x.detach().requires_grad_()
+            cot = torch.randn(x.shape, generator=gen, device=dev
+                              ).to(x.dtype)
+            wrt = [xi, *(v for _, v in named)]
+            y = M._apply_layer(cfg, p, kind, xi, positions=positions)[0]
+            gk = torch.autograd.grad(y, wrt, cot)
+            with plain_ops(("attention", "rg_lru")):
+                y = M._apply_layer(cfg, p, kind, xi, positions=positions)[0]
+                gp = torch.autograd.grad(y, wrt, cot)
+            for name, a, b in zip(["input", *(n for n, _ in named)], gk, gp):
+                rel[f"{i}/{name}"] = _rel(a, b)
+            del y, gk, gp
+    for t in M.tree_leaves(params):
+        t.requires_grad_(False)
+    print(f"  each layer's gradients on rank 0's shards through the flash "
+          f"and RG-LRU kernels against the plain Functions', 1 x "
+          f"{TP_RG_SEQ} tokens: worst {_worst(rel)} (tolerance "
+          f"{GRAD_RTOL})")
+    check(all(np.isfinite(v) and v <= GRAD_RTOL for v in rel.values()),
+          "a recurrentgemma layer's gradients through the kernels disagree "
+          "with the plain Functions' at the split shapes")
+    del dparams, params, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_recurrent(dev, card: str, counters: dict, mesh) -> dict:
+    """The recurrent mixers as rank 0 of ``mesh`` (15 (e), after llama):
+    recurrentgemma-9b served at full depth and trained at phase 13's,
+    xlstm-1.3b served at 24 layers.  Returns each path's launches."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    rg = dataclasses.replace(get_config(RG), ftl_mode="fused")
+    w = rg.lru_width // TP_SHAPE[1]
+    print(f"  the recurrent mixers split over model: {RG} (W {w} a rank)")
+    n_rec = sum(k == "rec" for k in _kinds(rg))
+    n_attn = rg.n_layers - n_rec
+    serve = _tp_serve(dev, card, counters, mesh, rg, RG_TP, "rg_lru",
+                      (1, TP_REC_PROMPT, w),
+                      {"rg_lru_scan": n_rec, "flash_attention": n_attn,
+                       "fused_mlp": rg.n_layers * (1 + TP_REC_DECODE)}, 19)
+    train = _tp_train_rg(dev, card, counters, mesh)
+    out[RG_TP] = {k: serve.get(k, 0) + train.get(k, 0)
+                  for k in {**serve, **train}}
+    xl = dataclasses.replace(get_config(XLSTM), ftl_mode="off",
+                             n_layers=XLSTM_SERVE_LAYERS)
+    print(f"  {XLSTM} at {xl.n_layers} layers")
+    e = xl.xlstm_expand * xl.d_model
+    out[XLSTM_TP] = _tp_serve(
+        dev, card, counters, mesh, xl, XLSTM_TP, "mlstm",
+        (1, xl.n_heads, TP_REC_PROMPT, e // xl.n_heads),
+        {"mlstm_scan": sum(k == "mlstm" for k in _kinds(xl))}, 20)
+    return out
+
+
+def _kinds(cfg) -> list:
+    """Every layer's mixer kind, in order."""
+    from repro_torch.models import model as M
+
+    kinds, n, rem = M._layer_split(cfg)
+    return kinds * n + rem
 
 
 # ---------------------------------------------------------------------------
@@ -3495,9 +3871,11 @@ DRYRUN_CELLS = (
     (LLAMA, "decode_32k", ()),
     (MOE, "prefill_32k", ("--opt",)),
     (XLSTM, "long_500k", ()),
-    # the counts of the split over model for both MoE configs
+    # the counts of the split over model for both MoE configs and the
+    # RG-LRU
     (MOE, "train_4k", ()),
     ("moonshot-v1-16b-a3b", "train_4k", ()),
+    (RG, "train_4k", ()),
 )
 DRYRUN_TIMEOUT_S = 600
 # the card's HBM: the memory term's rate and the capacity a cell must fit
@@ -3929,7 +4307,7 @@ def main() -> int:
     launches.update(mesh_n)
     print(f"== 15 (e): one rank of a 1 x 4 tensor-parallel mesh over a fake "
           f"group (at {time.perf_counter() - t_start} s)")
-    launches[TP_RANK] = tp_phase(dev, card, counters, mesh11)
+    launches.update(tp_phase(dev, card, counters, mesh11))
     print(f"== the dry-run and the roofline at full width, the memory count "
           f"on the card (at {time.perf_counter() - t_start} s)")
     t16 = time.perf_counter()

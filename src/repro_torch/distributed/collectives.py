@@ -11,9 +11,9 @@ is gathered over the dp axes where the model uses it (FSDP,
 ``model`` shard, and the model computes its slice of every dim the rules
 split over ``model`` (``sharding.tp_split``), joining the slices with
 :func:`copy_in`, :func:`reduce_out`, :func:`gather_along` and
-:func:`split_along`.  The recurrent mixers' leaves are the exception:
-they are gathered whole over every mesh dim, and their recurrence runs
-replicated over ``model``.  A weight's gradient goes back, in fp32, as
+:func:`split_along`.  The recurrent mixers (RG-LRU, mLSTM, sLSTM)
+compute on their shards too: no weight crosses ``model``, only
+activations do.  A weight's gradient goes back, in fp32, as
 the mean over the dp group of this rank's ``model`` shard of it: a
 reduce-scatter over a dp axis that shards the weight, an all-reduce over
 one that does not.  A mesh dim of size 1 runs no collective.
@@ -235,35 +235,25 @@ class _GradSink:
 
 
 class _Gather(torch.autograd.Function):
-    """shard → the weight gathered over the mesh dims in ``only`` (None:
-    every dim); the backward hands the gradient of this rank's ``model``
-    shard to the sink (the weight itself takes no gradient).  ``anchor``
-    is a scalar that requires grad, so that the node joins the graph.
-    The node holds the sink and the slot, never the gatherer: the
-    gatherer caches this node's outputs, and a reference cycle through
-    them would keep every accumulator alive until the cyclic collector
-    ran."""
+    """shard → the weight gathered over the dp dims; the backward hands
+    the gradient of this rank's ``model`` shard to the sink (the weight
+    itself takes no gradient).  ``anchor`` is a scalar that requires
+    grad, so that the node joins the graph.  The node holds the sink and
+    the slot, never the gatherer: the gatherer caches this node's
+    outputs, and a reference cycle through them would keep every
+    accumulator alive until the cyclic collector ran."""
 
     @staticmethod
-    def forward(ctx, anchor, shard, placements, sink, slot, only):
+    def forward(ctx, anchor, shard, placements, sink, slot):
         ctx.placements, ctx.sink, ctx.slot = placements, sink, slot
-        ctx.whole = only is None
-        full = gather_full(shard, placements, sink.mesh, only=only)
+        full = gather_full(shard, placements, sink.mesh,
+                           only=dp_dims(sink.mesh))
         return shard.detach() if full is shard else full
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.whole:       # replicated over model: every rank's is whole
-            g = shard_of(g, ctx.placements, ctx.sink.mesh,
-                         only=non_dp_dims(ctx.sink.mesh))
         ctx.sink.add(ctx.slot, g, ctx.placements)
-        return None, None, None, None, None, None
-
-
-def _whole_over_model(path: tuple) -> bool:
-    """A leaf gathered whole over ``model`` too: the recurrent mixers'
-    (RG-LRU, mLSTM, sLSTM), whose recurrence runs replicated."""
-    return "mix" in path
+        return None, None, None, None, None
 
 
 class ParamGather:
@@ -272,14 +262,13 @@ class ParamGather:
     ``placements`` maps each leaf's dict path to its placements (of the
     whole leaf; a period slice drops the stacked lead dim).  Each leaf
     is gathered over the dp axes and keeps its ``model`` shard, which
-    the model computes with; a recurrent mixer's leaf is gathered
-    whole.  With ``grads`` (path → fp32 accumulator shaped like the local
-    shard) each gathered weight's gradient is added there, reduced over
-    the dp group and divided by ``dp_size * accum``; without it
-    (serving), weights are gathered with no autograd.  A leaf outside
-    the layer stacks is gathered once per gatherer and reused (the tied
-    embedding's two uses then share one gradient, summed as autograd sums
-    a leaf's).
+    the model computes with.  With ``grads`` (path → fp32 accumulator
+    shaped like the local shard) each gathered weight's gradient is
+    added there, reduced over the dp group and divided by ``dp_size *
+    accum``; without it (serving), weights are gathered with no
+    autograd.  A leaf outside the layer stacks is gathered once per
+    gatherer and reused (the tied embedding's two uses then share one
+    gradient, summed as autograd sums a leaf's).
     """
 
     def __init__(self, mesh, placements: dict, grads: dict | None = None,
@@ -303,14 +292,12 @@ class ParamGather:
             if period is not None:
                 pl = _unstacked(pl)
             self.seen.add(full_path)
-            only = None if _whole_over_model(full_path) \
-                else dp_dims(self.mesh)
             if self.grads is None:
-                return gather_full(t, pl, self.mesh, only=only)
+                return gather_full(t, pl, self.mesh, only=dp_dims(self.mesh))
             slot = self.grads[full_path]
             if period is not None:
                 slot = slot[period]
-            return _Gather.apply(self.anchor, t, pl, self.sink, slot, only)
+            return _Gather.apply(self.anchor, t, pl, self.sink, slot)
 
         out = map_with_path(one, tree)
         if period is None:
@@ -396,6 +383,22 @@ class _SplitAlong(torch.autograd.Function):
             None
 
 
+class _ReduceScatterAlong(torch.autograd.Function):
+    """The sum over ``model`` of every rank's part, each rank keeping its
+    slice along ``dim``; the backward gathers every rank's slice of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _scatter_sum_dim(x, tp.group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.tp.group, ctx.dim).contiguous(), None, \
+            None
+
+
 def copy_in(x: torch.Tensor, tp: TP | None) -> torch.Tensor:
     """The input of a column-parallel product, replicated over ``model``:
     ``x`` itself, whose gradient the backward all-reduces over ``model``
@@ -424,6 +427,15 @@ def split_along(x: torch.Tensor, tp: TP | None, dim: int = -1
     """This rank's slice along ``dim`` of a replicated tensor (the input
     of a row-parallel product); its backward gathers the gradient."""
     return x if tp is None else _SplitAlong.apply(x, tp, dim % x.dim())
+
+
+def reduce_scatter_along(x: torch.Tensor, tp: TP | None, dim: int = -1
+                         ) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every ``model``
+    rank's part (a row-parallel product whose output the next op uses
+    split); its backward gathers the gradient."""
+    return x if tp is None else _ReduceScatterAlong.apply(x, tp,
+                                                          dim % x.dim())
 
 
 def all_reduce_(x: torch.Tensor, tp: TP | None, op=dist.ReduceOp.SUM

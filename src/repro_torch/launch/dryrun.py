@@ -23,10 +23,10 @@ A fake tensor lies on the CPU, so every kernel wrapper takes its plain
 PyTorch version: the dry-run prices the port's plain path, as the
 reference's prices its XLA path (on CPU devices its ops resolve to
 ``ref`` and a Pallas custom call costs nothing).  It launches no kernel.
-The port's mesh steps compute data-parallel over ``model`` too (each
-rank gathers whole weights and runs its dp rows), so its per-chip matmul
-FLOPs on 16×16 are about 16× the reference's; they are recorded as they
-are.
+The port's mesh steps split the work over ``model`` as the reference's
+rules lay it out, the recurrent mixers' too; the mLSTM's sequence scan
+runs whole on every rank, on q, k and v gathered over ``model``, as the
+reference's own Pallas call runs on gathered operands.
 
 The records keep the reference's keys where a counterpart exists.
 ``lower_s`` is the trace's seconds.  ``compile_s``, ``xla_flops_raw``,

@@ -617,6 +617,36 @@ def init_cache(cfg, batch: int, seq: int, *,
     return cache
 
 
+def whole_cache_shapes(cfg, cache: Params, n: int) -> Params:
+    """``meta`` stand-ins of the whole cache that ``cache`` holds a
+    rank's part of: each leaf's batch dim (1 in the stacked ``layers``,
+    else 0) ``n`` times longer; a recurrent layer's state at its init's
+    widths, whole over ``model`` (a mesh step's mixer returns it on its
+    shard), and every other leaf (KV, whose length the prompt and the
+    window set) at its own."""
+    kinds, _, rem_kinds = _layer_split(cfg)
+    kind_of = {**{f"pos{i}": k for i, k in enumerate(kinds)},
+               **{f"rem{i}": k for i, k in enumerate(rem_kinds)}}
+
+    def layer(top: str, key: str, c: Params) -> Params:
+        bdim = 1 if top == "layers" else 0
+        if kind_of.get(key) in _SELF_NORMED:
+            t = tree_leaves(c)[0]
+            return MIXERS[kind_of[key]].init_state(
+                cfg, t.shape[bdim] * n, torch.device("meta"),
+                tuple(t.shape[:bdim]))
+
+        def rows(t):
+            shape = list(t.shape)
+            shape[bdim] *= n
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+
+        return tree_map(rows, c)
+
+    return {top: {key: layer(top, key, c) for key, c in sub.items()}
+            for top, sub in cache.items()}
+
+
 def prefill(cfg, params: Params, batch: dict[str, torch.Tensor],
             max_seq: int | None = None, *, plan=None,
             last_pos: int | torch.Tensor | None = None

@@ -17,11 +17,11 @@ of the work over ``model``, Megatron-style, as the reference's rules
 split it (``models.layers``, ``models.moe``, the vocab in
 ``models.model`` and ``train.losses``): every weight is gathered over
 the dp axes where the model uses it and keeps its ``model`` shard (the
-recurrent mixers' are gathered whole and run replicated), and its
-gradient comes back in fp32 as the mean over the dp group of this
-rank's shard (``distributed.collectives.ParamGather``).  AdamW and the
-error feedback then update each rank's shards in place; the gradient
-norm counts every shard once.  The loss and the other metrics are means
+recurrent mixers' too), and its gradient comes back in fp32 as the
+mean over the dp group of this rank's shard
+(``distributed.collectives.ParamGather``).  AdamW and the error feedback
+then update each rank's shards in place; the gradient norm counts every
+shard once.  The loss and the other metrics are means
 over the dp group (``tokens`` a sum).
 
 ``compress=True`` applies int8 error-feedback compression to the reduced
@@ -325,38 +325,30 @@ def _placements(tree) -> dict:
     return {p: t.placements for p, t in C.paths_and_leaves(tree).items()}
 
 
-def _global_cache_shape(cache: Params, n: int) -> Params:
-    """``meta`` stand-ins of the cache with every leaf's batch dim (1
-    under a stacked ``layers`` tree, else 0) ``n`` times longer."""
-    def one(path, t):
-        shape = list(t.shape)
-        shape[1 if path[0] == "layers" else 0] *= n
-        return torch.empty(shape, dtype=t.dtype, device="meta")
-
-    return C.map_with_path(one, cache)
-
-
 def _place_cache(cfg, mesh, cache: Params) -> Params:
-    """A rank's cache (its rows, whole along every other dim) as DTensors
-    in ``cache_pspecs``' layout: each leaf narrowed to this rank's slice
-    over the non-dp axes that shard it."""
-    specs = C.paths_and_leaves(cache_pspecs(
-        _global_cache_shape(cache, C.dp_size(mesh)), mesh, cfg))
+    """A rank's cache (its rows) as DTensors in ``cache_pspecs``' layout.
+    The model returns each KV cache whole over ``model``, and it is
+    narrowed to this rank's slice of the sequence, as is an empty leaf
+    (a stack with no whole period, made at the whole widths); every
+    other leaf, the recurrent mixers' state, the model computed on its
+    shard (``models.recurrent``), and it is placed as it is, after a
+    check that its shape is ``cache_pspecs``' shard shape."""
+    whole = M.whole_cache_shapes(cfg, cache, C.dp_size(mesh))
+    specs = C.paths_and_leaves(cache_pspecs(whole, mesh, cfg))
     only = C.non_dp_dims(mesh)
 
-    def one(path, t):
-        pl = NamedSharding(mesh, specs[path]).placements
-        shard = C.shard_of(t, pl, mesh, only=only)
-        if shard is not t:
-            shard = shard.contiguous()
-        shape = list(t.shape)
-        shape[1 if path[0] == "layers" else 0] *= C.dp_size(mesh)
-        return DTensor.from_local(shard, mesh, pl, run_check=False,
-                                  shape=torch.Size(shape),
-                                  stride=torch.empty(shape,
-                                                     device="meta").stride())
+    def one(path, t, full):
+        sh = NamedSharding(mesh, specs[path])
+        if _is_kv(path, t) or t.numel() == 0:
+            t = C.shard_of(t, sh.placements, mesh, only=only).contiguous()
+        elif tuple(t.shape) != sh.shard_shape(tuple(full.shape)):
+            raise ValueError(
+                f"cache leaf {path}: {tuple(t.shape)} is not its shard "
+                f"{sh.shard_shape(tuple(full.shape))}")
+        return DTensor.from_local(t, mesh, sh.placements, run_check=False,
+                                  shape=full.shape, stride=full.stride())
 
-    return C.map_with_path(one, cache)
+    return C.map_with_path(one, cache, whole)
 
 
 def make_prefill_step(cfg, mesh=None, *, max_seq: int | None = None,
@@ -373,8 +365,10 @@ def make_prefill_step(cfg, mesh=None, *, max_seq: int | None = None,
     ``model``, and returns this rank's logits, whole over the vocab, and
     the cache as DTensors in ``cache_pspecs``' layout: the KV cache split
     by sequence over ``model`` (every KV head's, gathered where the heads
-    split).  ``plan`` is made for whole-layer shapes: an MLP split over
-    a ``model`` axis larger than 1 refuses one (``layers.mlp_layer``)."""
+    split), the recurrent state by width, as each mixer returns it on
+    its shard.  ``plan`` is made for whole-layer shapes: an MLP split
+    over a ``model`` axis larger than 1 refuses one
+    (``layers.mlp_layer``)."""
     _check_mesh(mesh)
     policy = make_activation_policy(mesh, cfg) if mesh is not None else None
 
@@ -425,11 +419,11 @@ def make_decode_step(cfg, mesh=None, *, plan=None):
     from the mesh prefill step) and ``token`` this rank's rows.  The KV
     leaves stay split by sequence over ``model``: each rank attends to
     its slots and the rank that holds the new one writes it
-    (``layers.attention_decode``).  A recurrent state leaf is gathered
-    over the non-dp axes that shard it (none on a mesh whose ``model``
-    axis is 1: the step then writes the shards in place), and this
-    rank's slice written back.  The logits come back whole over the
-    vocab.  ``plan`` as :func:`make_prefill_step` takes it."""
+    (``layers.attention_decode``).  Every leaf goes to the model as this
+    rank's shard, and the recurrent mixers update their state there in
+    place (``models.recurrent``): no state leaf is gathered.  The logits
+    come back whole over the vocab.  ``plan`` as
+    :func:`make_prefill_step` takes it."""
     _check_mesh(mesh)
 
     @torch.no_grad()
@@ -437,22 +431,13 @@ def make_decode_step(cfg, mesh=None, *, plan=None):
                 pos: torch.Tensor):
         if mesh is None:
             return M.decode_step(cfg, params, token, cache, pos, plan=plan)
-        only = C.non_dp_dims(mesh)
-        shards = C.paths_and_leaves(cache)
-        local = {p: t.to_local() if _is_kv(p, t) else C.gather_full(
-            t.to_local(), t.placements, mesh, only=only)
-            for p, t in shards.items()}
         gather = C.ParamGather(mesh, _placements(params))
-        policy = make_activation_policy(mesh, cfg, _kv_seq(shards))
+        policy = make_activation_policy(
+            mesh, cfg, _kv_seq(C.paths_and_leaves(cache)))
         with use_policy(policy), use_gather(gather):
-            logits, _ = M.decode_step(
-                cfg, C.local_tree(params), token,
-                C.map_with_path(lambda p, _: local[p], cache), pos, plan=plan)
+            logits, _ = M.decode_step(cfg, C.local_tree(params), token,
+                                      C.local_tree(cache), pos, plan=plan)
             logits = C.gather_along(logits, M.vocab_split(cfg))
-        for p, t in shards.items():
-            if local[p] is not t.to_local():
-                t.to_local().copy_(C.shard_of(local[p], t.placements, mesh,
-                                              only=only))
         return logits, cache
 
     return step_fn

@@ -13,7 +13,12 @@ serving of llama3.2-3b and recurrentgemma-9b, all now split over
   do not divide 4 (llama's own 24/8 on 16: the attention core runs whole
   on every rank, wq's and wk's columns split mid-head and gathered), and
   with a vocab of 510, which does not divide 4 (the embedding and the
-  logits whole): metrics and params after the steps.
+  logits whole); reduced recurrentgemma-9b, its RG-LRU's W of 128 split
+  to 32 a rank: metrics and params after the steps.  recurrentgemma's
+  params may part from the reference's past the train tolerance in a
+  share of 1e-5 of their elements (``ROUNDING_SHARE``: AdamW carries the
+  rounding of one tiny gradient past it, on one device too), and are
+  held besides against the port's own step on one device.
 * One step's loss and mean gradient (the first AdamW moment at lr 0, as
   the MoE test of ``tests/test_torch_distributed.py`` holds it) for
   reduced granite-20b's MQA on 1 x 4 (4 q heads split, the one KV head
@@ -26,16 +31,23 @@ serving of llama3.2-3b and recurrentgemma-9b, all now split over
   expert); reduced whisper-base (encoder, decoder and cross-attention,
   its untied head split by vocab; frames from a seed) and reduced
   llama-3.2-vision-90b (its cross layers, every ``xgate`` at 0.5 on both
-  sides; image embeddings from a seed) on 1 x 4.
+  sides; image embeddings from a seed) on 1 x 4; the recurrent mixers on
+  1 x 4: reduced recurrentgemma-9b, and reduced xlstm-1.3b with
+  ``slstm_every=2`` (mLSTM and sLSTM layers; its 2 heads do not divide
+  4, so the sLSTM's columns split mid-head and the mLSTM's gates run
+  whole).
 * Serving: reduced llama3.2-3b on 2 x 2 with a per-row ``pos``, reduced
   recurrentgemma-9b on 2 x 2 with its ring cache wrapping (36 prompt
   tokens, window 32), reduced granite-20b on 1 x 4 (the new slots in one
   rank's part of the cache), reduced whisper-base on 1 x 4 (its cross
-  cache of the frames split by sequence too): each rank's logits
-  against the reference's rows, the KV cache split by sequence.
+  cache of the frames split by sequence too), reduced recurrentgemma-9b
+  on 1 x 4 and reduced xlstm-1.3b (``slstm_every=2``) on 1 x 4 and on
+  2 x 2 (whole heads there): each rank's logits against the reference's
+  rows, the KV cache split by sequence, and every cache leaf's local
+  shard of the shape the reference's ``cache_pspecs`` gives it.
 * No weight crosses ``model``: the gatherer gathers no leaf over it in
-  any dense or MoE case; recurrentgemma's recurrent mixers are the
-  exception the spy sees.
+  any case, the recurrent mixers' included, and no serving step gathers
+  a cache leaf over it.
 * On a fake 1 x 4 mesh, ``op_cost``'s ``matmul_flops`` for one reduced
   llama forward is the analytic count of rank 0's share: projections,
   MLP and logits a quarter; the attention core a quarter where the heads
@@ -57,14 +69,22 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AbstractMesh as JAbstractMesh  # noqa: E402
+from jax.sharding import PartitionSpec as JP  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.core import hw as jhw  # noqa: E402
 from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
 from repro.data.pipeline import SyntheticLM as JSyntheticLM  # noqa: E402
+from repro.distributed import sharding as JSH  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.optim import OptConfig as JOptConfig  # noqa: E402
 from repro.train import steps as JS  # noqa: E402
+
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.train import steps as TS  # noqa: E402
 
 import torch_dist_workers as W  # noqa: E402
 from torch_spawn import run_ranks  # noqa: E402
@@ -76,7 +96,19 @@ MOE_KW = dict(ftl_mode="off", capacity_factor=0.5, remat=False)
 TRAIN = {
     "heads_6_2": ("llama3.2-3b", dict(n_heads=6, n_kv_heads=2), (1, 4)),
     "vocab_510": ("llama3.2-3b", dict(vocab_size=510), (1, 4)),
+    "rgemma_1x4": ("recurrentgemma-9b", {}, (1, 4)),
 }
+# train cases whose params after the steps may part from the reference's
+# past the train tolerance in this share of their elements, each by no
+# more than AdamW moves a weight in the steps (2 peak_lr a step), as
+# tests/test_torch_distributed.py holds a compressed run; and which are
+# held, besides, against the port's own step on one device at the train
+# tolerance.  recurrentgemma: one element of 633,728 (layers/pos1/mix/
+# wr/w[0, 45, 113], by 1.5e-5 against 1.2e-5 on 1 x 1 and on 1 x 4),
+# whose first gradient (7.4e-7) is 45 times below its leaf's median, so
+# that its rounding in fp32 is about 1e-3 of it, which the second AdamW
+# step's ratio of moments passes on at lr 1e-2
+ROUNDING_SHARE = {"rgemma_1x4": 1e-5}
 # name: (arch, config fields, mesh, dispatches)
 GRADS = {
     "mqa": ("granite-20b", dict(ftl_mode="off"), (1, 4), ("-",)),
@@ -86,7 +118,12 @@ GRADS = {
                      ("scatter", "grouped")),
     "whisper_1x4": ("whisper-base", {}, (1, 4), ("-",)),
     "vlm_1x4": ("llama-3.2-vision-90b", {}, (1, 4), ("-",)),
+    "rgemma_1x4": ("recurrentgemma-9b", {}, (1, 4), ("-",)),
+    "xlstm_1x4": ("xlstm-1.3b", dict(slstm_every=2), (1, 4), ("-",)),
 }
+# a leaf each family's gradient must reach (not all zero)
+REACHED = {"xlstm-1.3b": "layers/pos1/mix/rz",
+           "recurrentgemma-9b": "layers/pos0/mix/wr/w"}
 # the extra input of each family that takes one, (B, ·, d_model) from a
 # seed: whisper's frames, the VLM's image embeddings
 EXTRA = {"whisper-base": ("frames", "encoder_seq"),
@@ -102,6 +139,12 @@ SERVE = {
                         None, 1e-4),
     "granite_1x4": ("granite-20b", {}, (1, 4), (2, 12), 8, 16, None, 2e-5),
     "whisper_1x4": ("whisper-base", {}, (1, 4), (2, 12), 8, 16, None, 1e-4),
+    "rgemma_1x4": ("recurrentgemma-9b", {}, (1, 4), (2, 40), 36, 40, None,
+                   1e-4),
+    "xlstm_1x4": ("xlstm-1.3b", dict(slstm_every=2), (1, 4), (2, 12), 8, 16,
+                  None, 1e-4),
+    "xlstm_2x2": ("xlstm-1.3b", dict(slstm_every=2), (2, 2), (2, 12), 8, 16,
+                  None, 1e-4),
 }
 
 
@@ -115,6 +158,10 @@ def same_target():
 
 def _jcfg(arch, **kw):
     return dataclasses.replace(jconfigs.get_config(arch).reduced(), **kw)
+
+
+def _tcfg(arch, **kw):
+    return dataclasses.replace(tconfigs.get_config(arch).reduced(), **kw)
 
 
 def _np(tree):
@@ -214,10 +261,30 @@ def test_tp_train_step_matches_single_device_reference(tp_group, name):
         for k in ("loss", "grad_norm", "lr", "accuracy"):
             np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5,
                                        err_msg=f"{name} step {i} {k}")
-    tol = 1e-5 + 1e-4 * jlog[-1]["lr"] * len(batches)
+    steps = len(batches)
+    tol = 1e-5 + 1e-4 * jlog[-1]["lr"] * steps
+    over = total = 0
+    worst = (0.0, "")
     for k, t in _flat(params):
-        d = float(np.abs(t - jparams[k]).max())
-        assert d <= tol, (name, k, d)
+        d = np.abs(t - jparams[k])
+        over += int((d > tol).sum())
+        total += d.size
+        worst = max(worst, (float(d.max()), k))
+        assert d.max() <= tol + 2 * OPT["peak_lr"] * steps, (name, k)
+    assert over <= ROUNDING_SHARE.get(name, 0.0) * total, \
+        (name, over, total, worst)
+    if name in ROUNDING_SHARE:
+        tstep = TS.make_train_step(_tcfg(arch, remat=True, **kw), None,
+                                   OptConfig(**OPT))
+        tp = params_from_numpy(weights, "cpu")
+        tstate = TS.TrainState(tp, TS.init_opt_state(tp),
+                               torch.zeros((), dtype=torch.int32))
+        for b in batches:
+            tstate, _ = tstep(tstate, {"tokens": torch.from_numpy(b)})
+        one = {k: t.detach().numpy() for k, t in _flat(tstate.params)}
+        for k, t in _flat(params):
+            d = float(np.abs(t - one[k]).max())
+            assert d <= tol, (name, k, d)
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +324,8 @@ def test_tp_loss_and_gradient_match_reference(tp_group, name, dispatch):
                 continue
             scale = max(float(np.abs(jm_[k]).max()), 1e-30)
             assert float(np.abs(t - jm_[k]).max()) <= 2e-5 * scale, k
-    assert float(np.abs(jm_["layers/pos0/attn/wq/w"]).max()) > 0
+    reached = REACHED.get(arch, "layers/pos0/attn/wq/w")
+    assert float(np.abs(jm_[reached]).max()) > 0, reached
 
 
 # ---------------------------------------------------------------------------
@@ -286,16 +354,52 @@ def test_tp_prefill_and_decode_match_reference(tp_group, name):
     dp = shape[0]
     seen = set()
     for r in ranks:
-        d, logits, steps, specs = r["serve"][name][0]
+        d, logits, steps, specs, _ = r["serve"][name][0]
         seen.add(d)
         rows = slice(d * (2 // dp), (d + 1) * (2 // dp))
         for got, ref in zip([logits, *steps], want):
             np.testing.assert_allclose(got, ref[rows], rtol=tol, atol=tol)
         # a stacked KV cache (L, B, S, Hk, Dh): S split over model
-        k = next(v for p, v in specs.items()
-                 if p.startswith("layers/") and p.endswith("/k"))
-        assert k[-1] == "S(2)", k
+        k = [v for p, v in specs.items()
+             if p.startswith("layers/") and p.endswith("/k")]
+        assert all(v[-1] == "S(2)" for v in k), k
+        assert k or jcfg.family == "ssm"
     assert seen == set(range(dp))
+
+
+@pytest.mark.parametrize("name", list(SERVE))
+def test_tp_decode_state_stays_on_its_shards(tp_group, name):
+    """After the decode steps each cache leaf's local shard has the shape
+    the reference's ``cache_pspecs`` gives it on the case's mesh (the
+    recurrent state split by width, as the mixers compute it), and no
+    serving step gathered a cache leaf over ``model``."""
+    inputs, ranks = tp_group
+    arch, kw, shape, weights, toks, n, max_seq, _ = inputs["serve"][name]
+    jcfg = _jcfg(arch, **kw)
+    batch = dict(toks) if isinstance(toks, dict) else {"tokens": toks}
+    toks = batch.pop("tokens")
+    jcache = jax.eval_shape(lambda p: JM.prefill(
+        jcfg, p, {"tokens": jnp.asarray(toks[:, :n]),
+                  **jax.tree.map(jnp.asarray, batch)}, max_seq=max_seq)[1],
+        jax.tree.map(jnp.asarray, weights))
+    mesh = JAbstractMesh(shape, ("data", "model"))
+    specs = jax.tree_util.tree_flatten_with_path(
+        JSH.cache_pspecs(jcache, mesh, jcfg),
+        is_leaf=lambda x: isinstance(x, JP))[0]
+    whole = dict(_flat(jax.tree.map(lambda t: t.shape, jcache,
+                                    is_leaf=lambda t: hasattr(t, "shape"))))
+    want = {}
+    for path, spec in specs:
+        key = "/".join(str(k.key) for k in path)
+        sh = list(whole[key])
+        for d, entry in enumerate(spec):
+            for ax in (entry,) if isinstance(entry, str) else (entry or ()):
+                sh[d] //= mesh.shape[ax]
+        want[key] = tuple(sh)
+    for r in ranks:
+        (*_, local), _, outside = r["serve"][name]
+        assert local == want, name
+        assert outside == [], (name, outside[:4])
 
 
 # ---------------------------------------------------------------------------
@@ -303,17 +407,13 @@ def test_tp_prefill_and_decode_match_reference(tp_group, name):
 # ---------------------------------------------------------------------------
 
 def test_no_weight_is_gathered_over_model(tp_group):
-    """Dense and MoE configs gather no leaf over ``model``: each rank
-    computes on its shard.  The recurrent mixers' leaves are gathered
-    whole (the RG-LRU runs replicated), which the spy sees."""
+    """No config gathers a leaf over ``model``, the recurrent mixers'
+    (RG-LRU, mLSTM, sLSTM) included: each rank computes on its shard."""
     _, ranks = tp_group
     for r in ranks:
         for kind in ("train", "grads", "serve"):
-            for name, (_, seen) in r[kind].items():
-                if name.startswith("rgemma"):
-                    assert seen, name
-                else:
-                    assert seen == [], (kind, name, seen[:4])
+            for name, (_, seen, *_) in r[kind].items():
+                assert seen == [], (kind, name, seen[:4])
 
 
 # ---------------------------------------------------------------------------

@@ -101,14 +101,16 @@ def moe_loss(rank, world, runs: dict, shape=None, arch="qwen2-moe-a2.7b"):
 
 
 def serve_steps(rank, world, arch, shape, weights, tokens, n_prompt,
-                max_seq, lag=None, kw=None):
+                max_seq, lag=None, kw=None, local_shapes=False):
     """Prefill ``n_prompt`` tokens and decode the rest of ``tokens`` one
     at a time through the mesh serving steps, on this rank's rows;
     ``lag`` (one int a row of the global batch) decodes each row at its
     own position, ``lag`` behind the step's (a per-row ``pos``).
     ``tokens`` may be a dict that holds the prefill's frames or image
-    embeddings beside them.  Returns (this rank's dp coordinate, prefill logits, each decode
-    step's logits, the cache's placements)."""
+    embeddings beside them.  Returns (this rank's dp coordinate, prefill
+    logits, each decode step's logits, the cache's placements), and with
+    ``local_shapes`` the shape of each cache leaf's local shard after the
+    last step."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed.sharding import param_shardings
@@ -133,9 +135,14 @@ def serve_steps(rank, world, arch, shape, weights, tokens, n_prompt,
         pos = torch.tensor(i) if lag is None else i - lag
         lg, cache = decode(params, cache, toks[:, i:i + 1], pos)
         steps.append(lg.numpy())
-    specs = {"/".join(p): tuple(map(str, t.placements)) for p, t in
-             C.paths_and_leaves(cache).items()}
-    return C.dp_rank(mesh), logits.numpy(), steps, specs
+    leaves = C.paths_and_leaves(cache)
+    specs = {"/".join(p): tuple(map(str, t.placements))
+             for p, t in leaves.items()}
+    out = (C.dp_rank(mesh), logits.numpy(), steps, specs)
+    if local_shapes:
+        out += ({"/".join(p): tuple(t.to_local().shape)
+                 for p, t in leaves.items()},)
+    return out
 
 
 def train_cli(rank, world, root: str, argv: list[str]):
@@ -239,24 +246,26 @@ def two_by_two(rank, world, serve: dict, init_archs, init_batches,
 
 
 def _model_gathers():
-    """Record every gather of a weight over a ``model`` dim of size > 1
-    that the steps' gatherer makes: ``collectives.gather_full`` wrapped,
-    counting calls made inside ``ParamGather.__call__``; returns the list
-    it appends the gathered shards' shapes to."""
+    """Record every gather over a ``model`` dim of size > 1 that
+    ``collectives.gather_full`` makes: a weight's, inside
+    ``ParamGather.__call__``, and any other (a cache leaf's, a tree's
+    gathered for a comparison) outside it.  Returns the two lists it
+    appends the gathered shards' shapes to."""
     from torch.distributed.tensor import Shard
 
     from repro_torch.distributed import collectives as C
 
     seen: list = []
+    outside: list = []
     inside = [0]
     plain, call = C.gather_full, C.ParamGather.__call__
 
     def spy(x, placements, mesh, only=None):
         for i, (name, n) in enumerate(zip(mesh.mesh_dim_names, mesh.shape)):
-            if inside[0] and name == "model" and n > 1 \
+            if name == "model" and n > 1 \
                     and isinstance(placements[i], Shard) \
                     and (only is None or i in only):
-                seen.append(tuple(x.shape))
+                (seen if inside[0] else outside).append(tuple(x.shape))
         return plain(x, placements, mesh, only)
 
     def gatherer(self, *args, **kw):
@@ -267,7 +276,7 @@ def _model_gathers():
             inside[0] -= 1
 
     C.gather_full, C.ParamGather.__call__ = spy, gatherer
-    return seen
+    return seen, outside
 
 
 def tp_cases(rank, world, train: dict, grads: dict, serve: dict):
@@ -277,9 +286,11 @@ def tp_cases(rank, world, train: dict, grads: dict, serve: dict):
     (arch, shape, runs)`` in ``grads`` :func:`moe_loss`; for each ``name:
     (arch,
     kw, shape, weights, tokens, n_prompt, max_seq, lag)`` in ``serve``
-    :func:`serve_steps`.  Beside each, the shapes of the weights the
-    steps gathered over ``model``."""
-    seen = _model_gathers()
+    :func:`serve_steps` with the local shapes of the cache's shards.
+    Beside each, the shapes of the weights the steps gathered over
+    ``model``; beside a serving case, also those of any other tensor
+    gathered over it whole (none: no cache leaf is)."""
+    seen, outside = _model_gathers()
     out: dict = {"train": {}, "grads": {}, "serve": {}}
     for name, (arch, kw, shape, weights, batches, opt_kw) in train.items():
         del seen[:]
@@ -292,8 +303,9 @@ def tp_cases(rank, world, train: dict, grads: dict, serve: dict):
                               list(seen))
     for name, (arch, kw, shape, weights, tokens, n, max_seq, lag) in \
             serve.items():
-        del seen[:]
+        del seen[:], outside[:]
         out["serve"][name] = (serve_steps(rank, world, arch, shape, weights,
-                                          tokens, n, max_seq, lag, kw),
-                              list(seen))
+                                          tokens, n, max_seq, lag, kw,
+                                          local_shapes=True),
+                              list(seen), list(outside))
     return out
